@@ -47,16 +47,17 @@ class Conv1d(_ConvBase):
     """(B, Cin, T) -> (B, Cout, T'); weight (Cout, Cin, K)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int, *,
-                 stride: int = 1, padding: int = 0, bias: bool = True,
-                 use_weight_norm: bool = False,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 bias: bool = True, use_weight_norm: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__((out_ch, in_ch, kernel_size), in_ch * kernel_size,
                          out_ch, bias, use_weight_norm, generator)
-        self.stride, self.padding = stride, padding
+        self.stride, self.padding, self.dilation = stride, padding, dilation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv1d(x, self.resolved_weight(), self.bias,
-                        stride=self.stride, padding=self.padding)
+                        stride=self.stride, padding=self.padding,
+                        dilation=self.dilation)
 
 
 class ConvTranspose1d(_ConvBase):

@@ -6,6 +6,7 @@ from vqvae_speech_tpu_torch.ops.dsp import (
     num_frames,
     speech_features,
 )
+from vqvae_speech_tpu_torch.ops.mu_law import mu_law_decode, mu_law_encode
 from vqvae_speech_tpu_torch.ops.vq import (
     VQSearchResult,
     reference_flatten,
@@ -14,9 +15,14 @@ from vqvae_speech_tpu_torch.ops.vq import (
     vq_search,
     vq_search_torch,
 )
+from vqvae_speech_tpu_torch.ops.wavenet_step import (
+    glu_stack_step,
+    glu_stack_step_torch,
+)
 
 __all__ = [
     "delta", "fbank", "logfbank", "mfcc", "num_frames", "speech_features",
+    "mu_law_decode", "mu_law_encode", "glu_stack_step", "glu_stack_step_torch",
     "VQSearchResult", "reference_flatten", "reference_unflatten",
     "vq_distances", "vq_search", "vq_search_torch",
 ]

@@ -8,7 +8,7 @@ import time, so the module imports on machines without ``nvcc`` or a GPU.
 Each launching wrapper checks device, dtype, contiguity and shapes, allocates
 its outputs with ``torch.empty``, launches on the current CUDA stream, raises
 if the launch reported an error, and counts its launches in a plain integer
-attribute (``vq_search_cuda.launches``).
+attribute (``vq_search_cuda.launches``, ``wavenet_step_cuda.launches``).
 """
 import ctypes
 import os
@@ -128,3 +128,84 @@ def vq_search_cuda(flat: torch.Tensor, codebook: torch.Tensor):
 
 
 vq_search_cuda.launches = 0
+
+
+def _bind_wavenet_step(lib: ctypes.CDLL) -> None:
+    i32, ptr = ctypes.c_int, ctypes.c_void_p
+    lib.wavenet_step_scratch_bytes.argtypes = [i32] * 6
+    lib.wavenet_step_scratch_bytes.restype = ctypes.c_size_t
+    # x0, taps, cond, wtap, bias, wskip, bskip, wout, bout, L, k, B, C, G, S,
+    # legacy, x_out, skip, x_all, scratch, stream
+    lib.wavenet_step_f32.argtypes = [ptr] * 9 + [i32] * 7 + [ptr] * 5
+    lib.wavenet_step_f32.restype = ctypes.c_int
+
+
+WAVENET_STEP_MAX_BATCH = 32
+
+
+def wavenet_step_cuda(x0, taps, cond, wtap, bias, wskip, bskip, wout, bout,
+                      legacy: bool = False):
+    """Fused GLU layer stack for one decode step (csrc/wavenet_step.cu) on
+    CUDA f32 tensors; the contract of ``ops.wavenet_step.glu_stack_step``.
+
+    x0 (B, C), taps (L, k-1, B, C), cond (L, B, G), wtap (L, k, C, G),
+    bias (L, G), wskip (L, G/2, S), bskip (L, S), wout (L, G/2, C),
+    bout (L, C) -> (x (B, C), skip (B, S), x_all (L, B, C)).
+    """
+    args = dict(x0=x0, taps=taps, cond=cond, wtap=wtap, bias=bias,
+                wskip=wskip, bskip=bskip, wout=wout, bout=bout)
+    dev = x0.device
+    for name, t in args.items():
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"wavenet_step_cuda: {name} must be a CUDA tensor "
+                             f"on {dev}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"wavenet_step_cuda: {name} must be float32, "
+                             f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"wavenet_step_cuda: {name} must be contiguous")
+        # the weight matrices are read as float4
+        if name in ("wtap", "wskip", "wout") and t.data_ptr() % 16:
+            raise ValueError(f"wavenet_step_cuda: {name} must be 16-byte "
+                             "aligned")
+    if wtap.dim() != 4:
+        raise ValueError(f"wavenet_step_cuda: wtap must be (L, k, C, G), got "
+                         f"{tuple(wtap.shape)}")
+    L, k, C, G = wtap.shape
+    B = x0.shape[0]
+    S = wskip.shape[-1]
+    want = dict(x0=(B, C), taps=(L, k - 1, B, C), cond=(L, B, G),
+                bias=(L, G), wskip=(L, G // 2, S), bskip=(L, S),
+                wout=(L, G // 2, C), bout=(L, C))
+    for name, shape in want.items():
+        if tuple(args[name].shape) != shape:
+            raise ValueError(f"wavenet_step_cuda: {name} has shape "
+                             f"{tuple(args[name].shape)}, expected {shape}")
+    if not 1 <= B <= WAVENET_STEP_MAX_BATCH:
+        raise ValueError(f"wavenet_step_cuda: batch {B} outside 1.."
+                         f"{WAVENET_STEP_MAX_BATCH}")
+    if L < 1 or k < 1 or G % 8 or C % 4 or S % 4 or min(C, G, S) < 1:
+        raise ValueError("wavenet_step_cuda: needs L, k >= 1, G % 8 == 0, "
+                         f"C % 4 == 0 and S % 4 == 0; got L={L} k={k} C={C} "
+                         f"G={G} S={S}")
+    lib = _library("wavenet_step", _bind_wavenet_step)
+    x_out = torch.empty((B, C), dtype=torch.float32, device=dev)
+    skip = torch.empty((B, S), dtype=torch.float32, device=dev)
+    x_all = torch.empty((L, B, C), dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        (lib.wavenet_step_scratch_bytes(L, k, B, C, G, S),),
+        dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.wavenet_step_f32(
+            *(t.data_ptr() for t in args.values()), L, k, B, C, G, S,
+            int(bool(legacy)), x_out.data_ptr(), skip.data_ptr(),
+            x_all.data_ptr(), scratch.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"wavenet_step_cuda: launch failed with CUDA error "
+                           f"{err}")
+    wavenet_step_cuda.launches += 1
+    return x_out, skip, x_all
+
+
+wavenet_step_cuda.launches = 0

@@ -1,4 +1,4 @@
-"""Batch wav -> VQ-code serving with wave-length buckets.
+"""Batch wav -> VQ-code serving, and batch AR synthesis, with buckets.
 
 Counterpart of ``BucketedEncodeServer`` in ``vqvae_speech_tpu/serve.py``,
 with the same API and exactness contract: for every request, the returned
@@ -14,6 +14,11 @@ conv run on the whole (max_batch, C, T) batch; item b's batch-1 flatten is
 ``z[b].reshape(-1, D)`` (the reference flatten of a (1, C, T) tensor), so
 the whole launch is ``z.reshape(-1, D)`` and ONE ``vq_search`` over all
 max_batch * C * T / D rows — the fused CUDA kernel on a GPU.
+
+``BucketedSynthesisServer`` is the counterpart of the JAX server of the same
+name: local-conditioning frame buckets, launches padded to ``max_batch``,
+each a greedy (or sampled) AR decode whose f32 layer stack runs as one
+``glu_stack_step`` per step — the hand-written CUDA kernel on a GPU.
 """
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -21,8 +26,9 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from vqvae_speech_tpu_torch.convert import load_jax_params
-from vqvae_speech_tpu_torch.models import ConvVQVAE
+from vqvae_speech_tpu_torch.convert import load_jax_params, load_wavenet_params
+from vqvae_speech_tpu_torch.models import ConvVQVAE, WaveNet
+from vqvae_speech_tpu_torch.models.wavenet import wavenet_incremental_generate
 from vqvae_speech_tpu_torch.ops import num_frames, speech_features, vq_search
 from vqvae_speech_tpu_torch.utils import resolve_device
 
@@ -138,3 +144,124 @@ class BucketedEncodeServer:
         return {"served_buckets": sorted(self._served),
                 "launches": self._launches,
                 "max_batch": self._max_batch}
+
+
+@dataclass
+class SynthesisResult:
+    """wave: (n_samples,) int32 mu-law bins, trimmed to the request's true
+    conditioning length; bucket: the padded frame count decoded."""
+    wave: np.ndarray
+    bucket: int
+
+
+class BucketedSynthesisServer:
+    """Batch vocoder synthesis: local-conditioning buckets + padded batches.
+
+    WaveNet rows are batch-independent and generation is causal, so padded
+    batch rows are exact and tail padding only perturbs samples within the
+    conditioning upsampler's reach of the true end: greedy decode of a
+    request is the same in any batch composition.
+
+    Parameters
+    ----------
+    params, cfg : a ``wavenet_init``-shaped numpy tree and its WaveNetConfig.
+    frame_buckets : conditioning lengths (frames) each launch is padded to.
+    max_batch : streams per launch (the kernel takes up to 32).
+    sample : categorical sampling (a ``torch.Generator`` seeded per launch)
+        instead of greedy argmax.
+    compute_dtype, weight_quant, mesh : the JAX server's bf16, int8 and
+        tensor-parallel decodes; not ported yet, anything but None raises.
+    device : where the model runs ("cuda", "cpu"); no default.
+    """
+
+    def __init__(self, params, cfg, *,
+                 frame_buckets: Sequence[int] = (10, 20, 40),
+                 max_batch: int = 8,
+                 sample: bool = False,
+                 compute_dtype=None,
+                 weight_quant: Optional[str] = None,
+                 mesh=None,
+                 device):
+        for name, value in (("compute_dtype", compute_dtype),
+                            ("weight_quant", weight_quant), ("mesh", mesh)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"{name}={value!r}: only the f32 single-device decode is "
+                    "ported to PyTorch yet")
+        self._device = resolve_device(device)
+        self._cfg = cfg
+        self._buckets = tuple(sorted(int(b) for b in frame_buckets))
+        self._max_batch = int(max_batch)
+        self._sample = sample
+        self.model = load_wavenet_params(WaveNet(cfg), params).to(
+            self._device).eval()
+        self._launches = 0
+        self._upsample_factor = self.model.upsample_factor
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self._buckets:
+            if n <= b:
+                return b
+        raise ValueError(
+            f"conditioning of {n} frames exceeds the largest bucket "
+            f"{self._buckets[-1]}")
+
+    def generate_batch(self, c: torch.Tensor, g=None, seed: int = 0):
+        """One padded launch: c (B, bucket, cin) and g (B,) speaker ids (or
+        None) on the server's device -> (outs (B, T, out) logits, emitted
+        (B, T) int32), T = bucket * upsample_factor, both on the device."""
+        gen = None
+        if self._sample:
+            gen = torch.Generator(device=self._device).manual_seed(seed)
+        return wavenet_incremental_generate(
+            self.model, self._cfg, c.shape[1] * self._upsample_factor, c=c,
+            g=g, sample=self._sample, generator=gen, use_fused_stack=True)
+
+    def padded_batch(self, conds: Sequence, speaker_ids: Optional[Sequence[int]],
+                     bucket: int):
+        """Zero-pad up to max_batch (Tc, cin) conditionings to (max_batch,
+        bucket, cin) on the device, with speaker ids (max_batch,) (0 in
+        padded rows) or None."""
+        c = torch.zeros((self._max_batch, bucket, conds[0].shape[-1]),
+                        dtype=torch.float32, device=self._device)
+        for row, cond in enumerate(conds):
+            c[row, :cond.shape[0]] = torch.as_tensor(
+                cond, dtype=torch.float32, device=self._device)
+        g = None
+        if speaker_ids is not None:
+            g = torch.zeros((self._max_batch,), dtype=torch.long,
+                            device=self._device)
+            g[:len(speaker_ids)] = torch.as_tensor(list(speaker_ids),
+                                                   device=self._device)
+        return c, g
+
+    def synthesize(self, conds: Sequence, speaker_ids: Optional[Sequence[int]] = None,
+                   seed: int = 0) -> List[SynthesisResult]:
+        """conds: per-request (Tc, cin) local-conditioning arrays or tensors
+        (e.g. ``WaveNetVQVAE.local_conditioning`` rows). Returns trimmed
+        waves in order."""
+        order: Dict[int, List[int]] = {}
+        for i, c in enumerate(conds):
+            order.setdefault(self._bucket_for(c.shape[0]), []).append(i)
+
+        results: List[Optional[SynthesisResult]] = [None] * len(conds)
+        for bucket, idxs in sorted(order.items()):
+            for at in range(0, len(idxs), self._max_batch):
+                chunk = idxs[at:at + self._max_batch]
+                c, g = self.padded_batch(
+                    [conds[i] for i in chunk],
+                    None if speaker_ids is None
+                    else [speaker_ids[i] for i in chunk], bucket)
+                _, emitted = self.generate_batch(c, g, seed)
+                emitted = emitted.cpu().numpy()
+                self._launches += 1
+                for row, i in enumerate(chunk):
+                    n = conds[i].shape[0] * self._upsample_factor
+                    results[i] = SynthesisResult(wave=emitted[row, :n],
+                                                 bucket=bucket)
+        return results  # type: ignore[return-value]
+
+    @property
+    def stats(self) -> dict:
+        return {"launches": self._launches, "max_batch": self._max_batch,
+                "upsample_factor": self._upsample_factor}
