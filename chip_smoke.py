@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-1. Builds both hand-written kernels from source, one nvcc each, in
-   parallel: the fused VQ codebook search (csrc/vq_search.cu) and the fused
-   WaveNet decode-step layer stack (csrc/wavenet_step.cu).
+1. Builds the three hand-written kernel sources, one nvcc each, in
+   parallel: the fused VQ codebook search (csrc/vq_search.cu), the fused
+   WaveNet decode-step layer stack (csrc/wavenet_step.cu) and the fused
+   gated-resblock chains (csrc/fused_resblock.cu).
 2. VQ kernel phase: holds vq_search against its plain PyTorch version on
    the same CUDA tensors at the serving and benchmark shapes, and times both.
 3. Encode slice phase: serves mixed-length VCTK requests through all three
@@ -29,6 +30,25 @@
    (tests/data/torch_port_wavenet_golden.npz), and the decoded audio;
    reports samples/s, the real-time factor, ms per step and the device's
    idle share from torch.profiler.
+
+6. Chain kernel phase: holds the three fused-chain entry points against
+   their plain PyTorch chains on the same CUDA tensors: the causal tiled
+   chain at the IAF student's width for T=20480 and an odd T, the whole-T
+   causal chain at T=4096, the non-causal chain at FloWaveNet's block-0 and
+   block-3 shapes and at a deep-dilation case; times both and states the
+   card's bound for each.
+7. Vocoder slice phase: the one-pass vocoders at paper width
+   (numpy_student_params / numpy_flowavenet_params, seed 0) behind
+   BucketedParallelSynthesisServer: eight VCTK requests -> normalized
+   log-mel -> frame buckets 20, 40, 80 -> (a) the IAF student and (b) the
+   FloWaveNet reverse pass at max_batch 1 through the fused chains, (c)
+   both at max_batch 8 on the plain path with the same noise (and, for
+   the times only, at max_batch 1 on the plain path). Checks the
+   launch counts, that every wave is finite and not constant, (a) and (b)
+   against (c) request by request, and one short request a kind against
+   the JAX package's wave (tests/data/torch_port_vocoder_golden.npz);
+   drives the whole-T chain entry point on the student's own weights;
+   reports samples/s and ms a request.
 
 Exits non-zero on any failure, and without a CUDA device. The last two lines
 of output are a JSON object of per-kernel results and the JSON status line.
@@ -140,6 +160,41 @@ TIMED_STEP = (8, 3, True)     # the server's batch
 # the top two logits lie within this of each other
 NEAR_TIE_LOGITS = 2e-3
 
+# One-pass vocoders at the paper widths (the dataclasses' defaults): the
+# ClariNet IAF student (flows of 1, 1, 1 and 4 chains of 6 layers, C=128,
+# G=256, S=128, 80 mels) behind its teacher's 16x16 upsampler, and FloWaveNet
+# (8 blocks x 6 flows, 2-layer couplings of 256 channels). 22050 Hz, hop 256.
+VOCODER_RATE = 22050
+VOCODER_HOP = 256
+VOCODER_TEMP = 0.8
+VOCODER_BUCKETS = (8, 20, 40, 80)   # 8 holds the golden request alone
+VOCODER_FRAMES = (20, 17, 40, 33, 80, 64, 80, 51)   # p300_000..007
+VOCODER_GOLDEN = os.path.join(REPO_ROOT, "tests", "data",
+                              "torch_port_vocoder_golden.npz")
+GOLDEN_FRAMES = 8
+# the fused chains against their plain versions on unit-scale inputs: sums
+# of up to 1408 f32 terms a layer in another order, through up to 6 layers
+CHAIN_TOL = dict(rtol=1e-4, atol=2e-4)
+# (name, wrapper, L, k, dilations or None, T, C, G, S, cin); the first of
+# each wrapper is the one timed for the kernels line
+CHAIN_SHAPES = (
+    ("student chain", "tiled", 6, 3, None, 20480, 128, 256, 128, 80),
+    ("student chain, odd T", "tiled", 6, 3, None, 5119, 128, 256, 128, 80),
+    ("whole-T chain", "chain", 6, 3, None, 4096, 128, 256, 128, 80),
+    ("flow block 0", "nc", 2, 3, (1, 2), 10240, 256, 256, 256, 80),
+    ("flow block 3", "nc", 2, 3, (1, 2), 1280, 256, 256, 256, 640),
+    ("flow block 7", "nc", 2, 3, (1, 2), 80, 256, 256, 256, 10240),
+    ("deep dilations", "nc", 4, 3, (1, 2, 4, 8), 160, 16, 32, 16, 8),
+)
+# a fused server's wave against the plain server's and against the JAX
+# package's golden wave (f32 conv stacks of up to ~150 layers in another
+# summation order, through exp() of the flows' log-scales)
+VOCODER_TOL = 1e-3
+# NVIDIA's published peaks for the H100 SXM: f32 outside the tensor cores,
+# and device memory
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
 
 def smoke_requests():
     """The smoke's requests: VCTK p300_000..009 (16 kHz, silence-trimmed and
@@ -167,6 +222,59 @@ def synthesis_requests():
             os.path.join(WAVE_DIR, f"p300_{i:03d}.wav"), 16000)
         waves.append(np.tile(w, -(-n // len(w)))[:n].astype(np.float32))
     return waves, list(range(len(waves)))
+
+
+def vocoder_models():
+    """{kind: (numpy params, config, server keyword arguments)} for the two
+    one-pass vocoders at paper width, weights from numpy seeds."""
+    from vqvae_speech_tpu_torch.convert import (
+        numpy_flowavenet_params,
+        numpy_gaussian_wavenet_params,
+        numpy_student_params,
+    )
+    from vqvae_speech_tpu_torch.models.clarinet import (
+        GaussianWaveNetConfig,
+        StudentConfig,
+    )
+    from vqvae_speech_tpu_torch.models.flowavenet import FlowavenetConfig
+
+    student, teacher, flow = (StudentConfig(), GaussianWaveNetConfig(),
+                              FlowavenetConfig())
+    return {
+        "iaf_student": (numpy_student_params(student, SEED), student, dict(
+            teacher_params=numpy_gaussian_wavenet_params(teacher, SEED + 1),
+            teacher_cfg=teacher)),
+        "flowavenet": (numpy_flowavenet_params(flow, SEED), flow, {}),
+    }
+
+
+def vocoder_golden_inputs():
+    """The golden request: (mel (8, 80) in [0, 1], unit-normal z (2048, 1)),
+    from a numpy seed."""
+    rng = np.random.default_rng(SEED)
+    mel = rng.random((GOLDEN_FRAMES, 80)).astype(np.float32)
+    z = rng.standard_normal((GOLDEN_FRAMES * VOCODER_HOP, 1))
+    return mel, z.astype(np.float32)
+
+
+def vocoder_requests(device):
+    """The vocoder slice's requests: VCTK p300_000..007 loaded at 22050 Hz by
+    the port's loader (tiled to at least 81 hops), their normalized log-mel
+    frames cropped to VOCODER_FRAMES: a list of (frames, 80) f32 arrays."""
+    import torch
+    from vqvae_speech_tpu_torch.data.audio import load_and_preprocess
+    from vqvae_speech_tpu_torch.ops.mel import normalized_log_mel
+
+    mels = []
+    for i, n in enumerate(VOCODER_FRAMES):
+        w, _ = load_and_preprocess(
+            os.path.join(WAVE_DIR, f"p300_{i:03d}.wav"), VOCODER_RATE)
+        need = (max(VOCODER_FRAMES) + 1) * VOCODER_HOP
+        w = np.tile(w, -(-need // len(w)))[:need].astype(np.float32)
+        mel = normalized_log_mel(torch.from_numpy(w).to(device),
+                                 sr=VOCODER_RATE, hop_length=VOCODER_HOP)
+        mels.append(mel[:n].cpu().numpy())
+    return mels
 
 
 def wavenet_features(wave, device):
@@ -231,6 +339,34 @@ def _per_launch_ms(fn, launches=100, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / launches
+
+
+def _device_profile(fn):
+    """``fn`` under torch.profiler's CUDA activity: (host seconds of the
+    window, {kernel name: device microseconds})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    return window, {e.key: e.self_device_time_total
+                    for e in prof.key_averages()
+                    if e.self_device_time_total > 0}
+
+
+def _median_seconds(fn, repeats=3):
+    """Median host seconds of ``fn``, whose work ends in a device-to-host
+    copy."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
 
 
 def _near_ties(flat, codebook, got_idx, want_idx, rel_tol):
@@ -350,12 +486,7 @@ def slice_phase(gpu):
     # throughput: each bucket's batch filled to max_batch (192 requests)
     load = [w for w in requests for _ in range(MAX_BATCH // 4)]
     frames = sum(r.n_frames for r in server.encode(load))
-    times = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        server.encode(load)
-        times.append(time.perf_counter() - t0)
-    sec = statistics.median(times)
+    sec = _median_seconds(lambda: server.encode(load), repeats=5)
     print(f"slice: {len(load)} requests in {sec * 1e3:.2f} ms (median of 5): "
           f"{len(load) / sec:.1f} requests/s, {frames / sec:.0f} frames/s "
           f"[{gpu}]")
@@ -435,7 +566,6 @@ def step_kernel_phase(gpu):
 def synthesis_phase(gpu):
     """WaveNet-VQ-VAE synthesis serving at the vctk_wavenet width."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from vqvae_speech_tpu_torch.convert import (
         load_wavenet_vqvae_params,
         numpy_wavenet_vqvae_params,
@@ -616,15 +746,8 @@ def synthesis_phase(gpu):
     # device busy and idle share over one synthesize (bucket 12)
     bucket = SYNTH_BUCKETS[0]
     idx = per_bucket[bucket]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.synthesize([lcs[i] for i in idx], [speakers[i] for i in idx])
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    stats = prof.key_averages()
-    busy_us = {e.key: e.self_device_time_total for e in stats
-               if e.self_device_time_total > 0}
+    window, busy_us = _device_profile(lambda: server.synthesize(
+        [lcs[i] for i in idx], [speakers[i] for i in idx]))
     total_us = sum(busy_us.values())
     kernel_us = sum(v for k, v in busy_us.items() if "glu_" in k)
     if total_us > 0:
@@ -639,6 +762,253 @@ def synthesis_phase(gpu):
         print("synthesis profile: the profiler showed no device time; idle "
               "share not measured")
     return step_launches, vq_launches
+
+
+def _bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for work of
+    ``flops`` f32 operations outside the tensor cores and ``nbytes`` bytes
+    moved once, at the published peaks."""
+    ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def vq_search_bound(N, K, D):
+    """The codebook search: distances 2*N*K*D flops and the dw sums N*D;
+    flat and codebook read once, indices, quantized, counts, dw written."""
+    return _bound(2 * N * K * D + N * D,
+                  4 * (N * D + K * D + N + N * D + K + K * D))
+
+
+def wavenet_step_bound(L, k, B, C, G, S):
+    """One decode step: every weight read once (2*B flops an element), the
+    inputs x0, taps, cond and biases read, x, skip and x_all written."""
+    weights = L * (k * C * G + G // 2 * (S + C))
+    io = (B * C + L * (k - 1) * B * C + L * B * G + L * (G + S + C)
+          + B * C + B * S + L * B * C)
+    return _bound(2 * B * weights, 4 * (weights + io))
+
+
+def chain_bound(L, k, T, C, G, S, cin):
+    """One fused chain: per row and layer the gate products
+    2*(k*C + cin)*2G and the projections 2*G*(C + S); x, c_up and the
+    weights read once, x and skip written once."""
+    flops = T * L * (2 * (k * C + cin) * 2 * G + 2 * G * (C + S))
+    weights = L * (2 * k * C * G + 2 * cin * G + G * (C + S) + 2 * G + C + S)
+    return _bound(flops, 4 * (T * (C + cin) + weights + T * (C + S)))
+
+
+def _random_chain(rng, L, k, T, C, G, S, cin):
+    """Unit-scale x (T, C) and c_up (T, cin) and stacked chain weights scaled
+    by 1/sqrt(fan-in), as a weight-normed init gives them, on the card."""
+    import torch
+
+    def f(shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).cuda()
+
+    fan = (k * C + cin) ** -0.5
+    stacked = dict(
+        wf=f((L, k, C, G), fan), wg=f((L, k, C, G), fan),
+        wfc=f((L, cin, G), fan), wgc=f((L, cin, G), fan),
+        wres=f((L, G, C), G ** -0.5), wskip=f((L, G, S), G ** -0.5),
+        bf=f((L, G), 0.1), bg=f((L, G), 0.1), bres=f((L, C), 0.1),
+        bskip=f((L, S), 0.1))
+    return f((T, C)), f((T, cin)), stacked
+
+
+def chain_kernel_phase(gpu):
+    """The three fused-chain entry points (the kernels) against their plain
+    PyTorch chains on the same CUDA tensors, within CHAIN_TOL. Returns
+    {wrapper: its kernels-line numbers at the first shape listed for it}."""
+    import torch
+    from vqvae_speech_tpu_torch.ops import fused_resblock as fused
+
+    calls = {
+        "tiled": (fused.fused_block_chain_tiled,
+                  fused.fused_block_chain_tiled_torch),
+        "chain": (fused.fused_block_chain, fused.fused_block_chain_torch),
+        "nc": (fused.fused_block_chain_nc, fused.fused_block_chain_nc_torch),
+    }
+    rng = np.random.default_rng(SEED)
+    out = {}
+    with torch.inference_mode():
+        for name, which, L, k, dil, T, C, G, S, cin in CHAIN_SHAPES:
+            x, c, stacked = _random_chain(rng, L, k, T, C, G, S, cin)
+            kernel, plain = calls[which]
+            extra = () if dil is None else (dil,)
+            got = kernel(x, c, stacked, L, k, *extra)
+            want = plain(x, c, stacked, L, k, *extra)
+            torch.cuda.synchronize()
+            err = 0.0
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, **CHAIN_TOL)
+                err = max(err, (g - w).abs().max().item())
+            ms = _median_ms(lambda: kernel(x, c, stacked, L, k, *extra),
+                            iters=20, warmup=3)
+            plain_ms = _median_ms(lambda: plain(x, c, stacked, L, k, *extra),
+                                  iters=20, warmup=3)
+            bound_ms, bound_by = chain_bound(L, k, T, C, G, S, cin)
+            row = out.setdefault(which, dict(
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            print(f"kernel fused_block_chain[{which}] {name}: L={L} k={k} "
+                  f"dilations={dil or 'k**l'} T={T} C={C} G={G} S={S} "
+                  f"cin={cin}: max_abs_err {err:.3e}; kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                  f"{bound_by} ({bound_ms / ms:.3f} of the kernel's time; "
+                  f"median of 20, CUDA events) [{gpu}]")
+    return out
+
+
+def vocoder_phase(gpu):
+    """One-pass vocoder serving at paper width; returns the chain kernels'
+    launch counts on the main path, {wrapper: count}."""
+    import torch
+    from vqvae_speech_tpu_torch.convert import load_student_params
+    from vqvae_speech_tpu_torch.ops import _kernels
+    from vqvae_speech_tpu_torch.ops import fused_resblock as fused
+    from vqvae_speech_tpu_torch.serve import BucketedParallelSynthesisServer
+
+    t0 = time.perf_counter()
+    models = vocoder_models()
+    mels = vocoder_requests("cuda")
+    golden = np.load(VOCODER_GOLDEN)
+    golden_mel, golden_z = vocoder_golden_inputs()
+    wrappers = {"tiled": _kernels.fused_block_chain_tiled_cuda,
+                "chain": _kernels.fused_block_chain_cuda,
+                "nc": _kernels.fused_block_chain_nc_cuda}
+    n_samples = sum(m.shape[0] for m in mels) * VOCODER_HOP
+    print(f"vocoder: set-up {time.perf_counter() - t0:.2f} s (random "
+          f"paper-width weights, {len(mels)} requests of "
+          f"{[m.shape[0] for m in mels]} frames, {n_samples} samples)")
+
+    launches = {}
+    for kind, (params, cfg, kw) in models.items():
+        which, chains = (("tiled", sum(cfg.num_blocks_student))
+                         if kind == "iaf_student"
+                         else ("nc", cfg.n_block * cfg.n_flow))
+        common = dict(frame_buckets=VOCODER_BUCKETS, temp=VOCODER_TEMP,
+                      device="cuda", **kw)
+        fused_server = BucketedParallelSynthesisServer(
+            kind, params, cfg, max_batch=1, use_fused_chain=True, **common)
+        plain_server = BucketedParallelSynthesisServer(
+            kind, params, cfg, max_batch=8, **common)
+
+        # the main path: mel requests -> buckets -> one-pass synthesis, every
+        # resblock chain one call of the chain kernel
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = fused_server.synthesize(mels, seed=SEED)
+        main_sec = time.perf_counter() - t0
+        counts = {n: w.launches for n, w in wrappers.items()}
+        want_counts = {n: chains * len(mels) if n == which else 0
+                       for n in wrappers}
+        if counts != want_counts:
+            raise AssertionError(f"{kind}: chain kernel launches {counts}, "
+                                 f"expected {want_counts}")
+        launches[which] = counts[which]
+        if sorted({r.bucket for r in results}) != [20, 40, 80]:
+            raise AssertionError(f"{kind}: requests filled buckets "
+                                 f"{sorted({r.bucket for r in results})}")
+        for mel, r in zip(mels, results):
+            if r.wave.shape != (mel.shape[0] * VOCODER_HOP,):
+                raise AssertionError(f"{kind}: wave {r.wave.shape} for "
+                                     f"{mel.shape[0]} frames")
+            if not (np.isfinite(r.wave).all() and r.wave.std() > 1e-3):
+                raise AssertionError(f"{kind}: wave not finite or constant")
+        print(f"vocoder {kind}: {len(mels)} requests through buckets "
+              f"[20, 40, 80], {fused_server.stats['launches']} launches, "
+              f"{chains} chains a request; kernel launches {counts}; main "
+              f"path {main_sec:.3f} s (first calls included)")
+
+        # (a)/(b) against (c): the plain path at max_batch 8, the same noise
+        reference = plain_server.synthesize(mels, seed=SEED)
+        diffs = [float(np.abs(r.wave - p.wave).max())
+                 for r, p in zip(results, reference)]
+        if not max(diffs) <= VOCODER_TOL:
+            raise AssertionError(f"{kind}: fused vs plain server waves differ "
+                                 f"by up to {max(diffs):.3e} > {VOCODER_TOL}")
+        (got,) = fused_server.synthesize([golden_mel], noises=[golden_z])
+        golden_err = float(np.abs(got.wave - golden[kind]).max())
+        if not golden_err <= VOCODER_TOL:
+            raise AssertionError(f"{kind}: golden request differs from the JAX "
+                                 f"wave by {golden_err:.3e} > {VOCODER_TOL}")
+        rms = float(np.sqrt(np.mean(np.concatenate(
+            [r.wave for r in results]) ** 2)))
+        print(f"vocoder {kind}: fused (max_batch 1) vs plain (max_batch 8) "
+              f"waves, max abs diff per request "
+              f"{[f'{d:.1e}' for d in diffs]} (limit {VOCODER_TOL}, wave rms "
+              f"{rms:.3f}); golden request vs JAX: max abs diff "
+              f"{golden_err:.3e} (limit {VOCODER_TOL})")
+
+        single_server = BucketedParallelSynthesisServer(
+            kind, params, cfg, max_batch=1, **common)
+        for name, server in (("fused chains, max_batch 1", fused_server),
+                             ("plain, max_batch 1", single_server),
+                             ("plain, max_batch 8", plain_server)):
+            sec = _median_seconds(lambda: server.synthesize(mels, seed=SEED))
+            print(f"vocoder {kind} [{name}]: {len(mels)} requests in "
+                  f"{sec * 1e3:.2f} ms (median of 3): "
+                  f"{n_samples / sec:.0f} samples/s delivered, "
+                  f"{sec / len(mels) * 1e3:.3f} ms a request [{gpu}]")
+        for bucket in (20, 40, 80):
+            mel = next(m for m in mels if m.shape[0] == bucket)
+            sec = _median_seconds(lambda: fused_server.synthesize([mel]))
+            print(f"vocoder {kind} [fused chains] bucket {bucket} "
+                  f"({bucket * VOCODER_HOP} samples): {sec * 1e3:.3f} ms a "
+                  f"request, {bucket * VOCODER_HOP / sec:.0f} samples/s, "
+                  f"real-time factor "
+                  f"{sec / (bucket * VOCODER_HOP / VOCODER_RATE):.4f} at "
+                  f"{VOCODER_RATE} Hz [{gpu}]")
+
+        mel = next(m for m in mels if m.shape[0] == 80)
+        window, busy_us = _device_profile(
+            lambda: fused_server.synthesize([mel]))
+        total_us = sum(busy_us.values())
+        if total_us > 0:
+            chain_us = sum(v for k, v in busy_us.items() if "chain_layer" in k)
+            print(f"vocoder {kind} profile (one fused bucket-80 request, "
+                  f"torch.profiler CUDA activity): window {window * 1e3:.2f} "
+                  f"ms, device busy {total_us / 1e3:.2f} ms, idle share "
+                  f"{1 - total_us / 1e6 / window:.3f}; chain kernel "
+                  f"{chain_us / total_us:.3f} of device time [{gpu}]")
+            for key, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:5]:
+                print(f"  {us / 1e3:10.3f} ms  {key[:100]}")
+        else:
+            print(f"vocoder {kind} profile: the profiler showed no device "
+                  "time; idle share not measured")
+        del fused_server, single_server, plain_server
+        torch.cuda.empty_cache()
+
+    # the whole-T entry point's own path: the student's first chain at the
+    # shape of the JAX package's chain benchmark (T=4096), as that script
+    # drives it, on the student's own weights
+    params, cfg, _ = models["iaf_student"]
+    stacked = load_student_params(params, cfg, "cuda")["iafs"][0]["chains"][0]
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.standard_normal(
+        (4096, cfg.residual_channels)).astype(np.float32)).cuda()
+    c = torch.from_numpy(rng.random(
+        (4096, cfg.cin_channels)).astype(np.float32)).cuda()
+    wrappers["chain"].launches = 0
+    got = fused.fused_block_chain(x, c, stacked, cfg.num_layers,
+                                  cfg.kernel_size)
+    torch.cuda.synchronize()
+    launches["chain"] = wrappers["chain"].launches
+    if launches["chain"] != 1:
+        raise AssertionError("fused_block_chain did not launch its kernel")
+    want = fused.fused_block_chain_torch(x, c, stacked, cfg.num_layers,
+                                         cfg.kernel_size)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **CHAIN_TOL)
+    print("vocoder: fused_block_chain on the student's first chain at "
+          f"T=4096: {launches['chain']} kernel launch, within CHAIN_TOL of "
+          "its plain chain")
+    return launches
 
 
 def main():
@@ -662,7 +1032,7 @@ def main():
         report = _kernels.build(name, force=True)
         return time.perf_counter() - t, report
 
-    names = ("vq_search", "wavenet_step")
+    names = ("vq_search", "wavenet_step", "fused_resblock")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         builds = dict(zip(names, pool.map(timed_build, names)))
     for name, (sec, report) in builds.items():
@@ -681,30 +1051,49 @@ def main():
     encode_vq_launches = phase(slice_phase, gpu)
     step_err, (step_ms, step_plain_ms) = phase(step_kernel_phase, gpu)
     step_launches, synth_vq_launches = phase(synthesis_phase, gpu)
+    chains = phase(chain_kernel_phase, gpu)
+    chain_launches = phase(vocoder_phase, gpu)
     jax_side = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "vqvae_speech_tpu"))
     if jax_side:
         raise AssertionError(f"the run imported JAX-side modules {jax_side}")
 
-    print(json.dumps({"kernels": [{
-        "name": "vq_search",
-        "route": "cuda",
-        "source": "vqvae_speech_tpu_torch/csrc/vq_search.cu",
-        "replaces": "vqvae_speech_tpu/ops/vq.py:91",
-        "launches": encode_vq_launches + synth_vq_launches,
-        "max_abs_err": vq_err,
-        "ms": vq_ms,
-        "plain_ms": vq_plain_ms,
-    }, {
-        "name": "wavenet_step",
-        "route": "cuda",
-        "source": "vqvae_speech_tpu_torch/csrc/wavenet_step.cu",
-        "replaces": "vqvae_speech_tpu/ops/wavenet_step.py:35",
-        "launches": step_launches,
-        "max_abs_err": step_err,
-        "ms": step_ms,
-        "plain_ms": step_plain_ms,
-    }]}))
+    # no single PyTorch call computes any of these fused functions (a search
+    # with its statistics, a whole layer stack, a whole resblock chain)
+    def line(name, source, replaces, launches, numbers):
+        return dict(name=name, route="cuda",
+                    source=f"vqvae_speech_tpu_torch/csrc/{source}",
+                    replaces=replaces, launches=launches, **numbers,
+                    library_ms=None)
+
+    from vqvae_speech_tpu_torch.models.wavenet_decoder import (
+        wavenet_config_from,
+    )
+
+    wcfg = wavenet_config_from(WAVENET_CONFIG, WAVENET_CONFIG["num_speakers"])
+    vq_bound = vq_search_bound(*TIMED_SHAPE, 64)
+    step_bound = wavenet_step_bound(
+        wcfg.layers, wcfg.kernel_size, TIMED_STEP[0], wcfg.residual_channels,
+        wcfg.gate_channels, wcfg.skip_out_channels)
+    print(json.dumps({"kernels": [
+        line("vq_search", "vq_search.cu", "vqvae_speech_tpu/ops/vq.py:91",
+             encode_vq_launches + synth_vq_launches,
+             dict(max_abs_err=vq_err, ms=vq_ms, plain_ms=vq_plain_ms,
+                  bound_ms=vq_bound[0], bound_by=vq_bound[1])),
+        line("wavenet_step", "wavenet_step.cu",
+             "vqvae_speech_tpu/ops/wavenet_step.py:35", step_launches,
+             dict(max_abs_err=step_err, ms=step_ms, plain_ms=step_plain_ms,
+                  bound_ms=step_bound[0], bound_by=step_bound[1])),
+        line("fused_block_chain_tiled", "fused_resblock.cu",
+             "vqvae_speech_tpu/ops/fused_resblock.py:95",
+             chain_launches["tiled"], chains["tiled"]),
+        line("fused_block_chain_nc", "fused_resblock.cu",
+             "vqvae_speech_tpu/ops/fused_resblock.py:215",
+             chain_launches["nc"], chains["nc"]),
+        line("fused_block_chain", "fused_resblock.cu",
+             "vqvae_speech_tpu/ops/fused_resblock.py:65",
+             chain_launches["chain"], chains["chain"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -11,16 +11,37 @@ statistics, from ``state["vq"]`` (EMA variant).
 ``numpy_wavenet_vqvae_params`` build random trees with the structure, shapes
 and init distributions of ``conv_vqvae_init``, ``wavenet_init`` and
 ``wavenet_vqvae_init``, from numpy alone, for machines with no JAX.
+
+The one-pass vocoders (ClariNet, FloWaveNet) are plain functions over
+tensor trees, not modules: ``load_gaussian_wavenet_params``,
+``load_student_params`` and ``load_flowavenet_params`` turn a JAX tree into
+the same tree of tensors on a device, with every conv's weight norm resolved
+to ``{"w": (Cout, Cin, K), "b"}`` and each resblock chain's weights stacked
+for the fused chain under ``"chains"``. ``numpy_gaussian_wavenet_params``,
+``numpy_student_params`` and ``numpy_flowavenet_params`` build random trees
+in the JAX layout that both packages load.
 """
 import math
 
 import numpy as np
 import torch
 
+from vqvae_speech_tpu_torch.models.clarinet import (
+    GaussianWaveNetConfig,
+    StudentConfig,
+)
 from vqvae_speech_tpu_torch.models.conv_vqvae import ConvVQVAE, feature_channels
+from vqvae_speech_tpu_torch.models.flowavenet.model import (
+    CouplingNetConfig,
+    FlowavenetConfig,
+    _block_channels,
+    _flow_net_cfg,
+    _prior_net_cfg,
+)
 from vqvae_speech_tpu_torch.models.wavenet import WaveNet, WaveNetConfig
 from vqvae_speech_tpu_torch.models.wavenet_decoder import wavenet_config_from
 from vqvae_speech_tpu_torch.models.wavenet_vqvae import WaveNetVQVAE
+from vqvae_speech_tpu_torch.ops.fused_resblock import stack_block_weights
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -124,6 +145,115 @@ def load_wavenet_vqvae_params(model: WaveNetVQVAE, params: dict,
     _load_conv(model.decoder.conv_1, params["decoder"]["conv_1"])
     load_wavenet_params(model.decoder.wavenet, params["decoder"]["wavenet"])
     return model
+
+
+# -------------------- one-pass vocoders: tensor trees --------------------
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+
+def _resolved_conv(p: dict, device) -> dict:
+    """A JAX conv ``{v, g, b}`` or ``{w, b}`` (kernel (K, Cin, Cout)) as
+    ``{"w": (Cout, Cin, K), "b"}`` with ``w = g * v / ||v||``, the norm over
+    (K, Cin) (``nn/conv.py::conv_weight``)."""
+    if "v" in p:
+        v = _tensor(p["v"], "cpu")
+        w = _tensor(p["g"], "cpu") * v / v.square().sum(
+            (0, 1), keepdim=True).sqrt()
+    else:
+        w = _tensor(p["w"], "cpu")
+    return {"w": w.permute(2, 1, 0).contiguous().to(device),
+            "b": _tensor(p["b"], device)}
+
+
+_RESBLOCK_CONVS = ("filter_conv", "gate_conv", "res_conv", "skip_conv",
+                   "filter_conv_c", "gate_conv_c")
+
+
+def load_upsample_params(stages, device) -> list:
+    """ClariNet upsampling stages ``{v (3, 2s, 1, 1), g (1,), b (1,)}`` with
+    the weight norm taken over the WHOLE kernel, as ConvTranspose2d weights
+    (1, 1, 3, 2s)."""
+    out = []
+    for p in stages:
+        v = _tensor(p["v"], "cpu")
+        w = _tensor(p["g"], "cpu")[0] * v / v.square().sum().sqrt()
+        out.append({"w": w[:, :, 0, 0][None, None].contiguous().to(device),
+                    "b": _tensor(p["b"], device)})
+    return out
+
+
+def _resolved_resblocks(tree, total_layers, num_layers, device):
+    """(res_blocks, chains): every resblock's convs resolved, and each run
+    of ``num_layers`` blocks stacked for the fused chain."""
+    if len(tree) != total_layers:
+        raise ValueError(f"{len(tree)} resblocks in the params, "
+                         f"{total_layers} in the config")
+    blocks = [{n: _resolved_conv(p[n], device) for n in _RESBLOCK_CONVS}
+              for p in tree]
+    chains = [stack_block_weights(blocks[at:at + num_layers])
+              for at in range(0, total_layers, num_layers)]
+    return blocks, chains
+
+
+def load_gaussian_wavenet_params(tree: dict, cfg: GaussianWaveNetConfig,
+                                 device) -> dict:
+    """A ``gaussian_wavenet_init``-shaped tree as tensors on ``device``."""
+    blocks, chains = _resolved_resblocks(tree["res_blocks"], cfg.total_layers,
+                                         cfg.num_layers, device)
+    return {"front_conv": _resolved_conv(tree["front_conv"], device),
+            "res_blocks": blocks, "chains": chains,
+            "final_conv_1": _resolved_conv(tree["final_conv_1"], device),
+            "final_conv_2": _resolved_conv(tree["final_conv_2"], device),
+            "upsample_conv": load_upsample_params(tree["upsample_conv"], device)}
+
+
+def load_student_params(tree: dict, cfg: StudentConfig, device) -> dict:
+    """A ``wavenet_student_init``-shaped tree as tensors on ``device``."""
+    if len(tree["iafs"]) != cfg.num_flow:
+        raise ValueError(f"{len(tree['iafs'])} flows in the params, "
+                         f"{cfg.num_flow} in the config")
+    return {"iafs": [load_gaussian_wavenet_params(p, cfg.flow_config(i), device)
+                     for i, p in enumerate(tree["iafs"])]}
+
+
+def _load_coupling_net(tree: dict, cfg: CouplingNetConfig, device) -> dict:
+    blocks, chains = _resolved_resblocks(tree["res_blocks"], cfg.total_layers,
+                                         cfg.num_layers, device)
+    return {"front_conv": _resolved_conv(tree["front_conv"], device),
+            "res_blocks": blocks, "chains": chains,
+            "final_conv_1": _resolved_conv(tree["final_conv_1"], device),
+            "final_zero_conv": {n: _tensor(tree["final_zero_conv"][n], device)
+                                for n in ("w", "b", "scale")}}
+
+
+def load_flowavenet_params(tree: dict, cfg: FlowavenetConfig, device) -> dict:
+    """A ``flowavenet_init``-shaped tree as tensors on ``device``."""
+    if len(tree["blocks"]) != cfg.n_block:
+        raise ValueError(f"{len(tree['blocks'])} blocks in the params, "
+                         f"{cfg.n_block} in the config")
+    blocks = []
+    for i, (in_ch, cin_ch) in enumerate(_block_channels(cfg)):
+        sq, sqc = in_ch * 2, cin_ch * 2
+        src = tree["blocks"][i]
+        if len(src["flows"]) != cfg.n_flow or (
+                ("prior" in src) != cfg.split_at(i)):
+            raise ValueError(f"block {i} of the params does not match the "
+                             "config")
+        net_cfg = _flow_net_cfg(cfg, sq, sqc)
+        block = {"flows": [
+            {"actnorm": {n: _tensor(f["actnorm"][n], device)
+                         for n in ("loc", "scale")},
+             "coupling": _load_coupling_net(f["coupling"], net_cfg, device)}
+            for f in src["flows"]]}
+        if cfg.split_at(i):
+            block["prior"] = _load_coupling_net(
+                src["prior"], _prior_net_cfg(sq, sqc), device)
+        blocks.append(block)
+    return {"blocks": blocks,
+            "upsample_conv": load_upsample_params(tree["upsample_conv"], device)}
 
 
 # -------------------- random trees without JAX --------------------
@@ -302,3 +432,119 @@ def numpy_wavenet_vqvae_params(config: dict, num_speakers: int, seed: int):
         K = config["num_embeddings"]
         state["revival"] = {"usage": np.full((K,), 1.0 / K, np.float32)}
     return params, state, cfg
+
+
+# ---- one-pass vocoders ----
+
+
+def _clarinet_conv(rng, in_ch, out_ch, k):
+    """models/clarinet/modules.py:conv_init: weight-normed, kaiming-normal
+    direction, uniform bias."""
+    return _conv(rng, in_ch, out_ch, k, bias=True, wn=True)
+
+
+def _resblock_tree(rng, in_ch, out_ch, skip_ch, k, cin):
+    return {"filter_conv": _clarinet_conv(rng, in_ch, out_ch, k),
+            "gate_conv": _clarinet_conv(rng, in_ch, out_ch, k),
+            "res_conv": _clarinet_conv(rng, out_ch, in_ch, 1),
+            "skip_conv": _clarinet_conv(rng, out_ch, skip_ch, 1),
+            "filter_conv_c": _clarinet_conv(rng, cin, out_ch, 1),
+            "gate_conv_c": _clarinet_conv(rng, cin, out_ch, 1)}
+
+
+def _upsample_tree(rng, scales):
+    """modules.py:upsample_init: a random (asymmetric) kernel a stage."""
+    stages = []
+    for s in scales:
+        v = (rng.standard_normal((3, 2 * s, 1, 1))
+             * math.sqrt(2.0 / (3 * 2 * s))).astype(np.float32)
+        stages.append({"v": v, "g": np.sqrt(np.square(v).sum()).reshape(1),
+                       "b": np.zeros((1,), np.float32)})
+    return stages
+
+
+def _gaussian_wavenet_tree(rng, cfg: GaussianWaveNetConfig) -> dict:
+    return {
+        "front_conv": _clarinet_conv(rng, 1, cfg.residual_channels,
+                                     cfg.front_channels),
+        "res_blocks": [
+            _resblock_tree(rng, cfg.residual_channels, cfg.gate_channels,
+                           cfg.skip_channels, cfg.kernel_size,
+                           cfg.cin_channels)
+            for _ in range(cfg.total_layers)],
+        "final_conv_1": _clarinet_conv(rng, cfg.skip_channels,
+                                       cfg.skip_channels, 1),
+        "final_conv_2": _clarinet_conv(rng, cfg.skip_channels,
+                                       cfg.out_channels, 1),
+        "upsample_conv": _upsample_tree(rng, cfg.upsample_scales),
+    }
+
+
+def numpy_gaussian_wavenet_params(cfg: GaussianWaveNetConfig, seed: int):
+    """A random tree with ``gaussian_wavenet_init``'s structure, shapes and
+    init distributions, made with ``np.random.default_rng(seed)``."""
+    return _gaussian_wavenet_tree(np.random.default_rng(seed), cfg)
+
+
+def numpy_student_params(cfg: StudentConfig, seed: int) -> dict:
+    """A random tree with ``wavenet_student_init``'s structure and shapes.
+    Each flow's last conv has its gain cut to a tenth of the init's, so that
+    ``exp(logs)`` composed over the flows stays near 1 with random weights
+    and the generated wave stays at the noise's scale."""
+    rng = np.random.default_rng(seed)
+    iafs = []
+    for i in range(cfg.num_flow):
+        flow = _gaussian_wavenet_tree(rng, cfg.flow_config(i))
+        flow["final_conv_2"]["g"] = flow["final_conv_2"]["g"] * np.float32(0.1)
+        iafs.append(flow)
+    return {"iafs": iafs}
+
+
+def _coupling_net_tree(rng, cfg: CouplingNetConfig) -> dict:
+    """flowavenet/model.py:coupling_net_init, but with a NON-zero zero conv
+    (w ~ N(0, 0.05^2 / in), b ~ N(0, 0.01^2), scale ~ N(0, 0.1^2)): at the
+    init's zeros every coupling is the identity and the coupling nets never
+    reach the wave. Small enough that 48 couplings of exp(log_s) stay near
+    1."""
+    S = cfg.skip_channels
+    return {
+        "front_conv": _clarinet_conv(rng, cfg.in_channels,
+                                     cfg.residual_channels, 3),
+        "res_blocks": [
+            _resblock_tree(rng, cfg.residual_channels, cfg.gate_channels,
+                           cfg.skip_channels, cfg.kernel_size,
+                           cfg.cin_channels)
+            for _ in range(cfg.total_layers)],
+        "final_conv_1": _clarinet_conv(rng, S, S, 1),
+        "final_zero_conv": {
+            "w": (rng.standard_normal((1, S, cfg.out_channels))
+                  * 0.05 / math.sqrt(S)).astype(np.float32),
+            "b": (0.01 * rng.standard_normal((cfg.out_channels,))
+                  ).astype(np.float32),
+            "scale": (0.1 * rng.standard_normal((cfg.out_channels,))
+                      ).astype(np.float32)},
+    }
+
+
+def numpy_flowavenet_params(cfg: FlowavenetConfig, seed: int) -> dict:
+    """A random tree with ``flowavenet_init``'s structure and shapes, with
+    non-trivial ActNorms (loc ~ N(0, 0.1^2), scale = exp(N(0, 0.05^2))) and
+    non-zero zero convs (see ``_coupling_net_tree``), as a trained flow
+    has."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for i, (in_ch, cin_ch) in enumerate(_block_channels(cfg)):
+        sq, sqc = in_ch * 2, cin_ch * 2
+        net_cfg = _flow_net_cfg(cfg, sq, sqc)
+        block = {"flows": [
+            {"actnorm": {
+                "loc": (0.1 * rng.standard_normal((sq,))).astype(np.float32),
+                "scale": np.exp(0.05 * rng.standard_normal((sq,))
+                                ).astype(np.float32)},
+             "coupling": _coupling_net_tree(rng, net_cfg)}
+            for _ in range(cfg.n_flow)]}
+        if cfg.split_at(i):
+            block["prior"] = _coupling_net_tree(rng, _prior_net_cfg(sq, sqc))
+        blocks.append(block)
+    return {"blocks": blocks,
+            "upsample_conv": _upsample_tree(rng, cfg.upsample_scales)}

@@ -8,7 +8,9 @@ import time, so the module imports on machines without ``nvcc`` or a GPU.
 Each launching wrapper checks device, dtype, contiguity and shapes, allocates
 its outputs with ``torch.empty``, launches on the current CUDA stream, raises
 if the launch reported an error, and counts its launches in a plain integer
-attribute (``vq_search_cuda.launches``, ``wavenet_step_cuda.launches``).
+attribute (``vq_search_cuda.launches``, ``wavenet_step_cuda.launches``,
+``fused_block_chain_cuda.launches``, ``fused_block_chain_tiled_cuda.launches``,
+``fused_block_chain_nc_cuda.launches``).
 """
 import ctypes
 import os
@@ -209,3 +211,131 @@ def wavenet_step_cuda(x0, taps, cond, wtap, bias, wskip, bskip, wout, bout,
 
 
 wavenet_step_cuda.launches = 0
+
+
+def _bind_fused_resblock(lib: ctypes.CDLL) -> None:
+    i32, ptr = ctypes.c_int, ctypes.c_void_p
+    lib.fused_chain_smem_bytes.argtypes = [i32]
+    lib.fused_chain_smem_bytes.restype = ctypes.c_size_t
+    # x, c, wf, wg, wfc, wgc, wres, wskip, bf, bg, bres, bskip, T, C, G, S,
+    # cin, L, k, [dilations,] x_out, skip, scratch, stream
+    chain = [ptr] * 12 + [i32] * 7
+    for name in ("fused_chain_f32", "fused_chain_tiled_f32"):
+        getattr(lib, name).argtypes = chain + [ptr] * 4
+        getattr(lib, name).restype = i32
+    lib.fused_chain_nc_f32.argtypes = (chain + [ctypes.POINTER(i32)]
+                                       + [ptr] * 4)
+    lib.fused_chain_nc_f32.restype = i32
+
+
+FUSED_CHAIN_MAX_TAPS = 8
+FUSED_CHAIN_MAX_LAYERS = 64
+_STACKED = ("wf", "wg", "wfc", "wgc", "wres", "wskip", "bf", "bg", "bres",
+            "bskip")
+
+
+def _fused_chain_launch(name, entry, x, c_up, stacked, dilations=None):
+    """Check the arguments of one fused chain, allocate its outputs and run
+    the C entry point ``entry`` of csrc/fused_resblock.cu on the current
+    stream. x (T, C), c_up (T, cin), stacked as
+    ``ops.fused_resblock.stack_block_weights`` -> (x (T, C), skip (T, S))."""
+    args = dict(x=x, c_up=c_up, **{n: stacked[n] for n in _STACKED})
+    dev = x.device
+    for arg, t in args.items():
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor on {dev}, "
+                             f"got {t.device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        # everything but the conditioning is read or written as float4
+        if arg != "c_up" and t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    if x.dim() != 2 or c_up.dim() != 2 or stacked["wf"].dim() != 4:
+        raise ValueError(f"{name}: x must be (T, C), c_up (T, cin) and wf "
+                         f"(L, k, C, G); got {tuple(x.shape)}, "
+                         f"{tuple(c_up.shape)}, {tuple(stacked['wf'].shape)}")
+    T, C = x.shape
+    cin = c_up.shape[1]
+    L, k, _, G = stacked["wf"].shape
+    S = stacked["wskip"].shape[-1]
+    want = dict(c_up=(T, cin), wf=(L, k, C, G), wg=(L, k, C, G),
+                wfc=(L, cin, G), wgc=(L, cin, G), wres=(L, G, C),
+                wskip=(L, G, S), bf=(L, G), bg=(L, G), bres=(L, C),
+                bskip=(L, S))
+    for arg, shape in want.items():
+        if tuple(args[arg].shape) != shape:
+            raise ValueError(f"{name}: {arg} has shape "
+                             f"{tuple(args[arg].shape)}, expected {shape}")
+    if (T < 1 or cin < 1 or not 1 <= k <= FUSED_CHAIN_MAX_TAPS
+            or not 1 <= L <= FUSED_CHAIN_MAX_LAYERS
+            or C % 4 or G % 4 or S % 4 or min(C, G, S) < 4):
+        raise ValueError(
+            f"{name}: needs T, cin >= 1, 1 <= k <= {FUSED_CHAIN_MAX_TAPS}, "
+            f"1 <= L <= {FUSED_CHAIN_MAX_LAYERS} and C, G, S positive "
+            f"multiples of 4; got T={T} cin={cin} k={k} L={L} C={C} G={G} "
+            f"S={S}")
+    reach = (max(dilations) if dilations is not None else k ** (L - 1))
+    if (k - 1) * reach >= 2 ** 31 or T * max(C, S, cin) >= 2 ** 62:
+        raise ValueError(f"{name}: dilation {reach} out of range")
+    lib = _library("fused_resblock", _bind_fused_resblock)
+    if lib.fused_chain_smem_bytes(G) > _MAX_SMEM:
+        raise ValueError(f"{name}: gate width {G} too wide for one block's "
+                         "shared memory")
+    x_out = torch.empty((T, C), dtype=torch.float32, device=dev)
+    skip = torch.empty((T, S), dtype=torch.float32, device=dev)
+    scratch = torch.empty((T, C), dtype=torch.float32, device=dev)
+    extra = []
+    if dilations is not None:
+        if len(dilations) != L or min(dilations) < 1:
+            raise ValueError(f"{name}: needs {L} positive dilations, got "
+                             f"{tuple(dilations)}")
+        extra = [(ctypes.c_int * L)(*(int(d) for d in dilations))]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, entry)(
+            *(t.data_ptr() for t in args.values()), T, C, G, S, cin, L, k,
+            *extra, x_out.data_ptr(), skip.data_ptr(), scratch.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+    return x_out, skip
+
+
+def fused_block_chain_tiled_cuda(x, c_up, stacked):
+    """The causal gated-resblock chain (dilation k**l) on CUDA f32 tensors,
+    as the IAF student serves it; the contract of
+    ``ops.fused_resblock.fused_block_chain_tiled``."""
+    out = _fused_chain_launch("fused_block_chain_tiled_cuda",
+                              "fused_chain_tiled_f32", x, c_up, stacked)
+    fused_block_chain_tiled_cuda.launches += 1
+    return out
+
+
+fused_block_chain_tiled_cuda.launches = 0
+
+
+def fused_block_chain_cuda(x, c_up, stacked):
+    """The causal chain over the whole T; the contract of
+    ``ops.fused_resblock.fused_block_chain``."""
+    out = _fused_chain_launch("fused_block_chain_cuda", "fused_chain_f32",
+                              x, c_up, stacked)
+    fused_block_chain_cuda.launches += 1
+    return out
+
+
+fused_block_chain_cuda.launches = 0
+
+
+def fused_block_chain_nc_cuda(x, c_up, stacked, dilations):
+    """The non-causal chain with one dilation a layer; the contract of
+    ``ops.fused_resblock.fused_block_chain_nc``."""
+    out = _fused_chain_launch("fused_block_chain_nc_cuda",
+                              "fused_chain_nc_f32", x, c_up, stacked,
+                              tuple(dilations))
+    fused_block_chain_nc_cuda.launches += 1
+    return out
+
+
+fused_block_chain_nc_cuda.launches = 0

@@ -19,6 +19,12 @@ max_batch * C * T / D rows — the fused CUDA kernel on a GPU.
 name: local-conditioning frame buckets, launches padded to ``max_batch``,
 each a greedy (or sampled) AR decode whose f32 layer stack runs as one
 ``glu_stack_step`` per step — the hand-written CUDA kernel on a GPU.
+
+``BucketedParallelSynthesisServer`` is the counterpart of the JAX server of
+the same name: one-pass synthesis with the ClariNet IAF student or the
+FloWaveNet reverse pass over mel-frame buckets; with ``use_fused_chain`` at
+``max_batch=1`` every resblock chain is one call of the fused chain kernels
+(``ops/fused_resblock.py``) on a GPU.
 """
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -26,8 +32,19 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from vqvae_speech_tpu_torch.convert import load_jax_params, load_wavenet_params
+from vqvae_speech_tpu_torch.convert import (
+    load_flowavenet_params,
+    load_jax_params,
+    load_student_params,
+    load_upsample_params,
+    load_wavenet_params,
+)
 from vqvae_speech_tpu_torch.models import ConvVQVAE, WaveNet
+from vqvae_speech_tpu_torch.models.clarinet import (
+    gaussian_wavenet_upsample,
+    wavenet_student_generate,
+)
+from vqvae_speech_tpu_torch.models.flowavenet import flowavenet_reverse
 from vqvae_speech_tpu_torch.models.wavenet import wavenet_incremental_generate
 from vqvae_speech_tpu_torch.ops import num_frames, speech_features, vq_search
 from vqvae_speech_tpu_torch.utils import resolve_device
@@ -146,10 +163,20 @@ class BucketedEncodeServer:
                 "max_batch": self._max_batch}
 
 
+def _frame_bucket(buckets: Sequence[int], n: int) -> int:
+    """The smallest of the ascending ``buckets`` that holds n frames."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"conditioning of {n} frames exceeds the largest "
+                     f"bucket {buckets[-1]}")
+
+
 @dataclass
 class SynthesisResult:
-    """wave: (n_samples,) int32 mu-law bins, trimmed to the request's true
-    conditioning length; bucket: the padded frame count decoded."""
+    """wave: (n_samples,) trimmed to the request's true conditioning length,
+    int32 mu-law bins from the AR server and a float32 waveform from the
+    one-pass server; bucket: the padded frame count decoded."""
     wave: np.ndarray
     bucket: int
 
@@ -198,14 +225,6 @@ class BucketedSynthesisServer:
         self._launches = 0
         self._upsample_factor = self.model.upsample_factor
 
-    def _bucket_for(self, n: int) -> int:
-        for b in self._buckets:
-            if n <= b:
-                return b
-        raise ValueError(
-            f"conditioning of {n} frames exceeds the largest bucket "
-            f"{self._buckets[-1]}")
-
     def generate_batch(self, c: torch.Tensor, g=None, seed: int = 0):
         """One padded launch: c (B, bucket, cin) and g (B,) speaker ids (or
         None) on the server's device -> (outs (B, T, out) logits, emitted
@@ -242,7 +261,8 @@ class BucketedSynthesisServer:
         waves in order."""
         order: Dict[int, List[int]] = {}
         for i, c in enumerate(conds):
-            order.setdefault(self._bucket_for(c.shape[0]), []).append(i)
+            order.setdefault(_frame_bucket(self._buckets, c.shape[0]),
+                             []).append(i)
 
         results: List[Optional[SynthesisResult]] = [None] * len(conds)
         for bucket, idxs in sorted(order.items()):
@@ -264,4 +284,148 @@ class BucketedSynthesisServer:
     @property
     def stats(self) -> dict:
         return {"launches": self._launches, "max_batch": self._max_batch,
+                "upsample_factor": self._upsample_factor}
+
+
+class BucketedParallelSynthesisServer:
+    """Batch ONE-PASS vocoder synthesis: ClariNet IAF student or FloWaveNet
+    reverse, the high-throughput synthesis tier.
+
+    Conditioning-length (mel-frame) buckets and launches padded to
+    ``max_batch``, so every launch of a bucket has one shape.
+
+    Determinism contract: each request's latent noise z is drawn from a
+    ``torch.Generator`` seeded from (seed, its index in ``conds``), so a
+    request's wave depends only on (seed, its position, its conditioning),
+    never on batch composition. Both vocoders are per-row feed-forward
+    convs, so padded batch rows are exact; because the coupling nets are
+    NON-causal, samples within the conv receptive field of the padded tail
+    differ from an unpadded run (send exact bucket-length conditioning when
+    that matters).
+
+    kind : 'flowavenet' (params, cfg: a ``flowavenet_init``-shaped numpy
+        tree and its FlowavenetConfig) or 'iaf_student' (a
+        ``wavenet_student_init``-shaped tree and its StudentConfig;
+        requires teacher_params/teacher_cfg, whose conv stack performs the
+        mel upsampling, as reference synthesize.py does).
+    temp : scale on z (reference flow_wavenet/synthesize.py:60 uses 0.8).
+    compute_dtype : the JAX server's bf16 path; not ported yet, anything
+        but None raises.
+    use_fused_chain : max_batch=1 only: run the vocoder's resblock chains
+        through the fused chain (causal for iaf_student, non-causal for
+        flowavenet): the hand-written CUDA kernel on a GPU.
+    device : where the model runs ("cuda", "cpu"); no default.
+    """
+
+    def __init__(self, kind: str, params, cfg, *,
+                 teacher_params=None, teacher_cfg=None,
+                 frame_buckets: Sequence[int] = (20, 40, 80),
+                 max_batch: int = 8,
+                 temp: float = 0.8,
+                 compute_dtype=None,
+                 use_fused_chain: bool = False,
+                 device):
+        if kind not in ("flowavenet", "iaf_student"):
+            raise ValueError(f"unknown parallel vocoder kind: {kind!r}")
+        if kind == "iaf_student" and (teacher_params is None
+                                      or teacher_cfg is None):
+            raise ValueError("iaf_student needs teacher_params/teacher_cfg "
+                             "for mel upsampling")
+        if use_fused_chain and max_batch != 1:
+            raise ValueError("use_fused_chain is the single-stream "
+                             "(max_batch=1) path")
+        if compute_dtype is not None:
+            raise NotImplementedError(
+                f"compute_dtype={compute_dtype!r}: only the f32 vocoders are "
+                "ported to PyTorch yet")
+        self._device = resolve_device(device)
+        self._kind = kind
+        self._cfg = cfg
+        self._teacher_cfg = teacher_cfg
+        if kind == "flowavenet":
+            self._params = load_flowavenet_params(params, cfg, self._device)
+            scales = cfg.upsample_scales
+        else:
+            self._params = load_student_params(params, cfg, self._device)
+            # only the teacher's upsampling stack is used
+            self._upsample = {"upsample_conv": load_upsample_params(
+                teacher_params["upsample_conv"], self._device)}
+            scales = teacher_cfg.upsample_scales
+        self._buckets = tuple(sorted(int(b) for b in frame_buckets))
+        self._max_batch = int(max_batch)
+        self._temp = float(temp)
+        self._use_fused_chain = bool(use_fused_chain)
+        self._served = set()
+        self._launches = 0
+        self._upsample_factor = int(np.prod([int(s) for s in scales]))
+
+    @torch.inference_mode()
+    def generate_batch(self, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """One padded launch: z (B, T, 1) noise (already scaled by temp) and
+        c (B, bucket, cin) mel frames on the server's device -> waves
+        (B, T, 1), T = bucket * upsample_factor."""
+        if self._kind == "flowavenet":
+            return flowavenet_reverse(self._params, self._cfg, z, c,
+                                      use_fused=self._use_fused_chain)
+        c_up = gaussian_wavenet_upsample(self._upsample, c, self._teacher_cfg)
+        return wavenet_student_generate(self._params, self._cfg, z, c_up,
+                                        use_fused=self._use_fused_chain)
+
+    def _noise(self, seed: int, index: int, T: int, noises) -> np.ndarray:
+        """Request ``index``'s unit-normal z (T, 1): the caller's, or drawn
+        from a generator seeded from (seed, index)."""
+        if noises is not None:
+            z = np.asarray(noises[index], np.float32)
+            if z.shape != (T, 1):
+                raise ValueError(f"noise {index} has shape {z.shape}; its "
+                                 f"bucket needs {(T, 1)}")
+            return z
+        # the CPU generator keeps 32 bits of its seed: mix the pair into them
+        mixed = np.random.SeedSequence([seed, index]).generate_state(1)[0]
+        gen = torch.Generator(device="cpu").manual_seed(int(mixed))
+        return torch.randn((T, 1), generator=gen).numpy()
+
+    def synthesize(self, conds: Sequence[np.ndarray], seed: int = 0,
+                   noises: Optional[Sequence[np.ndarray]] = None
+                   ) -> List[SynthesisResult]:
+        """conds: per-request (Tc, cin) mel arrays. ``noises``: optionally
+        one unit-normal (bucket * upsample_factor, 1) array a request, used
+        in place of the seeded draw. Returns float waves trimmed to each
+        request's true length, in order."""
+        if seed < 0:
+            raise ValueError(f"seed {seed} is negative")
+        if noises is not None and len(noises) != len(conds):
+            raise ValueError(f"{len(noises)} noises for {len(conds)} requests")
+        order: Dict[int, List[int]] = {}
+        for i, c in enumerate(conds):
+            order.setdefault(_frame_bucket(self._buckets, c.shape[0]),
+                             []).append(i)
+
+        results: List[Optional[SynthesisResult]] = [None] * len(conds)
+        for bucket, idxs in sorted(order.items()):
+            self._served.add(bucket)
+            T = bucket * self._upsample_factor
+            for at in range(0, len(idxs), self._max_batch):
+                chunk = idxs[at:at + self._max_batch]
+                cin = conds[chunk[0]].shape[-1]
+                c = np.zeros((self._max_batch, bucket, cin), np.float32)
+                z = np.zeros((self._max_batch, T, 1), np.float32)
+                for row, i in enumerate(chunk):
+                    c[row, :conds[i].shape[0]] = conds[i]
+                    z[row] = self._noise(seed, i, T, noises) * np.float32(
+                        self._temp)
+                waves = self.generate_batch(
+                    torch.from_numpy(z).to(self._device),
+                    torch.from_numpy(c).to(self._device)).cpu().numpy()
+                self._launches += 1
+                for row, i in enumerate(chunk):
+                    n = conds[i].shape[0] * self._upsample_factor
+                    results[i] = SynthesisResult(wave=waves[row, :n, 0],
+                                                 bucket=bucket)
+        return results  # type: ignore[return-value]
+
+    @property
+    def stats(self) -> dict:
+        return {"served_buckets": sorted(self._served),
+                "launches": self._launches, "max_batch": self._max_batch,
                 "upsample_factor": self._upsample_factor}
