@@ -18,8 +18,12 @@
    frames/s.
 4. Decode-step kernel phase: holds glu_stack_step against its plain
    PyTorch chain at the vctk_wavenet width (20 layers, k=3, C=G=768,
-   S=256) for batch 1 and 8 with and without the legacy skip scaling, and
-   at k=2; times both and reports the kernel's weight-streaming GB/s.
+   S=256) for batch 1, 8 and 32 with and without the legacy skip scaling,
+   at k=2, and at a narrow width whose tiles and slices are ragged; runs
+   each twice and requires bit-equal outputs; times the prepared step (the
+   decode loop's form) and the plain chain, reports the kernel's
+   weight-streaming GB/s and counts the device kernels one step launches
+   (torch.profiler).
 5. Synthesis slice phase: WaveNetVQVAE at the vctk_wavenet width
    (numpy_wavenet_vqvae_params(seed=0)) turns ten VCTK waves into local
    conditioning (the VQ kernel runs here), and BucketedSynthesisServer
@@ -34,9 +38,11 @@
 6. Chain kernel phase: holds the three fused-chain entry points against
    their plain PyTorch chains on the same CUDA tensors: the causal tiled
    chain at the IAF student's width for T=20480 and an odd T, the whole-T
-   causal chain at T=4096, the non-causal chain at FloWaveNet's block-0 and
-   block-3 shapes and at a deep-dilation case; times both and states the
-   card's bound for each.
+   causal chain at T=4096, the non-causal chain at all eight FloWaveNet
+   block shapes, at a T off every tile size and at a deep-dilation case;
+   runs each twice and requires bit-equal outputs; times the kernel (as the
+   shapes route it, and forced onto each of its two decompositions) and the
+   plain chain, and states the card's bound for each.
 7. Vocoder slice phase: the one-pass vocoders at paper width
    (numpy_student_params / numpy_flowavenet_params, seed 0) behind
    BucketedParallelSynthesisServer: eight VCTK requests -> normalized
@@ -53,6 +59,12 @@
 Exits non-zero on any failure, and without a CUDA device. The last two lines
 of output are a JSON object of per-kernel results and the JSON status line.
 Imports nothing of JAX.
+
+    python3 chip_smoke.py --phases step_kernel,synthesis
+
+runs only the named phases (kernel, slice, step_kernel, synthesis,
+chain_kernel, vocoder), for work on one kernel; such a run prints neither
+of the two JSON lines.
 """
 import concurrent.futures
 import json
@@ -153,9 +165,15 @@ SYNTH_MAX_BATCH = 8
 WAVENET_GOLDEN = os.path.join(REPO_ROOT, "tests", "data",
                               "torch_port_wavenet_golden.npz")
 TEACHER_FORCED_SAMPLES = 256  # request 0's samples in the golden logits
-STEP_SHAPES = ((1, 3, True), (1, 3, False), (8, 3, True), (8, 3, False),
-               (2, 2, True))  # (B, k, legacy) at L=20, C=G=768, S=256
-TIMED_STEP = (8, 3, True)     # the server's batch
+# (B, k, legacy, width): width None is vctk_wavenet's L=20, C=G=768, S=256
+# with the weights of numpy_wavenet_params; NARROW_STEP is a width whose 68
+# gate pairs, 20 + 12 projection columns and 60-row reduction leave every
+# tile and slice ragged, with random weights
+NARROW_STEP = dict(L=5, C=20, G=136, S=12)
+STEP_SHAPES = ((1, 3, True, None), (1, 3, False, None), (8, 3, True, None),
+               (8, 3, False, None), (2, 2, True, None), (32, 3, True, None),
+               (3, 3, True, NARROW_STEP))
+TIMED_STEP = (8, 3, True, None)     # the server's batch
 # an emitted bin may differ from the teacher-forced forward's argmax when
 # the top two logits lie within this of each other
 NEAR_TIE_LOGITS = 2e-3
@@ -182,8 +200,14 @@ CHAIN_SHAPES = (
     ("student chain, odd T", "tiled", 6, 3, None, 5119, 128, 256, 128, 80),
     ("whole-T chain", "chain", 6, 3, None, 4096, 128, 256, 128, 80),
     ("flow block 0", "nc", 2, 3, (1, 2), 10240, 256, 256, 256, 80),
+    ("flow block 1", "nc", 2, 3, (1, 2), 5120, 256, 256, 256, 160),
+    ("flow block 2", "nc", 2, 3, (1, 2), 2560, 256, 256, 256, 320),
     ("flow block 3", "nc", 2, 3, (1, 2), 1280, 256, 256, 256, 640),
+    ("flow block 4", "nc", 2, 3, (1, 2), 640, 256, 256, 256, 1280),
+    ("flow block 5", "nc", 2, 3, (1, 2), 320, 256, 256, 256, 2560),
+    ("flow block 6", "nc", 2, 3, (1, 2), 160, 256, 256, 256, 5120),
     ("flow block 7", "nc", 2, 3, (1, 2), 80, 256, 256, 256, 10240),
+    ("flow block 7, ragged T", "nc", 2, 3, (1, 2), 81, 256, 256, 256, 10240),
     ("deep dilations", "nc", 4, 3, (1, 2, 4, 8), 160, 16, 32, 16, 8),
 )
 # a fused server's wave against the plain server's and against the JAX
@@ -493,12 +517,74 @@ def slice_phase(gpu):
     return launches
 
 
+def _device_kernel_counts(fn):
+    """{name: launches} of everything that ran on the device (kernels,
+    memsets, copies) while ``fn`` ran once, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def _us(row):
+    return ", ".join(f"{k} {v:.2f}" for k, v in row.items())
+
+
+def _step_phase_profile(step, x0, taps, cond):
+    """Where one launch of the decode-step kernel spends its time, from the
+    stamps its blocks record. Per kind of phase (gate, projection), the mean
+    over the layers of: the phase's length (first block released to first
+    block released, on the global timer); the slowest block's staging,
+    products and partial-sum stores (on each SM's cycle counter, scaled by
+    that block's cycles per nanosecond over the launch); and what is left,
+    the barrier and the blocks' spread. Microseconds."""
+    import torch
+
+    info = step.describe()
+    L = step.shapes["cond"][0]
+    stamps = torch.zeros((info["blocks"], 2 * L, 4, 2), dtype=torch.int64,
+                         device=x0.device)
+    for _ in range(3):
+        step(x0, taps, cond, stamps=stamps)
+    torch.cuda.synchronize()
+    t = stamps.cpu().numpy().astype(np.float64)
+    ns, cyc = t[..., 0], t[..., 1]
+    # cycles per microsecond of each block's SM, over the whole launch
+    rate = ((cyc[:, -1, 3] - cyc[:, 0, 0])
+            / (ns[:, -1, 3] - ns[:, 0, 0]) * 1e3)[:, None]
+    out = {}
+    for kind, first, used in (("gate", 0, info["gate_tiles"]
+                               * info["gate_slices"]),
+                              ("proj", 1, info["proj_tiles"]
+                               * info["proj_slices"])):
+        p = np.arange(first, 2 * L - 2, 2)       # phases with a successor
+        c = cyc[:used][:, p] / rate[:used, None]  # (used, phases, 4) in us
+        row = dict(
+            phase=(ns[:, p + 1, 0].min(0) - ns[:, p, 0].min(0)) / 1e3,
+            stage=(c[..., 1] - c[..., 0]).max(0),
+            products=(c[..., 2] - c[..., 1]).max(0),
+            store=(c[..., 3] - c[..., 2]).max(0))
+        row["rest"] = (row["phase"] - row["stage"] - row["products"]
+                       - row["store"])
+        out[kind] = {k: float(np.mean(v)) for k, v in row.items()}
+    out["launch"] = float(ns[:, -1, 3].max() - ns[:, 0, 0].min()) / 1e3
+    out["mhz"] = float(np.mean(rate))
+    return out
+
+
 def step_kernel_phase(gpu):
     """glu_stack_step (the kernel) against glu_stack_step_torch on the same
     CUDA tensors: the prepared weights of numpy_wavenet_params(seed=0) at
-    the vctk_wavenet width, unit-scale x0, taps and cond. Tolerance rtol
-    1e-4 (the JAX test's bound for its kernel) and atol 1e-4 (sums of up to
-    2304 f32 terms in another order)."""
+    the vctk_wavenet width (random ones at the narrow width), unit-scale x0,
+    taps and cond. Tolerance rtol 1e-4 (the JAX test's bound for its kernel)
+    and atol 1e-4 (sums of up to 2304 f32 terms in another order). Two runs
+    on the same inputs must agree bit for bit. Timed: the prepared step, as
+    the decode loop calls it."""
     import dataclasses
 
     import torch
@@ -513,53 +599,104 @@ def step_kernel_phase(gpu):
     from vqvae_speech_tpu_torch.models.wavenet_decoder import (
         wavenet_config_from,
     )
-    from vqvae_speech_tpu_torch.ops import glu_stack_step, glu_stack_step_torch
+    from vqvae_speech_tpu_torch.ops import (
+        glu_stack_step,
+        glu_stack_step_torch,
+        prepare_glu_stack_step,
+    )
 
     cfg = wavenet_config_from(WAVENET_CONFIG, WAVENET_CONFIG["num_speakers"])
     rng = np.random.default_rng(SEED)
+    names = ("wtap", "bias", "wskip", "bskip", "wout", "bout")
+
+    def unit(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).cuda()
+
     weights = {}
     max_err, timed = 0.0, None
     with torch.inference_mode():
-        for B, k, legacy in STEP_SHAPES:
-            if k not in weights:
+        for B, k, legacy, width in STEP_SHAPES:
+            key = (k, None if width is None else tuple(width.items()))
+            if key not in weights and width is None:
                 kcfg = dataclasses.replace(cfg, kernel_size=k)
                 module = load_wavenet_params(
                     WaveNet(kcfg), numpy_wavenet_params(kcfg, SEED)).cuda()
                 w = prepare_decode_weights(module, kcfg)
-                weights[k] = {n: w[n] for n in ("wtap", "bias", "wskip",
-                                                "bskip", "wout", "bout")}
+                weights[key] = {n: w[n] for n in names}
                 del module
-            w = weights[k]
+            elif key not in weights:
+                L, C, G, S = (width[n] for n in "LCGS")
+                weights[key] = dict(
+                    wtap=unit(L, k, C, G, scale=(k * C) ** -0.5),
+                    bias=unit(L, G, scale=0.1),
+                    wskip=unit(L, G // 2, S, scale=(G // 2) ** -0.5),
+                    bskip=unit(L, S, scale=0.1),
+                    wout=unit(L, G // 2, C, scale=(G // 2) ** -0.5),
+                    bout=unit(L, C, scale=0.1))
+            w = weights[key]
             L, _, C, G = w["wtap"].shape
-
-            def unit(*shape):
-                return torch.from_numpy(rng.standard_normal(shape)
-                                        .astype(np.float32)).cuda()
 
             args = dict(x0=unit(B, C), taps=unit(L, k - 1, B, C),
                         cond=unit(L, B, G), **w)
             got = glu_stack_step(legacy=legacy, **args)
+            again = glu_stack_step(legacy=legacy, **args)
             want = glu_stack_step_torch(legacy=legacy, **args)
             torch.cuda.synchronize()
             err = 0.0
-            for g, p in zip(got, want):
+            for g, g2, p in zip(got, again, want):
                 torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-4)
+                if not torch.equal(g, g2):
+                    raise AssertionError(
+                        f"glu_stack_step B={B} k={k}: two runs on the same "
+                        "inputs differ")
                 err = max(err, (g - p).abs().max().item())
             max_err = max(max_err, err)
-            ms = _per_launch_ms(lambda: glu_stack_step(legacy=legacy, **args))
+            step = prepare_glu_stack_step(*(w[n] for n in names), batch=B,
+                                          legacy=legacy)
+            x0, taps, cond = args["x0"], args["taps"], args["cond"]
+            for g, p in zip(step(x0, taps, cond), got):
+                if not torch.equal(g, p):
+                    raise AssertionError("the prepared step and "
+                                         "glu_stack_step differ")
+            ms = _per_launch_ms(lambda: step(x0, taps, cond))
+            # the kernel's own time on the device, without launch gaps
+            _, busy_us = _device_profile(
+                lambda: [step(x0, taps, cond) for _ in range(20)])
+            device = (f"{sum(busy_us.values()) / 20 / 1e3:.4f} ms a launch"
+                      if busy_us else "not measured (no device time shown)")
             plain_ms = _per_launch_ms(
                 lambda: glu_stack_step_torch(legacy=legacy, **args))
             weight_bytes = 4 * sum(w[n].numel() for n in ("wtap", "wskip",
                                                            "wout"))
             gbps = weight_bytes / (ms * 1e-3) / 1e9
-            if (B, k, legacy) == TIMED_STEP:
+            bound_ms, _ = wavenet_step_bound(L, k, B, C, G,
+                                             w["wskip"].shape[2])
+            if (B, k, legacy, width) == TIMED_STEP:
                 timed = (ms, plain_ms)
+                counts = _device_kernel_counts(lambda: step(x0, taps, cond))
+                print(f"kernel glu_stack_step: one prepared step launches "
+                      f"{sum(counts.values())} device kernels, memsets and "
+                      f"copies (torch.profiler): {counts}; launch "
+                      f"{step.describe()}")
+            if width is None and k == 3 and legacy:
+                prof = _step_phase_profile(step, x0, taps, cond)
+                print(f"kernel glu_stack_step B={B}: inside one launch, us "
+                      f"a phase (mean over layers; the slowest block's "
+                      f"staging, products, stores; the rest is the barrier "
+                      f"and the blocks' spread): gate {_us(prof['gate'])}; "
+                      f"projection {_us(prof['proj'])}; first phase start "
+                      f"to last store {prof['launch']:.1f} us; SM clock "
+                      f"{prof['mhz']:.0f} MHz")
             print(f"kernel glu_stack_step L={L} k={k} B={B} C={C} G={G} "
                   f"S={w['wskip'].shape[2]} legacy={legacy}: max_abs_err "
-                  f"{err:.3e}; kernel {ms:.4f} ms/step ({gbps:.0f} GB/s of "
-                  f"{weight_bytes / 1e6:.1f} MB weights), plain "
-                  f"{plain_ms:.4f} ms/step (mean of 100 back-to-back "
-                  f"launches, CUDA events) [{gpu}]")
+                  f"{err:.3e}, two runs bit-equal; kernel {ms:.4f} ms/step "
+                  f"({gbps:.0f} GB/s of {weight_bytes / 1e6:.1f} MB weights, "
+                  f"bound {bound_ms:.4f} ms, {bound_ms / ms:.3f} of the "
+                  f"kernel's time), plain {plain_ms:.4f} ms/step (mean of "
+                  f"100 back-to-back launches, CUDA events); kernel's "
+                  f"device time {device} (torch.profiler, 20 launches) "
+                  f"[{gpu}]")
     return max_err, timed
 
 
@@ -749,7 +886,7 @@ def synthesis_phase(gpu):
     window, busy_us = _device_profile(lambda: server.synthesize(
         [lcs[i] for i in idx], [speakers[i] for i in idx]))
     total_us = sum(busy_us.values())
-    kernel_us = sum(v for k, v in busy_us.items() if "glu_" in k)
+    kernel_us = sum(v for k, v in busy_us.items() if "step_kernel" in k)
     if total_us > 0:
         print(f"synthesis profile (bucket {bucket}, torch.profiler CUDA "
               f"activity): window {window:.3f} s, device busy "
@@ -819,35 +956,55 @@ def _random_chain(rng, L, k, T, C, G, S, cin):
 
 def chain_kernel_phase(gpu):
     """The three fused-chain entry points (the kernels) against their plain
-    PyTorch chains on the same CUDA tensors, within CHAIN_TOL. Returns
-    {wrapper: its kernels-line numbers at the first shape listed for it}."""
+    PyTorch chains on the same CUDA tensors, within CHAIN_TOL, and bit-equal
+    over two runs. Also times each shape forced onto the row-tiled and the
+    split decomposition (the shapes choose one; the other shows where the
+    switch lies) and holds both against the plain chain. Returns {wrapper:
+    its kernels-line numbers at the first shape listed for it}."""
     import torch
+    from vqvae_speech_tpu_torch.ops import _kernels
     from vqvae_speech_tpu_torch.ops import fused_resblock as fused
 
     calls = {
         "tiled": (fused.fused_block_chain_tiled,
-                  fused.fused_block_chain_tiled_torch),
-        "chain": (fused.fused_block_chain, fused.fused_block_chain_torch),
-        "nc": (fused.fused_block_chain_nc, fused.fused_block_chain_nc_torch),
+                  fused.fused_block_chain_tiled_torch,
+                  _kernels.fused_block_chain_tiled_cuda),
+        "chain": (fused.fused_block_chain, fused.fused_block_chain_torch,
+                  _kernels.fused_block_chain_cuda),
+        "nc": (fused.fused_block_chain_nc, fused.fused_block_chain_nc_torch,
+               _kernels.fused_block_chain_nc_cuda),
     }
     rng = np.random.default_rng(SEED)
     out = {}
     with torch.inference_mode():
         for name, which, L, k, dil, T, C, G, S, cin in CHAIN_SHAPES:
             x, c, stacked = _random_chain(rng, L, k, T, C, G, S, cin)
-            kernel, plain = calls[which]
+            kernel, plain, wrapper = calls[which]
             extra = () if dil is None else (dil,)
             got = kernel(x, c, stacked, L, k, *extra)
+            split = _kernels._fused_chain_launch.last_split
+            again = kernel(x, c, stacked, L, k, *extra)
             want = plain(x, c, stacked, L, k, *extra)
             torch.cuda.synchronize()
             err = 0.0
-            for g, w in zip(got, want):
+            for g, g2, w in zip(got, again, want):
                 torch.testing.assert_close(g, w, **CHAIN_TOL)
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"{name}: two runs on the same "
+                                         "inputs differ")
                 err = max(err, (g - w).abs().max().item())
             ms = _median_ms(lambda: kernel(x, c, stacked, L, k, *extra),
                             iters=20, warmup=3)
             plain_ms = _median_ms(lambda: plain(x, c, stacked, L, k, *extra),
                                   iters=20, warmup=3)
+            forced = {}
+            for path in ("rows", "split"):
+                for g, w in zip(wrapper(x, c, stacked, *extra, path=path),
+                                want):
+                    torch.testing.assert_close(g, w, **CHAIN_TOL)
+                forced[path] = _median_ms(
+                    lambda: wrapper(x, c, stacked, *extra, path=path),
+                    iters=10, warmup=2)
             bound_ms, bound_by = chain_bound(L, k, T, C, G, S, cin)
             row = out.setdefault(which, dict(
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -855,10 +1012,14 @@ def chain_kernel_phase(gpu):
             row["max_abs_err"] = max(row["max_abs_err"], err)
             print(f"kernel fused_block_chain[{which}] {name}: L={L} k={k} "
                   f"dilations={dil or 'k**l'} T={T} C={C} G={G} S={S} "
-                  f"cin={cin}: max_abs_err {err:.3e}; kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                  f"cin={cin}: max_abs_err {err:.3e}, two runs bit-equal; "
+                  f"kernel {ms:.4f} ms on the "
+                  f"{'split' if split else 'row-tiled'} path, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
                   f"{bound_by} ({bound_ms / ms:.3f} of the kernel's time; "
-                  f"median of 20, CUDA events) [{gpu}]")
+                  f"median of 20, CUDA events); forced row-tiled "
+                  f"{forced['rows']:.4f} ms, forced split "
+                  f"{forced['split']:.4f} ms (median of 10) [{gpu}]")
     return out
 
 
@@ -970,13 +1131,15 @@ def vocoder_phase(gpu):
             lambda: fused_server.synthesize([mel]))
         total_us = sum(busy_us.values())
         if total_us > 0:
-            chain_us = sum(v for k, v in busy_us.items() if "chain_layer" in k)
+            chain_us = sum(v for k, v in busy_us.items() if any(
+                n in k for n in ("chain_layer_kernel", "gate_partial_kernel",
+                                 "glu_kernel", "proj_kernel")))
             print(f"vocoder {kind} profile (one fused bucket-80 request, "
                   f"torch.profiler CUDA activity): window {window * 1e3:.2f} "
                   f"ms, device busy {total_us / 1e3:.2f} ms, idle share "
-                  f"{1 - total_us / 1e6 / window:.3f}; chain kernel "
+                  f"{1 - total_us / 1e6 / window:.3f}; chain kernels "
                   f"{chain_us / total_us:.3f} of device time [{gpu}]")
-            for key, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:5]:
+            for key, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
                 print(f"  {us / 1e3:10.3f} ms  {key[:100]}")
         else:
             print(f"vocoder {kind} profile: the profiler showed no device "
@@ -1011,9 +1174,21 @@ def vocoder_phase(gpu):
     return launches
 
 
+PHASES = ("kernel", "slice", "step_kernel", "synthesis", "chain_kernel",
+          "vocoder")
+
+
 def main():
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of " + ", ".join(PHASES))
+    only = parser.parse_args().phases.split(",")
+    if not set(only) <= set(PHASES):
+        raise SystemExit(f"chip_smoke: unknown phase in {only}")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on a GPU")
     gpu = _nvidia_smi()
@@ -1046,6 +1221,18 @@ def main():
         out = fn(*args)
         print(f"phase {fn.__name__}: {time.perf_counter() - t:.2f} s")
         return out
+
+    if set(only) != set(PHASES):
+        for name, fn, args in (
+                ("kernel", kernel_phase, ()), ("slice", slice_phase, (gpu,)),
+                ("step_kernel", step_kernel_phase, (gpu,)),
+                ("synthesis", synthesis_phase, (gpu,)),
+                ("chain_kernel", chain_kernel_phase, (gpu,)),
+                ("vocoder", vocoder_phase, (gpu,))):
+            if name in only:
+                phase(fn, *args)
+        print(f"chip_smoke: partial run of {only}; no result line")
+        return
 
     vq_err, (vq_ms, vq_plain_ms) = phase(kernel_phase)
     encode_vq_launches = phase(slice_phase, gpu)

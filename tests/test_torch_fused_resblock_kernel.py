@@ -64,6 +64,7 @@ def assert_matches(got, want):
 CAUSAL = [
     # L, k, T, C, G, S, cin
     (6, 3, 4096, 128, 256, 128, 80),   # the IAF student's chain
+    (6, 3, 20480, 128, 256, 128, 80),  # its longest bucket: the row-tiled path
     (6, 3, 1001, 128, 256, 128, 80),   # odd T
     (3, 2, 77, 16, 32, 16, 8),         # k = 2, the CPU tests' widths
     (4, 3, 20, 16, 32, 16, 8),         # shorter than its reach (lags to 54)
@@ -100,6 +101,61 @@ def test_nc_kernel_matches_plain(cuda, dilations, k, T, C, G, S, cin):
     want = fused.fused_block_chain_nc_torch(x, c, stacked, L, k, dilations)
     assert_matches(
         fused.fused_block_chain_nc(x, c, stacked, L, k, dilations), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", range(8))
+def test_nc_kernel_matches_plain_at_the_flow_block_shapes(cuda, block):
+    """FloWaveNet's eight coupling shapes (T = 10240 / 2**i rows against
+    conditioning 80 * 2**i wide) at a quarter of the channel width, each on
+    the path its row count gives it."""
+    T, cin = 10240 >> block, 80 << block
+    x, c, stacked = chain_inputs(2, 3, T, 64, 64, 64, cin, seed=block,
+                                 device=cuda)
+    want = fused.fused_block_chain_nc_torch(x, c, stacked, 2, 3, (1, 2))
+    got = fused.fused_block_chain_nc(x, c, stacked, 2, 3, (1, 2))
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert _kernels._fused_chain_launch.last_split == (-(-T // 64) <= 2 * sms)
+    assert_matches(got, want)
+    again = fused.fused_block_chain_nc(x, c, stacked, 2, 3, (1, 2))
+    torch.cuda.synchronize()
+    for u, v in zip(got, again):
+        assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["rows", "split"])
+@pytest.mark.parametrize("T", [1, 63, 64, 80, 81, 129])
+def test_both_decompositions_match_plain(cuda, T, path):
+    """Either side of the small-T switch, forced: within TOL of the plain
+    chains and bit-equal run to run, at rows off every tile size and a
+    conditioning width that is no multiple of a 16-row slice."""
+    x, c, stacked = chain_inputs(3, 3, T, 24, 72, 40, 19, seed=T, device=cuda)
+    runs = [_kernels.fused_block_chain_nc_cuda(x, c, stacked, (1, 2, 4),
+                                               path=path) for _ in range(2)]
+    assert _kernels._fused_chain_launch.last_split == (path == "split")
+    assert_matches(runs[0], fused.fused_block_chain_nc_torch(
+        x, c, stacked, 3, 3, (1, 2, 4)))
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
+    causal = fused.fused_block_chain_torch(x, c, stacked, 3, 3)
+    assert_matches(_kernels.fused_block_chain_tiled_cuda(x, c, stacked,
+                                                         path=path), causal)
+    assert_matches(_kernels.fused_block_chain_cuda(x, c, stacked, path=path),
+                   causal)
+
+
+@pytest.mark.cuda
+def test_split_path_at_the_last_flow_block_width(cuda):
+    """Flow block 7 at full width (T=80, cin=10240) and a ragged T beside
+    it: the pre-pass splits its 10240-deep reduction over many blocks."""
+    for T in (80, 81):
+        x, c, stacked = chain_inputs(2, 3, T, 256, 256, 256, 10240, seed=T,
+                                     device=cuda)
+        got = fused.fused_block_chain_nc(x, c, stacked, 2, 3, (1, 2))
+        assert _kernels._fused_chain_launch.last_split
+        assert_matches(got, fused.fused_block_chain_nc_torch(
+            x, c, stacked, 2, 3, (1, 2)))
 
 
 @pytest.mark.cuda
@@ -151,6 +207,8 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
             x, c, dict(stacked, wf=_offset_view(stacked["wf"])), 2, 3)
     with pytest.raises(ValueError, match="CUDA tensor"):
         fused.fused_block_chain_nc(x, c.cpu(), stacked, 2, 3, (1, 2))
+    with pytest.raises(ValueError, match="path must be one of"):
+        _kernels.fused_block_chain_nc_cuda(x, c, stacked, (1, 2), path="tiles")
     with pytest.raises(ValueError, match="positive dilations"):
         fused.fused_block_chain_nc(x, c, stacked, 2, 3, (1, 0))
     with pytest.raises(ValueError, match="multiples of 4"):

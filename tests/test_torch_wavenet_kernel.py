@@ -18,8 +18,17 @@ import numpy as np
 import pytest
 import torch
 
-from vqvae_speech_tpu_torch.ops import glu_stack_step, glu_stack_step_torch
-from vqvae_speech_tpu_torch.ops._kernels import wavenet_step_cuda
+from vqvae_speech_tpu_torch.ops import (
+    glu_stack_step,
+    glu_stack_step_torch,
+    prepare_glu_stack_step,
+)
+from vqvae_speech_tpu_torch.ops._kernels import (
+    PreparedWaveNetStep,
+    wavenet_step_cuda,
+)
+
+WEIGHTS = ("wtap", "bias", "wskip", "bskip", "wout", "bout")
 
 
 @pytest.fixture
@@ -73,6 +82,82 @@ def assert_kernel_matches_plain(args, legacy):
 def test_kernel_matches_plain(cuda, L, k, B, C, G, S, legacy):
     args = stack_inputs(L, k, B, C, G, S, seed=L + k + B, device=cuda)
     assert_kernel_matches_plain(args, legacy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("legacy", [True, False])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("B", [1, 2, 3, 8, 17, 32])
+@pytest.mark.parametrize("C,G,S", [
+    (64, 128, 64),     # whole tiles
+    (20, 136, 12),     # narrow and ragged: 68 pairs, slices of uneven rows
+])
+def test_kernel_batches_taps_and_legacy(cuda, C, G, S, B, k, legacy):
+    args = stack_inputs(3, k, B, C, G, S, seed=B * 7 + k, device=cuda)
+    assert_kernel_matches_plain(args, legacy)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,k,B,C,G,S", [
+    (20, 3, 8, 768, 768, 256),    # the server's shape
+    (20, 3, 32, 768, 768, 256),   # the largest batch
+    (5, 3, 3, 20, 136, 12),       # narrow and ragged
+])
+def test_kernel_is_bit_equal_over_twenty_runs(cuda, L, k, B, C, G, S):
+    """Blocks read what other blocks wrote in the same launch; a stale read
+    would show as a run that differs."""
+    args = stack_inputs(L, k, B, C, G, S, seed=11, device=cuda)
+    step = prepare_glu_stack_step(*(args[n] for n in WEIGHTS), batch=B,
+                                  legacy=True)
+    first = [t.clone() for t in step(args["x0"], args["taps"], args["cond"])]
+    for _ in range(19):
+        again = step(args["x0"], args["taps"], args["cond"])
+        torch.cuda.synchronize()
+        for u, v in zip(first, again):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+def test_prepared_step_equals_glu_stack_step_and_reuses_its_buffers(cuda):
+    args = stack_inputs(6, 3, 5, 128, 256, 132, seed=2, device=cuda)
+    other = stack_inputs(6, 3, 5, 128, 256, 132, seed=3, device=cuda)
+    step = prepare_glu_stack_step(*(args[n] for n in WEIGHTS), batch=5,
+                                  legacy=True)
+    assert isinstance(step, PreparedWaveNetStep)
+    before = wavenet_step_cuda.launches
+    got = step(args["x0"], args["taps"], args["cond"])
+    assert wavenet_step_cuda.launches == before + 1
+    want = glu_stack_step(legacy=True, **args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the next call overwrites the same three buffers
+    ptrs = [t.data_ptr() for t in got]
+    again = step(other["x0"], other["taps"], other["cond"])
+    assert [t.data_ptr() for t in again] == ptrs
+    want = glu_stack_step(legacy=True, **dict(
+        args, x0=other["x0"], taps=other["taps"], cond=other["cond"]))
+    for g, w in zip(again, want):
+        assert torch.equal(g, w)
+    info = step.describe()
+    assert 1 <= info["blocks"] <= torch.cuda.get_device_properties(
+        cuda).multi_processor_count * 2
+    with pytest.raises(ValueError, match="shape"):
+        step(args["x0"][:4].contiguous(), args["taps"], args["cond"])
+    with pytest.raises(ValueError, match="float32"):
+        step(args["x0"].double(), args["taps"], args["cond"])
+
+
+@pytest.mark.cuda
+def test_kernel_runs_on_a_side_stream(cuda):
+    args = stack_inputs(4, 3, 2, 64, 128, 64, seed=4, device=cuda)
+    want = glu_stack_step_torch(legacy=False, **args)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = glu_stack_step(legacy=False, **args)
+    side.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

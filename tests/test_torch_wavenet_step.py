@@ -15,7 +15,11 @@ from vqvae_speech_tpu.ops.wavenet_step import (
     fused_glu_stack_step,
     glu_stack_step_xla,
 )
-from vqvae_speech_tpu_torch.ops import glu_stack_step, glu_stack_step_torch
+from vqvae_speech_tpu_torch.ops import (
+    glu_stack_step,
+    glu_stack_step_torch,
+    prepare_glu_stack_step,
+)
 from vqvae_speech_tpu_torch.ops._kernels import wavenet_step_cuda
 
 CASES = [((4, 3, 1), False), ((6, 2, 2), True), ((3, 3, 4), True)]
@@ -76,3 +80,35 @@ def test_dispatch_on_cpu_takes_the_plain_chain():
     assert wavenet_step_cuda.launches == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape,legacy", CASES)
+def test_prepared_step_matches_pallas_interpret(shape, legacy):
+    """The form the decode loop uses: weights bound once, then one call a
+    step. On CPU weights it is the plain chain and launches nothing."""
+    args = rand_stack(*shape, seed=2)
+    with pltpu.force_tpu_interpret_mode():
+        want = fused_glu_stack_step(
+            legacy=legacy, **{n: jnp.asarray(a) for n, a in args.items()})
+    t = {n: torch.from_numpy(a) for n, a in args.items()}
+    before = wavenet_step_cuda.launches
+    step = prepare_glu_stack_step(*(t[n] for n in NAMES[3:]), batch=shape[2],
+                                  legacy=legacy)
+    got = step(t["x0"], t["taps"], t["cond"])
+    assert wavenet_step_cuda.launches == before
+    check(got, want)
+    for g, w in zip(got, glu_stack_step_torch(legacy=legacy, **t)):
+        assert torch.equal(g, w)
+    # a second step through the same prepared form, other activations
+    more = rand_stack(*shape, seed=3)
+    t2 = dict(t, **{n: torch.from_numpy(more[n]) for n in NAMES[:3]})
+    want2 = glu_stack_step_xla(
+        legacy=legacy, **{n: jnp.asarray(a.numpy()) for n, a in t2.items()})
+    check(step(t2["x0"], t2["taps"], t2["cond"]), want2)
+
+
+def test_prepared_step_refuses_another_batch():
+    t = {n: torch.from_numpy(a) for n, a in rand_stack(3, 3, 4).items()}
+    step = prepare_glu_stack_step(*(t[n] for n in NAMES[3:]), batch=2)
+    with pytest.raises(ValueError, match="batch 4"):
+        step(t["x0"], t["taps"], t["cond"])

@@ -8,9 +8,11 @@ copy at the end. Per step:
 
 * the first 1x1 conv of the previous sample's one-hot (a row gather of its
   weight, which equals the one-hot matmul exactly),
-* the layer stack: with ``use_fused_stack`` ONE ``ops.glu_stack_step`` call
-  (the hand-written CUDA kernel for CUDA tensors), else ``step_layer`` per
-  layer (the JAX package's ``use_fused_stack=False`` path),
+* the layer stack: with ``use_fused_stack`` ONE call of the step that
+  ``ops.prepare_glu_stack_step`` bound to the weights before the loop (the
+  hand-written CUDA kernel for CUDA tensors, one launch; its checks, plan and
+  buffers are made once a decode), else ``step_layer`` per layer (the JAX
+  package's ``use_fused_stack=False`` path),
 * ReLU -> 1x1 -> ReLU -> 1x1 to the logits, then argmax (greedy) or a
   categorical draw by the Gumbel-max trick with noise from an explicit
   ``torch.Generator`` on the model's device.
@@ -37,7 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from vqvae_speech_tpu_torch.models.wavenet.model import WaveNet, WaveNetConfig
-from vqvae_speech_tpu_torch.ops.wavenet_step import glu_stack_step
+from vqvae_speech_tpu_torch.ops.wavenet_step import prepare_glu_stack_step
 
 _SQRT_HALF = math.sqrt(0.5)
 
@@ -85,7 +87,7 @@ def hoist_conditioning(module: WaveNet, cfg: WaveNetConfig, c, g, B: int,
 def prepare_decode_weights(module: WaveNet, cfg: WaveNetConfig,
                            weight_quant=None) -> dict:
     """Resolve every weight-norm kernel once, in the JAX (in, out) layout,
-    with the layer stack stacked for ``glu_stack_step``: wtap (L, k, C, G),
+    with the layer stack stacked as ``glu_stack_step`` takes it: wtap (L, k, C, G),
     bias (L, G), wskip (L, G/2, S), bskip (L, S), wout (L, G/2, C),
     bout (L, C)."""
     if weight_quant is not None:
@@ -191,6 +193,12 @@ def wavenet_incremental_generate(module: WaveNet, cfg: WaveNetConfig, T: int,
     layer_idx = torch.arange(cfg.layers, device=dev)[:, None]
     zero_cond = torch.zeros((cfg.layers, B, cfg.gate_channels), device=dev)
 
+    stack_step = None
+    if use_fused_stack:
+        stack_step = prepare_glu_stack_step(
+            w["wtap"], w["bias"], w["wskip"], w["bskip"], w["wout"],
+            w["bout"], batch=B, legacy=cfg.legacy)
+
     outs = torch.empty((T, B, cfg.out_channels), device=dev)
     emitted = torch.empty((T, B), dtype=torch.int32, device=dev)
     x = x_in @ w["w_first"] + w["b_first"]
@@ -198,10 +206,12 @@ def wavenet_incremental_generate(module: WaveNet, cfg: WaveNetConfig, T: int,
         cond_t = None if cond is None else cond[t]
         if use_fused_stack:
             taps = ring[layer_idx, slots[t]]                 # (L, k-1, B, C)
-            x, skips, x_all = glu_stack_step(
-                x, taps, zero_cond if cond_t is None else cond_t,
-                w["wtap"], w["bias"], w["wskip"], w["bskip"], w["wout"],
-                w["bout"], legacy=cfg.legacy)
+            # On the card the step's three outputs are buffers it reuses:
+            # x_all is copied into the ring here, skips feeds the head below
+            # and x is replaced by the next sample's first conv, all enqueued
+            # on this stream before the next step overwrites them.
+            x, skips, x_all = stack_step(
+                x, taps, zero_cond if cond_t is None else cond_t)
             ring[:, t % cap] = x_all
         else:
             skips = None

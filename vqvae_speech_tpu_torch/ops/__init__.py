@@ -28,11 +28,13 @@ from vqvae_speech_tpu_torch.ops.vq import (
 from vqvae_speech_tpu_torch.ops.wavenet_step import (
     glu_stack_step,
     glu_stack_step_torch,
+    prepare_glu_stack_step,
 )
 
 __all__ = [
     "delta", "fbank", "logfbank", "mfcc", "num_frames", "speech_features",
     "mu_law_decode", "mu_law_encode", "glu_stack_step", "glu_stack_step_torch",
+    "prepare_glu_stack_step",
     "VQSearchResult", "reference_flatten", "reference_unflatten",
     "vq_distances", "vq_search", "vq_search_torch",
     "fused_block_chain", "fused_block_chain_nc", "fused_block_chain_nc_torch",

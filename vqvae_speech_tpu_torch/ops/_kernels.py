@@ -8,7 +8,8 @@ import time, so the module imports on machines without ``nvcc`` or a GPU.
 Each launching wrapper checks device, dtype, contiguity and shapes, allocates
 its outputs with ``torch.empty``, launches on the current CUDA stream, raises
 if the launch reported an error, and counts its launches in a plain integer
-attribute (``vq_search_cuda.launches``, ``wavenet_step_cuda.launches``,
+attribute (``vq_search_cuda.launches``, ``wavenet_step_cuda.launches``
+for every launch of the decode step, prepared or not,
 ``fused_block_chain_cuda.launches``, ``fused_block_chain_tiled_cuda.launches``,
 ``fused_block_chain_nc_cuda.launches``).
 """
@@ -134,80 +135,195 @@ vq_search_cuda.launches = 0
 
 def _bind_wavenet_step(lib: ctypes.CDLL) -> None:
     i32, ptr = ctypes.c_int, ctypes.c_void_p
-    lib.wavenet_step_scratch_bytes.argtypes = [i32] * 6
-    lib.wavenet_step_scratch_bytes.restype = ctypes.c_size_t
-    # x0, taps, cond, wtap, bias, wskip, bskip, wout, bout, L, k, B, C, G, S,
-    # legacy, x_out, skip, x_all, scratch, stream
-    lib.wavenet_step_f32.argtypes = [ptr] * 9 + [i32] * 7 + [ptr] * 5
-    lib.wavenet_step_f32.restype = ctypes.c_int
+    # L, k, B, C, G, S, *bytes
+    lib.wavenet_step_scratch_bytes.argtypes = (
+        [i32] * 6 + [ctypes.POINTER(ctypes.c_size_t)])
+    lib.wavenet_step_scratch_bytes.restype = i32
+    # wtap, bias, wskip, bskip, wout, bout, L, k, B, C, G, S, legacy,
+    # x_out, skip, x_all, scratch, *handle
+    lib.wavenet_step_prepare.argtypes = (
+        [ptr] * 6 + [i32] * 7 + [ptr] * 4 + [ctypes.POINTER(ptr)])
+    lib.wavenet_step_prepare.restype = i32
+    # handle, x0, taps, cond, stamps, stream
+    lib.wavenet_step_run.argtypes = [ptr] * 6
+    lib.wavenet_step_run.restype = i32
+    lib.wavenet_step_describe.argtypes = [ptr, ctypes.POINTER(i32)]
+    lib.wavenet_step_describe.restype = None
+    lib.wavenet_step_release.argtypes = [ptr]
+    lib.wavenet_step_release.restype = None
 
 
 WAVENET_STEP_MAX_BATCH = 32
+_STEP_WEIGHTS = ("wtap", "bias", "wskip", "bskip", "wout", "bout")
+
+
+def _check_step_tensor(name, t, dev):
+    if not t.is_cuda or (dev is not None and t.device != dev):
+        raise ValueError(f"wavenet_step_cuda: {name} must be a CUDA tensor"
+                         f"{'' if dev is None else f' on {dev}'}, got "
+                         f"{t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"wavenet_step_cuda: {name} must be float32, "
+                         f"got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"wavenet_step_cuda: {name} must be contiguous")
+
+
+class PreparedWaveNetStep:
+    """The decode-step kernel (csrc/wavenet_step.cu) bound to one layer
+    stack's weights and one batch size: everything that does not change from
+    step to step is checked, planned and allocated here, ONCE.
+
+    ``step(x0, taps, cond)`` then checks its three tensors, passes their
+    pointers and launches the one cooperative kernel on the current stream;
+    it returns (x (B, C), skip (B, S), x_all (L, B, C)).
+
+    The three outputs and the scratch are allocated once and REUSED by every
+    call: a call overwrites what the previous call returned. That is safe
+    for a caller that consumes (or copies) a step's outputs with work
+    enqueued on the same stream before it makes the next call, as the
+    decode loop does; one that keeps a step's outputs clones them.
+    """
+
+    def __init__(self, wtap, bias, wskip, bskip, wout, bout, batch: int,
+                 legacy: bool = False):
+        weights = dict(wtap=wtap, bias=bias, wskip=wskip, bskip=bskip,
+                       wout=wout, bout=bout)
+        self._handle = None
+        dev = wtap.device if wtap.is_cuda else None
+        for name, t in weights.items():
+            _check_step_tensor(name, t, dev)
+            # the weight matrices are copied in 16-byte pieces
+            if name in ("wtap", "wskip", "wout") and t.data_ptr() % 16:
+                raise ValueError(f"wavenet_step_cuda: {name} must be 16-byte "
+                                 "aligned")
+        if wtap.dim() != 4:
+            raise ValueError(f"wavenet_step_cuda: wtap must be (L, k, C, G), "
+                             f"got {tuple(wtap.shape)}")
+        L, k, C, G = wtap.shape
+        B = int(batch)
+        S = wskip.shape[-1]
+        want = dict(bias=(L, G), wskip=(L, G // 2, S), bskip=(L, S),
+                    wout=(L, G // 2, C), bout=(L, C))
+        for name, shape in want.items():
+            if tuple(weights[name].shape) != shape:
+                raise ValueError(f"wavenet_step_cuda: {name} has shape "
+                                 f"{tuple(weights[name].shape)}, expected "
+                                 f"{shape}")
+        if not 1 <= B <= WAVENET_STEP_MAX_BATCH:
+            raise ValueError(f"wavenet_step_cuda: batch {B} outside 1.."
+                             f"{WAVENET_STEP_MAX_BATCH}")
+        if L < 1 or k < 1 or G % 8 or C % 4 or S % 4 or min(C, G, S) < 1:
+            raise ValueError("wavenet_step_cuda: needs L, k >= 1, G % 8 == 0, "
+                             f"C % 4 == 0 and S % 4 == 0; got L={L} k={k} "
+                             f"C={C} G={G} S={S}")
+        self.device = dev
+        self.shapes = dict(x0=(B, C), taps=(L, k - 1, B, C), cond=(L, B, G))
+        self._weights = weights       # kept alive: the handle holds pointers
+        self._lib = lib = _library("wavenet_step", _bind_wavenet_step)
+        dims = (L, k, B, C, G, S)
+        with torch.cuda.device(dev):
+            nbytes = ctypes.c_size_t()
+            self._raise(lib.wavenet_step_scratch_bytes(
+                *dims, ctypes.byref(nbytes)), dims)
+            self.x_out = torch.empty((B, C), dtype=torch.float32, device=dev)
+            self.skip = torch.empty((B, S), dtype=torch.float32, device=dev)
+            self.x_all = torch.empty((L, B, C), dtype=torch.float32,
+                                     device=dev)
+            self._scratch = torch.empty((nbytes.value,), dtype=torch.uint8,
+                                        device=dev)
+            handle = ctypes.c_void_p()
+            self._raise(lib.wavenet_step_prepare(
+                *(weights[n].data_ptr() for n in _STEP_WEIGHTS), *dims,
+                int(bool(legacy)), self.x_out.data_ptr(),
+                self.skip.data_ptr(), self.x_all.data_ptr(),
+                self._scratch.data_ptr(), ctypes.byref(handle)), dims)
+        self._handle = handle
+
+    @staticmethod
+    def _raise(err, dims):
+        if err == -1:
+            raise ValueError("wavenet_step_cuda: a block's slice of the "
+                             f"inputs does not fit shared memory at (L, k, B,"
+                             f" C, G, S) = {dims}")
+        if err == -2:
+            raise ValueError("wavenet_step_cuda: more column tiles than the "
+                             f"device runs blocks at (L, k, B, C, G, S) = "
+                             f"{dims}")
+        if err != 0:
+            raise RuntimeError(f"wavenet_step_cuda: CUDA error {err} at "
+                               f"(L, k, B, C, G, S) = {dims}")
+
+    def describe(self) -> dict:
+        """The launch's shape: blocks, shared-memory bytes a block, and the
+        (tiles, slices, rows a slice) of the gate and the projection."""
+        out = (ctypes.c_int * 8)()
+        self._lib.wavenet_step_describe(self._handle, out)
+        return dict(zip(("blocks", "smem_bytes", "gate_tiles", "gate_slices",
+                         "gate_rows", "proj_tiles", "proj_slices",
+                         "proj_rows"), out))
+
+    def __call__(self, x0, taps, cond, stamps=None):
+        """One step. ``stamps``, an int64 CUDA tensor of (blocks, 2L, 4, 2),
+        receives every block's stamps of each phase (start, inputs staged,
+        products done, partial sums stored), each as (global nanosecond
+        timer, the SM's cycle counter)."""
+        dev = self.device
+        if stamps is not None and (
+                stamps.dtype != torch.int64 or stamps.device != dev
+                or not stamps.is_contiguous()
+                or stamps.numel() < self.describe()["blocks"] * 16
+                * self.shapes["cond"][0]):
+            raise ValueError("wavenet_step_cuda: stamps must be a contiguous "
+                             "int64 tensor of (blocks, 2L, 4, 2) on the "
+                             "device")
+        for name, t in (("x0", x0), ("taps", taps), ("cond", cond)):
+            _check_step_tensor(name, t, dev)
+            if tuple(t.shape) != self.shapes[name]:
+                raise ValueError(f"wavenet_step_cuda: {name} has shape "
+                                 f"{tuple(t.shape)}, expected "
+                                 f"{self.shapes[name]}")
+        if torch.cuda.current_device() == dev.index:
+            err = self._launch(x0, taps, cond, stamps)
+        else:
+            with torch.cuda.device(dev):
+                err = self._launch(x0, taps, cond, stamps)
+        if err != 0:
+            raise RuntimeError("wavenet_step_cuda: launch failed with CUDA "
+                               f"error {err}")
+        wavenet_step_cuda.launches += 1
+        return self.x_out, self.skip, self.x_all
+
+    def _launch(self, x0, taps, cond, stamps):
+        return self._lib.wavenet_step_run(
+            self._handle, x0.data_ptr(), taps.data_ptr(), cond.data_ptr(),
+            None if stamps is None else stamps.data_ptr(),
+            torch.cuda.current_stream(self.device).cuda_stream)
+
+    def __del__(self):
+        if getattr(self, "_handle", None):
+            self._lib.wavenet_step_release(self._handle)
+            self._handle = None
 
 
 def wavenet_step_cuda(x0, taps, cond, wtap, bias, wskip, bskip, wout, bout,
                       legacy: bool = False):
     """Fused GLU layer stack for one decode step (csrc/wavenet_step.cu) on
     CUDA f32 tensors; the contract of ``ops.wavenet_step.glu_stack_step``.
+    Prepares the step for these weights, runs it once and hands over the
+    freshly allocated outputs; a decode loop prepares once instead
+    (``PreparedWaveNetStep``).
 
     x0 (B, C), taps (L, k-1, B, C), cond (L, B, G), wtap (L, k, C, G),
     bias (L, G), wskip (L, G/2, S), bskip (L, S), wout (L, G/2, C),
     bout (L, C) -> (x (B, C), skip (B, S), x_all (L, B, C)).
     """
-    args = dict(x0=x0, taps=taps, cond=cond, wtap=wtap, bias=bias,
-                wskip=wskip, bskip=bskip, wout=wout, bout=bout)
-    dev = x0.device
-    for name, t in args.items():
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"wavenet_step_cuda: {name} must be a CUDA tensor "
-                             f"on {dev}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"wavenet_step_cuda: {name} must be float32, "
-                             f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"wavenet_step_cuda: {name} must be contiguous")
-        # the weight matrices are read as float4
-        if name in ("wtap", "wskip", "wout") and t.data_ptr() % 16:
-            raise ValueError(f"wavenet_step_cuda: {name} must be 16-byte "
-                             "aligned")
-    if wtap.dim() != 4:
-        raise ValueError(f"wavenet_step_cuda: wtap must be (L, k, C, G), got "
-                         f"{tuple(wtap.shape)}")
-    L, k, C, G = wtap.shape
-    B = x0.shape[0]
-    S = wskip.shape[-1]
-    want = dict(x0=(B, C), taps=(L, k - 1, B, C), cond=(L, B, G),
-                bias=(L, G), wskip=(L, G // 2, S), bskip=(L, S),
-                wout=(L, G // 2, C), bout=(L, C))
-    for name, shape in want.items():
-        if tuple(args[name].shape) != shape:
-            raise ValueError(f"wavenet_step_cuda: {name} has shape "
-                             f"{tuple(args[name].shape)}, expected {shape}")
-    if not 1 <= B <= WAVENET_STEP_MAX_BATCH:
-        raise ValueError(f"wavenet_step_cuda: batch {B} outside 1.."
-                         f"{WAVENET_STEP_MAX_BATCH}")
-    if L < 1 or k < 1 or G % 8 or C % 4 or S % 4 or min(C, G, S) < 1:
-        raise ValueError("wavenet_step_cuda: needs L, k >= 1, G % 8 == 0, "
-                         f"C % 4 == 0 and S % 4 == 0; got L={L} k={k} C={C} "
-                         f"G={G} S={S}")
-    lib = _library("wavenet_step", _bind_wavenet_step)
-    x_out = torch.empty((B, C), dtype=torch.float32, device=dev)
-    skip = torch.empty((B, S), dtype=torch.float32, device=dev)
-    x_all = torch.empty((L, B, C), dtype=torch.float32, device=dev)
-    scratch = torch.empty(
-        (lib.wavenet_step_scratch_bytes(L, k, B, C, G, S),),
-        dtype=torch.uint8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.wavenet_step_f32(
-            *(t.data_ptr() for t in args.values()), L, k, B, C, G, S,
-            int(bool(legacy)), x_out.data_ptr(), skip.data_ptr(),
-            x_all.data_ptr(), scratch.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"wavenet_step_cuda: launch failed with CUDA error "
-                           f"{err}")
-    wavenet_step_cuda.launches += 1
-    return x_out, skip, x_all
+    if x0.dim() != 2:
+        raise ValueError(f"wavenet_step_cuda: x0 must be (B, C), got shape "
+                         f"{tuple(x0.shape)}")
+    step = PreparedWaveNetStep(wtap, bias, wskip, bskip, wout, bout,
+                               x0.shape[0], legacy)
+    return step(x0, taps, cond)
 
 
 wavenet_step_cuda.launches = 0
@@ -217,9 +333,13 @@ def _bind_fused_resblock(lib: ctypes.CDLL) -> None:
     i32, ptr = ctypes.c_int, ctypes.c_void_p
     lib.fused_chain_smem_bytes.argtypes = [i32]
     lib.fused_chain_smem_bytes.restype = ctypes.c_size_t
+    # T, C, G, cin, L, k, path, *floats, *split
+    lib.fused_chain_scratch_floats.argtypes = (
+        [i32] * 7 + [ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(i32)])
+    lib.fused_chain_scratch_floats.restype = i32
     # x, c, wf, wg, wfc, wgc, wres, wskip, bf, bg, bres, bskip, T, C, G, S,
-    # cin, L, k, [dilations,] x_out, skip, scratch, stream
-    chain = [ptr] * 12 + [i32] * 7
+    # cin, L, k, path, [dilations,] x_out, skip, scratch, stream
+    chain = [ptr] * 12 + [i32] * 8
     for name in ("fused_chain_f32", "fused_chain_tiled_f32"):
         getattr(lib, name).argtypes = chain + [ptr] * 4
         getattr(lib, name).restype = i32
@@ -230,15 +350,26 @@ def _bind_fused_resblock(lib: ctypes.CDLL) -> None:
 
 FUSED_CHAIN_MAX_TAPS = 8
 FUSED_CHAIN_MAX_LAYERS = 64
+# The chain kernels' two decompositions. "auto" is what every caller gets:
+# the shapes and the device's SM count decide (chains of at most two 64-row
+# tiles an SM take the split path). The other two
+# force one, for tests and measurements of both sides of that switch.
+FUSED_CHAIN_PATHS = {"auto": 0, "rows": 1, "split": 2}
 _STACKED = ("wf", "wg", "wfc", "wgc", "wres", "wskip", "bf", "bg", "bres",
             "bskip")
 
 
-def _fused_chain_launch(name, entry, x, c_up, stacked, dilations=None):
-    """Check the arguments of one fused chain, allocate its outputs and run
-    the C entry point ``entry`` of csrc/fused_resblock.cu on the current
-    stream. x (T, C), c_up (T, cin), stacked as
-    ``ops.fused_resblock.stack_block_weights`` -> (x (T, C), skip (T, S))."""
+def _fused_chain_launch(name, entry, x, c_up, stacked, dilations=None,
+                        path="auto"):
+    """Check the arguments of one fused chain, allocate its outputs and
+    scratch (the buffer x ping-pongs through and, on the split path, the
+    partial sums and the gated output) and run the C entry point ``entry``
+    of csrc/fused_resblock.cu on the current stream. x (T, C), c_up
+    (T, cin), stacked as ``ops.fused_resblock.stack_block_weights`` ->
+    (x (T, C), skip (T, S))."""
+    if path not in FUSED_CHAIN_PATHS:
+        raise ValueError(f"{name}: path must be one of "
+                         f"{sorted(FUSED_CHAIN_PATHS)}, got {path!r}")
     args = dict(x=x, c_up=c_up, **{n: stacked[n] for n in _STACKED})
     dev = x.device
     for arg, t in args.items():
@@ -285,30 +416,44 @@ def _fused_chain_launch(name, entry, x, c_up, stacked, dilations=None):
                          "shared memory")
     x_out = torch.empty((T, C), dtype=torch.float32, device=dev)
     skip = torch.empty((T, S), dtype=torch.float32, device=dev)
-    scratch = torch.empty((T, C), dtype=torch.float32, device=dev)
     extra = []
     if dilations is not None:
         if len(dilations) != L or min(dilations) < 1:
             raise ValueError(f"{name}: needs {L} positive dilations, got "
                              f"{tuple(dilations)}")
         extra = [(ctypes.c_int * L)(*(int(d) for d in dilations))]
+    path_id = FUSED_CHAIN_PATHS[path]
     with torch.cuda.device(dev):
+        n_floats, split = ctypes.c_size_t(), ctypes.c_int()
+        err = lib.fused_chain_scratch_floats(
+            T, C, G, cin, L, k, path_id, ctypes.byref(n_floats),
+            ctypes.byref(split))
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} sizing the scratch")
+        scratch = torch.empty((n_floats.value,), dtype=torch.float32,
+                              device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, entry)(
             *(t.data_ptr() for t in args.values()), T, C, G, S, cin, L, k,
-            *extra, x_out.data_ptr(), skip.data_ptr(), scratch.data_ptr(),
-            stream)
+            path_id, *extra, x_out.data_ptr(), skip.data_ptr(),
+            scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+    _fused_chain_launch.last_split = bool(split.value)
     return x_out, skip
 
 
-def fused_block_chain_tiled_cuda(x, c_up, stacked):
+# whether the last chain launched took the split path (for tests and reports)
+_fused_chain_launch.last_split = False
+
+
+def fused_block_chain_tiled_cuda(x, c_up, stacked, path="auto"):
     """The causal gated-resblock chain (dilation k**l) on CUDA f32 tensors,
     as the IAF student serves it; the contract of
     ``ops.fused_resblock.fused_block_chain_tiled``."""
     out = _fused_chain_launch("fused_block_chain_tiled_cuda",
-                              "fused_chain_tiled_f32", x, c_up, stacked)
+                              "fused_chain_tiled_f32", x, c_up, stacked,
+                              path=path)
     fused_block_chain_tiled_cuda.launches += 1
     return out
 
@@ -316,11 +461,11 @@ def fused_block_chain_tiled_cuda(x, c_up, stacked):
 fused_block_chain_tiled_cuda.launches = 0
 
 
-def fused_block_chain_cuda(x, c_up, stacked):
+def fused_block_chain_cuda(x, c_up, stacked, path="auto"):
     """The causal chain over the whole T; the contract of
     ``ops.fused_resblock.fused_block_chain``."""
     out = _fused_chain_launch("fused_block_chain_cuda", "fused_chain_f32",
-                              x, c_up, stacked)
+                              x, c_up, stacked, path=path)
     fused_block_chain_cuda.launches += 1
     return out
 
@@ -328,12 +473,12 @@ def fused_block_chain_cuda(x, c_up, stacked):
 fused_block_chain_cuda.launches = 0
 
 
-def fused_block_chain_nc_cuda(x, c_up, stacked, dilations):
+def fused_block_chain_nc_cuda(x, c_up, stacked, dilations, path="auto"):
     """The non-causal chain with one dilation a layer; the contract of
     ``ops.fused_resblock.fused_block_chain_nc``."""
     out = _fused_chain_launch("fused_block_chain_nc_cuda",
                               "fused_chain_nc_f32", x, c_up, stacked,
-                              tuple(dilations))
+                              tuple(dilations), path=path)
     fused_block_chain_nc_cuda.launches += 1
     return out
 

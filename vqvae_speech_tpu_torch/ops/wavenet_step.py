@@ -20,12 +20,25 @@ under ``legacy``) and every layer's input, for the ring-buffer writes.
 input: a CUDA tensor always goes to the hand-written kernel
 ``csrc/wavenet_step.cu`` (the port of the Pallas ``_kernel``), a CPU tensor
 to the plain chain. There is no threshold and no fallback.
+
+``prepare_glu_stack_step`` is the form a decode loop uses: it binds the
+stack's weights and the batch size once and returns ``step(x0, taps, cond)``.
+For CUDA weights that is the kernel's prepared launch, which checks shapes,
+dtypes, devices and alignment of the weights, plans the launch and
+allocates the outputs and scratch ONCE; a step then only checks its three
+tensors and passes pointers. Its outputs are reused from call to call (each
+call overwrites what the previous one returned), which is safe for a caller
+that consumes a step's outputs on the same stream before the next call.
+For CPU weights ``step`` is the plain chain.
 """
 import math
 
 import torch
 
-from vqvae_speech_tpu_torch.ops._kernels import wavenet_step_cuda
+from vqvae_speech_tpu_torch.ops._kernels import (
+    PreparedWaveNetStep,
+    wavenet_step_cuda,
+)
 
 _SQRT_HALF = math.sqrt(0.5)
 
@@ -62,3 +75,25 @@ def glu_stack_step(x0, taps, cond, wtap, bias, wskip, bskip, wout, bout,
         raise ValueError(f"glu_stack_step: no path for device {x0.device}")
     return glu_stack_step_torch(x0, taps, cond, wtap, bias, wskip, bskip,
                                 wout, bout, legacy)
+
+
+def prepare_glu_stack_step(wtap, bias, wskip, bskip, wout, bout, batch: int,
+                           legacy: bool = False):
+    """Bind one layer stack and batch size; returns ``step(x0, taps, cond)
+    -> (x, skip, x_all)`` with the contract of ``glu_stack_step``. On CUDA
+    weights the returned outputs are buffers that the next call overwrites."""
+    if wtap.is_cuda:
+        return PreparedWaveNetStep(wtap, bias, wskip, bskip, wout, bout,
+                                   batch, legacy)
+    if wtap.device.type != "cpu":
+        raise ValueError(f"prepare_glu_stack_step: no path for device "
+                         f"{wtap.device}")
+
+    def step(x0, taps, cond):
+        if x0.shape[0] != batch:
+            raise ValueError(f"prepare_glu_stack_step: x0 has batch "
+                             f"{x0.shape[0]}, prepared for {batch}")
+        return glu_stack_step_torch(x0, taps, cond, wtap, bias, wskip, bskip,
+                                    wout, bout, legacy)
+
+    return step

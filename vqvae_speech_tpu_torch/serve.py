@@ -18,7 +18,8 @@ max_batch * C * T / D rows — the fused CUDA kernel on a GPU.
 ``BucketedSynthesisServer`` is the counterpart of the JAX server of the same
 name: local-conditioning frame buckets, launches padded to ``max_batch``,
 each a greedy (or sampled) AR decode whose f32 layer stack runs as one
-``glu_stack_step`` per step — the hand-written CUDA kernel on a GPU.
+prepared ``glu_stack_step`` per step — on a GPU one launch of the
+hand-written CUDA kernel, bound to the weights once a decode.
 
 ``BucketedParallelSynthesisServer`` is the counterpart of the JAX server of
 the same name: one-pass synthesis with the ClariNet IAF student or the
