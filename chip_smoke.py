@@ -15,7 +15,7 @@
    that the codes equal the plain search on the server's own latents and the
    JAX package's codes in tests/data/torch_port_flagship_codes.npz, and that
    the eval forward gives finite reconstructions; reports requests/s and
-   frames/s.
+   frames/s, and the VQ kernel's device time a launch from torch.profiler.
 4. Decode-step kernel phase: holds glu_stack_step against its plain
    PyTorch chain at the vctk_wavenet width (20 layers, k=3, C=G=768,
    S=256) for batch 1, 8 and 32 with and without the legacy skip scaling,
@@ -40,9 +40,15 @@
    chain at the IAF student's width for T=20480 and an odd T, the whole-T
    causal chain at T=4096, the non-causal chain at all eight FloWaveNet
    block shapes, at a T off every tile size and at a deep-dilation case;
-   runs each twice and requires bit-equal outputs; times the kernel (as the
-   shapes route it, and forced onto each of its two decompositions) and the
-   plain chain, and states the card's bound for each.
+   runs each twice and requires bit-equal outputs; holds the kernel's
+   prepared weights (transposed, split into TF32 hi and lo parts) against
+   the same layout built with tensor operations, and one bare product of
+   its tensor-core main loop against torch.matmul in f32; times the kernel
+   on weights prepared once (as the shapes route it, and forced onto each
+   of its two decompositions) and the plain chain, states the card's f32
+   bound and the tensor cores' bound for each, what one TF32 product a f32
+   product would have cost in error, and what cuBLAS takes for the
+   student chain's products alone in f32 and in one-pass TF32.
 7. Vocoder slice phase: the one-pass vocoders at paper width
    (numpy_student_params / numpy_flowavenet_params, seed 0) behind
    BucketedParallelSynthesisServer: eight VCTK requests -> normalized
@@ -215,8 +221,9 @@ CHAIN_SHAPES = (
 # summation order, through exp() of the flows' log-scales)
 VOCODER_TOL = 1e-3
 # NVIDIA's published peaks for the H100 SXM: f32 outside the tensor cores,
-# and device memory
+# dense TF32 on them, and device memory
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -331,6 +338,27 @@ def _nvidia_smi():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _tensor_core_instructions(_kernels):
+    """A line saying how many warpgroup matrix instructions (HGMMA in SASS)
+    the built chain library holds, by the toolkit's cuobjdump; raises if it
+    holds none."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    lib = os.path.join(_kernels.BUILD_DIR, "libfused_resblock.so")
+    if not os.path.isfile(tool):
+        return "SASS of csrc/fused_resblock.cu: cuobjdump not found, not checked"
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                          check=True).stdout
+    ops = [w for line in sass.splitlines() for w in line.split()
+           if w.startswith("HGMMA")]
+    if not ops:
+        raise AssertionError("no HGMMA instruction in the chain kernels' SASS")
+    return (f"SASS of csrc/fused_resblock.cu (cuobjdump -sass): {len(ops)} "
+            f"warpgroup matrix instructions, {sorted(set(ops))}")
 
 
 def _median_ms(fn, iters=50, warmup=5):
@@ -514,6 +542,23 @@ def slice_phase(gpu):
     print(f"slice: {len(load)} requests in {sec * 1e3:.2f} ms (median of 5): "
           f"{len(load) / sec:.1f} requests/s, {frames / sec:.0f} frames/s "
           f"[{gpu}]")
+
+    # the VQ kernel's own time on the device, without the host's launch cost
+    before = _kernels.vq_search_cuda.launches
+    _, busy_us = _device_profile(lambda: server.encode(load))
+    n = _kernels.vq_search_cuda.launches - before
+    vq_us = {k: v for k, v in busy_us.items() if "vq_" in k}
+    if vq_us and n:
+        print(f"slice: vq_search device time {sum(vq_us.values()) / n / 1e3:.4f} "
+              f"ms a launch over {n} launches of one encode of {len(load)} "
+              f"requests (torch.profiler; " + ", ".join(
+                  f"{k[k.index('vq_'):].split('(')[0]} {v / n:.1f} us"
+                  for k, v in vq_us.items())
+              + f"), {sum(vq_us.values()) / sum(busy_us.values()):.4f} of the "
+              f"device time [{gpu}]")
+    else:
+        print("slice: the profiler showed no device time for vq_search; "
+              "not measured")
     return launches
 
 
@@ -929,10 +974,18 @@ def wavenet_step_bound(L, k, B, C, G, S):
 def chain_bound(L, k, T, C, G, S, cin):
     """One fused chain: per row and layer the gate products
     2*(k*C + cin)*2G and the projections 2*G*(C + S); x, c_up and the
-    weights read once, x and skip written once."""
+    weights read once, x and skip written once. Returns (bound_ms, bound_by,
+    tensor_bound_ms): the bound at the f32 rate outside the tensor cores,
+    the function's work at the rate the kernels were first held to, and the
+    least time the error-compensated TF32 design could take, three TF32
+    products a f32 product at the tensor cores' dense TF32 peak (or the
+    bytes' time if larger)."""
     flops = T * L * (2 * (k * C + cin) * 2 * G + 2 * G * (C + S))
     weights = L * (2 * k * C * G + 2 * cin * G + G * (C + S) + 2 * G + C + S)
-    return _bound(flops, 4 * (T * (C + cin) + weights + T * (C + S)))
+    nbytes = 4 * (T * (C + cin) + weights + T * (C + S))
+    tensor_ms = max(3 * flops / PEAK_TF32_FLOPS,
+                    nbytes / PEAK_BYTES_PER_S) * 1e3
+    return (*_bound(flops, nbytes), tensor_ms)
 
 
 def _random_chain(rng, L, k, T, C, G, S, cin):
@@ -954,13 +1007,80 @@ def _random_chain(rng, L, k, T, C, G, S, cin):
     return f((T, C)), f((T, cin)), stacked
 
 
+def _main_loop_check(rng):
+    """One bare product of the chain kernels' tensor-core main loop against
+    torch.matmul in f32 at the student gate's size, and the same product
+    with the lo parts dropped (one TF32 product): max abs errors against a
+    float64 product. A check of the loop, not a path of the port."""
+    import torch
+    from vqvae_speech_tpu_torch.ops import _kernels
+    from vqvae_speech_tpu_torch.ops.fused_resblock import split_tf32
+
+    M, N, K = 20480, 512, 464
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).cuda()
+    b = torch.from_numpy((rng.standard_normal((K, N)) * K ** -0.5)
+                         .astype(np.float32)).cuda()
+    hi, lo = (t.contiguous() for t in split_tf32(b.t().contiguous()))
+    got = _kernels.tf32x3_matmul_cuda(a, hi, lo)
+    coarse = _kernels.tf32x3_matmul_cuda(split_tf32(a)[0], hi,
+                                         torch.zeros_like(lo))
+    want = a @ b
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+    exact = a.double() @ b.double()
+    errs = [(t.double() - exact).abs().max().item()
+            for t in (got, want, coarse)]
+    ms = _median_ms(lambda: _kernels.tf32x3_matmul_cuda(a, hi, lo), iters=20)
+    print(f"kernel fused_block_chain main loop: ({M}, {K}) @ ({K}, {N}) by "
+          f"wgmma in error-compensated TF32: max abs err against float64 "
+          f"{errs[0]:.3e} (torch.matmul f32 {errs[1]:.3e}; one TF32 product "
+          f"{errs[2]:.3e}); within rtol 1e-5, atol 2e-5 of torch.matmul; "
+          f"{ms:.4f} ms, {3 * 2 * M * N * K / ms / 1e9:.0f} TFLOP/s of TF32 "
+          f"work")
+
+
+def _gemm_yardstick(gpu, L=6, T=20480):
+    """What cuBLAS takes for the student chain's products alone, (T, 464) @
+    (464, 512) and (T, 256) @ (256, 256) L times, in f32 and in one-pass
+    TF32. The port never calls it; allow_tf32 is restored."""
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    mats = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .cuda() for shape in ((T, 464), (464, 512), (T, 256), (256, 256))]
+
+    def products():
+        for _ in range(L):
+            torch.matmul(mats[0], mats[1])
+            torch.matmul(mats[2], mats[3])
+
+    old = torch.backends.cuda.matmul.allow_tf32
+    try:
+        times = {}
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            times[tf32] = _median_ms(products, iters=20, warmup=3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    print(f"yardstick: the student chain's products alone at T={T}, {L} x "
+          f"[({T}, 464) @ (464, 512) + ({T}, 256) @ (256, 256)] by "
+          f"torch.matmul: {times[False]:.4f} ms in f32, {times[True]:.4f} ms "
+          f"with allow_tf32 (one TF32 product a f32 product; 3 x that is "
+          f"{3 * times[True]:.4f} ms); no bias, activation or epilogue "
+          f"[{gpu}]")
+
+
 def chain_kernel_phase(gpu):
     """The three fused-chain entry points (the kernels) against their plain
     PyTorch chains on the same CUDA tensors, within CHAIN_TOL, and bit-equal
-    over two runs. Also times each shape forced onto the row-tiled and the
-    split decomposition (the shapes choose one; the other shows where the
-    switch lies) and holds both against the plain chain. Returns {wrapper:
-    its kernels-line numbers at the first shape listed for it}."""
+    over two runs. The kernel's prepared weights are held against the same
+    layout built with tensor operations, and a chain bound once
+    (prepare_block_chain) against the bare call, bit for bit. Times each
+    shape on prepared weights, as the shapes route it and forced onto the
+    row-tiled and the split decomposition (the shapes choose one; the other
+    shows where the switch lies), holding both against the plain chain.
+    Returns {wrapper: its kernels-line numbers at the first shape listed
+    for it}."""
     import torch
     from vqvae_speech_tpu_torch.ops import _kernels
     from vqvae_speech_tpu_torch.ops import fused_resblock as fused
@@ -975,6 +1095,7 @@ def chain_kernel_phase(gpu):
                _kernels.fused_block_chain_nc_cuda),
     }
     rng = np.random.default_rng(SEED)
+    _main_loop_check(rng)
     out = {}
     with torch.inference_mode():
         for name, which, L, k, dil, T, C, G, S, cin in CHAIN_SHAPES:
@@ -993,34 +1114,76 @@ def chain_kernel_phase(gpu):
                     raise AssertionError(f"{name}: two runs on the same "
                                          "inputs differ")
                 err = max(err, (g - w).abs().max().item())
-            ms = _median_ms(lambda: kernel(x, c, stacked, L, k, *extra),
+            # the weights bound once: the layout, then the same bits
+            prepared = fused.prepare_block_chain(stacked)
+            layout = fused.prepared_chain_weights_torch(stacked)
+            torch.cuda.synchronize()
+            if not (torch.equal(prepared.wgate, layout["wgate"])
+                    and torch.equal(prepared.wproj, layout["wproj"])):
+                raise AssertionError(f"{name}: the prepared weights differ "
+                                     "from the plain layout")
+            del layout
+            for g, p in zip(got, kernel(x, c, prepared, L, k, *extra)):
+                if not torch.equal(g, p):
+                    raise AssertionError(f"{name}: the prepared chain and "
+                                         "the bare call differ")
+            ms = _median_ms(lambda: kernel(x, c, prepared, L, k, *extra),
                             iters=20, warmup=3)
+            bare_ms = _median_ms(lambda: kernel(x, c, stacked, L, k, *extra),
+                                 iters=5, warmup=1)
             plain_ms = _median_ms(lambda: plain(x, c, stacked, L, k, *extra),
                                   iters=20, warmup=3)
             forced = {}
             for path in ("rows", "split"):
-                for g, w in zip(wrapper(x, c, stacked, *extra, path=path),
+                for g, w in zip(wrapper(x, c, prepared, *extra, path=path),
                                 want):
                     torch.testing.assert_close(g, w, **CHAIN_TOL)
                 forced[path] = _median_ms(
-                    lambda: wrapper(x, c, stacked, *extra, path=path),
+                    lambda: wrapper(x, c, prepared, *extra, path=path),
                     iters=10, warmup=2)
-            bound_ms, bound_by = chain_bound(L, k, T, C, G, S, cin)
+            bound_ms, bound_by, tensor_ms = chain_bound(L, k, T, C, G, S, cin)
             row = out.setdefault(which, dict(
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by))
+                bound_by=bound_by, tensor_bound_ms=tensor_ms))
             row["max_abs_err"] = max(row["max_abs_err"], err)
+            coarse = ""
+            if T == 20480:
+                # what one TF32 product a f32 product would have cost
+                one = fused.fused_block_chain_tf32_torch(
+                    x, c, stacked, L, k, dil, causal=dil is None, passes=1)
+                coarse = (f"; with ONE TF32 product a f32 product (plain "
+                          f"twin, passes=1) max_abs_err "
+                          f"{max((g - w).abs().max().item() for g, w in zip(one, want)):.3e}")
             print(f"kernel fused_block_chain[{which}] {name}: L={L} k={k} "
                   f"dilations={dil or 'k**l'} T={T} C={C} G={G} S={S} "
-                  f"cin={cin}: max_abs_err {err:.3e}, two runs bit-equal; "
+                  f"cin={cin}: max_abs_err {err:.3e}, two runs bit-equal, "
+                  f"prepared weights ({prepared.nbytes / 1e6:.1f} MB) equal "
+                  f"the plain layout and give the bare call's bits{coarse}; "
                   f"kernel {ms:.4f} ms on the "
-                  f"{'split' if split else 'row-tiled'} path, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
-                  f"{bound_by} ({bound_ms / ms:.3f} of the kernel's time; "
-                  f"median of 20, CUDA events); forced row-tiled "
-                  f"{forced['rows']:.4f} ms, forced split "
+                  f"{'split' if split else 'row-tiled'} path on prepared "
+                  f"weights ({bare_ms:.4f} ms preparing them in the call), "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                  f"{bound_by} at the f32 rate ({bound_ms / ms:.3f} of the "
+                  f"kernel's time), tensor_bound_ms {tensor_ms:.4f} "
+                  f"({tensor_ms / ms:.3f}; median of 20, CUDA events); "
+                  f"forced row-tiled {forced['rows']:.4f} ms, forced split "
                   f"{forced['split']:.4f} ms (median of 10) [{gpu}]")
+    _gemm_yardstick(gpu)
     return out
+
+
+def _prepared_bytes(tree):
+    """Bytes of device memory the chains bound to the kernel hold in their
+    prepared weights, summed over a server's parameter tree."""
+    from vqvae_speech_tpu_torch.ops._kernels import PreparedFusedChain
+
+    if isinstance(tree, PreparedFusedChain):
+        return tree.nbytes
+    if isinstance(tree, dict):
+        return sum(_prepared_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_prepared_bytes(v) for v in tree)
+    return 0
 
 
 def vocoder_phase(gpu):
@@ -1084,7 +1247,9 @@ def vocoder_phase(gpu):
         print(f"vocoder {kind}: {len(mels)} requests through buckets "
               f"[20, 40, 80], {fused_server.stats['launches']} launches, "
               f"{chains} chains a request; kernel launches {counts}; main "
-              f"path {main_sec:.3f} s (first calls included)")
+              f"path {main_sec:.3f} s (first calls included); the chains' "
+              f"prepared weights hold "
+              f"{_prepared_bytes(fused_server._params) / 1e6:.1f} MB")
 
         # (a)/(b) against (c): the plain path at max_batch 8, the same noise
         reference = plain_server.synthesize(mels, seed=SEED)
@@ -1132,8 +1297,7 @@ def vocoder_phase(gpu):
         total_us = sum(busy_us.values())
         if total_us > 0:
             chain_us = sum(v for k, v in busy_us.items() if any(
-                n in k for n in ("chain_layer_kernel", "gate_partial_kernel",
-                                 "glu_kernel", "proj_kernel")))
+                n in k for n in ("gemm_kernel", "glu_kernel")))
             print(f"vocoder {kind} profile (one fused bucket-80 request, "
                   f"torch.profiler CUDA activity): window {window * 1e3:.2f} "
                   f"ms, device busy {total_us / 1e3:.2f} ms, idle share "
@@ -1215,6 +1379,8 @@ def main():
         for line in report.splitlines():
             if "Compiling entry" in line or "Used" in line:
                 print("  " + line.strip())
+
+    print(_tensor_core_instructions(_kernels))
 
     def phase(fn, *args):
         t = time.perf_counter()

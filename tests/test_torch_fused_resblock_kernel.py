@@ -10,7 +10,10 @@ skip without a CUDA device.
 
 Tolerance: rtol 1e-4, atol 1e-4 on x and skip at unit-scale inputs: sums of
 up to k*C + cin = 1024 f32 terms a layer, in another order than cuBLAS adds
-them, through up to 6 layers.
+them, through up to 6 layers. The kernels multiply on the tensor cores in
+error-compensated TF32 (three TF32 products a f32 product, the accumulator
+promoted to rounded f32 sums every two 32-float chunks), which measures
+within a few 1e-6 of the plain chains.
 """
 import math
 
@@ -115,7 +118,8 @@ def test_nc_kernel_matches_plain_at_the_flow_block_shapes(cuda, block):
     want = fused.fused_block_chain_nc_torch(x, c, stacked, 2, 3, (1, 2))
     got = fused.fused_block_chain_nc(x, c, stacked, 2, 3, (1, 2))
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert _kernels._fused_chain_launch.last_split == (-(-T // 64) <= 2 * sms)
+    # G = 64 is one column tile: the split path below half a block an SM
+    assert _kernels._fused_chain_launch.last_split == (2 * -(-T // 128) < sms)
     assert_matches(got, want)
     again = fused.fused_block_chain_nc(x, c, stacked, 2, 3, (1, 2))
     torch.cuda.synchronize()
@@ -214,9 +218,9 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(ValueError, match="multiples of 4"):
         fused.fused_block_chain(
             *chain_inputs(2, 3, 40, 18, 32, 16, 8, seed=0, device=cuda), 2, 3)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="1 <= k <= 8"):
         fused.fused_block_chain(
-            *chain_inputs(1, 1, 8, 8, 4096, 8, 8, seed=0, device=cuda), 1, 1)
+            *chain_inputs(1, 9, 8, 8, 8, 8, 8, seed=0, device=cuda), 1, 9)
     # the conditioning is read one float at a time: any contiguous view
     want = fused.fused_block_chain_torch(x, c, stacked, 2, 3)
     assert_matches(fused.fused_block_chain(x, _offset_view(c), stacked, 2, 3),
@@ -245,3 +249,118 @@ def test_wrappers_refuse_cpu_tensors():
                       _kernels.fused_block_chain_nc_cuda.launches)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# ---- the tensor-core main loop and the prepared weights ----
+
+RAGGED = dict(C=20, G=136, S=12, cin=19)     # off every tile of the kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", [(64, 128, 32), (128, 128, 64),
+                                   (200, 136, 100), (77, 12, 19),
+                                   (4096, 512, 464), (1, 8, 8)])
+def test_main_loop_matches_matmul(cuda, M, N, K):
+    """One bare product through the wgmma main loop against torch.matmul in
+    f32 (TF32 off): the operand layouts and the descriptor are right."""
+    rng = np.random.default_rng(M + N + K)
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((rng.standard_normal((K, N)) / math.sqrt(K))
+                         .astype(np.float32)).to(cuda)
+    b_t = torch.nn.functional.pad(b.t().contiguous(), (0, -K % 8))
+    hi, lo = (t.contiguous() for t in fused.split_tf32(b_t))
+    got = _kernels.tf32x3_matmul_cuda(a, hi, lo)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, a @ b, rtol=1e-5, atol=1e-5)
+    # one TF32 product (the lo part dropped) is visibly worse at depth
+    if K >= 64:
+        coarse = _kernels.tf32x3_matmul_cuda(fused.split_tf32(a)[0], hi,
+                                             torch.zeros_like(lo))
+        exact = a.double() @ b.double()
+        assert ((coarse.double() - exact).abs().max()
+                > 10 * (got.double() - exact).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,k,widths", [
+    (6, 3, dict(C=128, G=256, S=128, cin=80)), (3, 2, RAGGED),
+    (2, 1, RAGGED), (2, 3, dict(C=256, G=256, S=256, cin=640))])
+def test_prepared_weights_match_the_plain_layout(cuda, L, k, widths):
+    """The kernel's transposing split pass against the same layout built
+    with tensor operations, bit for bit."""
+    _, _, stacked = chain_inputs(L, k, 8, widths["C"], widths["G"],
+                                 widths["S"], widths["cin"], seed=L, device=cuda)
+    prepared = fused.prepare_block_chain(stacked)
+    want = fused.prepared_chain_weights_torch(stacked)
+    torch.cuda.synchronize()
+    assert torch.equal(prepared.wgate, want["wgate"])
+    assert torch.equal(prepared.wproj, want["wproj"])
+    assert prepared.nbytes == 4 * (want["wgate"].numel()
+                                   + want["wproj"].numel())
+    assert fused.prepare_block_chain(prepared) is prepared
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["rows", "split"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 5119])
+def test_tensor_core_loop_at_ragged_shapes(cuda, T, k, path):
+    """Rows off the 64- and 128-row tiles and widths off every column tile
+    and chunk (C=20, G=136, S=12, cin=19, an unaligned conditioning row),
+    causal and non-causal, on both decompositions."""
+    x, c, stacked = chain_inputs(3, k, T, seed=T + k, device=cuda, **RAGGED)
+    prepared = fused.prepare_block_chain(stacked)
+    causal = fused.fused_block_chain_torch(x, c, stacked, 3, k)
+    assert_matches(_kernels.fused_block_chain_tiled_cuda(x, c, prepared,
+                                                         path=path), causal)
+    assert _kernels._fused_chain_launch.last_split == (path == "split")
+    assert_matches(_kernels.fused_block_chain_cuda(x, c, prepared, path=path),
+                   causal)
+    assert_matches(
+        _kernels.fused_block_chain_nc_cuda(x, c, prepared, (1, 2, 4),
+                                           path=path),
+        fused.fused_block_chain_nc_torch(x, c, stacked, 3, k, (1, 2, 4)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,k,T,widths,dilations", [
+    (6, 3, 20480, dict(C=128, G=256, S=128, cin=80), None),
+    (2, 3, 1280, dict(C=256, G=256, S=256, cin=640), (1, 2)),
+    (3, 2, 129, RAGGED, (1, 2, 4))])
+def test_prepared_chain_equals_bare_call_and_repeats(cuda, L, k, T, widths,
+                                                     dilations):
+    """A chain bound once gives the bare-``stacked`` call's bits, and 20
+    runs agree bit for bit."""
+    x, c, stacked = chain_inputs(L, k, T, seed=T, device=cuda, **widths)
+    prepared = fused.prepare_block_chain(stacked)
+    if dilations is None:
+        def run(w):
+            return fused.fused_block_chain_tiled(x, c, w, L, k)
+    else:
+        def run(w):
+            return fused.fused_block_chain_nc(x, c, w, L, k, dilations)
+    bare = run(stacked)
+    runs = [run(prepared) for _ in range(20)]
+    torch.cuda.synchronize()
+    for got in runs:
+        for g, b in zip(got, bare):
+            assert torch.equal(g, b)
+
+
+@pytest.mark.cuda
+def test_chains_run_on_a_side_stream(cuda):
+    x, c, stacked = chain_inputs(6, 3, 4096, 128, 256, 128, 80, seed=3,
+                                 device=cuda)
+    prepared = fused.prepare_block_chain(stacked)
+    want = fused.fused_block_chain_tiled(x, c, prepared, 6, 3)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        bound = fused.prepare_block_chain(stacked)     # prepared on the stream
+        got = fused.fused_block_chain_tiled(x, c, bound, 6, 3)
+        nc = fused.fused_block_chain_nc(x, c, bound, 6, 3, (1, 2, 4, 8, 1, 2))
+    side.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert_matches(nc, fused.fused_block_chain_nc_torch(
+        x, c, stacked, 6, 3, (1, 2, 4, 8, 1, 2)))

@@ -41,7 +41,10 @@ from vqvae_speech_tpu_torch.models.flowavenet.model import (
 from vqvae_speech_tpu_torch.models.wavenet import WaveNet, WaveNetConfig
 from vqvae_speech_tpu_torch.models.wavenet_decoder import wavenet_config_from
 from vqvae_speech_tpu_torch.models.wavenet_vqvae import WaveNetVQVAE
-from vqvae_speech_tpu_torch.ops.fused_resblock import stack_block_weights
+from vqvae_speech_tpu_torch.ops.fused_resblock import (
+    prepare_block_chain,
+    stack_block_weights,
+)
 
 
 def _copy(dst: torch.Tensor, src) -> None:
@@ -185,9 +188,13 @@ def load_upsample_params(stages, device) -> list:
     return out
 
 
-def _resolved_resblocks(tree, total_layers, num_layers, device):
+def _resolved_resblocks(tree, total_layers, num_layers, device,
+                        prepare_chains=False):
     """(res_blocks, chains): every resblock's convs resolved, and each run
-    of ``num_layers`` blocks stacked for the fused chain."""
+    of ``num_layers`` blocks stacked for the fused chain and, with
+    ``prepare_chains``, bound to the chain kernel once
+    (``ops.fused_resblock.prepare_block_chain``: on a CUDA device about
+    twice the chains' weights of device memory more; a no-op on the CPU)."""
     if len(tree) != total_layers:
         raise ValueError(f"{len(tree)} resblocks in the params, "
                          f"{total_layers} in the config")
@@ -195,14 +202,18 @@ def _resolved_resblocks(tree, total_layers, num_layers, device):
               for p in tree]
     chains = [stack_block_weights(blocks[at:at + num_layers])
               for at in range(0, total_layers, num_layers)]
+    if prepare_chains:
+        chains = [prepare_block_chain(c) for c in chains]
     return blocks, chains
 
 
 def load_gaussian_wavenet_params(tree: dict, cfg: GaussianWaveNetConfig,
-                                 device) -> dict:
-    """A ``gaussian_wavenet_init``-shaped tree as tensors on ``device``."""
+                                 device, prepare_chains=False) -> dict:
+    """A ``gaussian_wavenet_init``-shaped tree as tensors on ``device``;
+    ``prepare_chains`` as in ``_resolved_resblocks``, for the fused path."""
     blocks, chains = _resolved_resblocks(tree["res_blocks"], cfg.total_layers,
-                                         cfg.num_layers, device)
+                                         cfg.num_layers, device,
+                                         prepare_chains)
     return {"front_conv": _resolved_conv(tree["front_conv"], device),
             "res_blocks": blocks, "chains": chains,
             "final_conv_1": _resolved_conv(tree["final_conv_1"], device),
@@ -210,18 +221,23 @@ def load_gaussian_wavenet_params(tree: dict, cfg: GaussianWaveNetConfig,
             "upsample_conv": load_upsample_params(tree["upsample_conv"], device)}
 
 
-def load_student_params(tree: dict, cfg: StudentConfig, device) -> dict:
-    """A ``wavenet_student_init``-shaped tree as tensors on ``device``."""
+def load_student_params(tree: dict, cfg: StudentConfig, device,
+                        prepare_chains=False) -> dict:
+    """A ``wavenet_student_init``-shaped tree as tensors on ``device``;
+    ``prepare_chains`` binds every chain to the chain kernel at load."""
     if len(tree["iafs"]) != cfg.num_flow:
         raise ValueError(f"{len(tree['iafs'])} flows in the params, "
                          f"{cfg.num_flow} in the config")
-    return {"iafs": [load_gaussian_wavenet_params(p, cfg.flow_config(i), device)
+    return {"iafs": [load_gaussian_wavenet_params(p, cfg.flow_config(i), device,
+                                                  prepare_chains)
                      for i, p in enumerate(tree["iafs"])]}
 
 
-def _load_coupling_net(tree: dict, cfg: CouplingNetConfig, device) -> dict:
+def _load_coupling_net(tree: dict, cfg: CouplingNetConfig, device,
+                       prepare_chains=False) -> dict:
     blocks, chains = _resolved_resblocks(tree["res_blocks"], cfg.total_layers,
-                                         cfg.num_layers, device)
+                                         cfg.num_layers, device,
+                                         prepare_chains)
     return {"front_conv": _resolved_conv(tree["front_conv"], device),
             "res_blocks": blocks, "chains": chains,
             "final_conv_1": _resolved_conv(tree["final_conv_1"], device),
@@ -229,8 +245,11 @@ def _load_coupling_net(tree: dict, cfg: CouplingNetConfig, device) -> dict:
                                 for n in ("w", "b", "scale")}}
 
 
-def load_flowavenet_params(tree: dict, cfg: FlowavenetConfig, device) -> dict:
-    """A ``flowavenet_init``-shaped tree as tensors on ``device``."""
+def load_flowavenet_params(tree: dict, cfg: FlowavenetConfig, device,
+                           prepare_chains=False) -> dict:
+    """A ``flowavenet_init``-shaped tree as tensors on ``device``;
+    ``prepare_chains`` binds every coupling chain to the chain kernel at
+    load (the priors' nets are not fused and stay as they are)."""
     if len(tree["blocks"]) != cfg.n_block:
         raise ValueError(f"{len(tree['blocks'])} blocks in the params, "
                          f"{cfg.n_block} in the config")
@@ -246,7 +265,8 @@ def load_flowavenet_params(tree: dict, cfg: FlowavenetConfig, device) -> dict:
         block = {"flows": [
             {"actnorm": {n: _tensor(f["actnorm"][n], device)
                          for n in ("loc", "scale")},
-             "coupling": _load_coupling_net(f["coupling"], net_cfg, device)}
+             "coupling": _load_coupling_net(f["coupling"], net_cfg, device,
+                                            prepare_chains)}
             for f in src["flows"]]}
         if cfg.split_at(i):
             block["prior"] = _load_coupling_net(

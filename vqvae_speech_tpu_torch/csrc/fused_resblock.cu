@@ -1,5 +1,5 @@
 // Fused gated-resblock chains for one-pass vocoder synthesis at batch 1,
-// Hopper (sm_90a), f32.
+// Hopper (sm_90a), f32 in and out, products on the tensor cores.
 //
 // Replaces the three TPU kernels of vqvae_speech_tpu/ops/fused_resblock.py:
 //   _chain_kernel_tiled (fused_block_chain_tiled)  -> fused_chain_tiled_f32
@@ -15,419 +15,596 @@
 //
 // Causal chains read off = -(k-1-j) * d_l, non-causal ones
 // off = (j - (k-1)/2) * d_l; a row outside [0, T) reads as zero at every
-// layer (the per-layer zero padding of the convolutions). All sums are f32.
+// layer (the per-layer zero padding of the convolutions).
 //
 // What bounds it on an H100: operations. A row of one layer costs
 // 2*(k*C + cin)*2G + 2*G*(C + S) flops (0.61 MFLOP at the IAF student's
 // k=3, C=128, G=256, S=128, cin=80; 3.6 MFLOP a 6-layer chain) against
 // 4*(C + cin) bytes read and 4*(C + S) written once a chain: hundreds of
-// flops a byte, so the f32 rate outside the tensor cores (67 TFLOP/s) is
-// the limit, 1.1 ms for a 20480-row student chain. The weights (0.95 MB a
-// student layer, up to 21 MB a layer in the last FloWaveNet block) do not
-// fit shared memory and stream from L2 in 16-row slices.
+// flops a byte. Outside the tensor cores the card does 67 TFLOP/s in f32
+// (NVIDIA's H100 SXM figure), 1.1 ms for a 20480-row student chain, and a
+// scalar FMA loop reached 0.37 of that. So every product here runs on the
+// tensor cores, by wgmma.mma_async.m64n128k8.f32.tf32.tf32.
 //
-// What the design does about the TPU kernels' shape. The tiled TPU kernel
-// walks time tiles in order and carries each layer's last (k-1)*d input
-// rows in scratch; the non-causal one gathers overlapping windows with a
-// halo and re-zeroes rows outside the sequence after every layer. Blocks on
-// Hopper run in no order and a GPU-sized row tile is far smaller than the
-// causal chain's 728-row history, so neither carries over. Instead one C
-// entry point enqueues ONE launch a layer on the caller's stream, and the
-// stream orders the layers (the row-tiled path). In a launch, a block owns
-// 64 rows and every column:
-//  (1) gate: for each 64-column slice of G, hf and hg accumulate in
-//      registers (4 rows x 4 columns x 2 a thread) over the k tap segments
-//      and the conditioning segment of the reduction. A tap's rows come
-//      straight from the layer's input in global memory, predicated on
-//      0 <= t + off < T, which is all the zero padding, window gathering
-//      and re-zeroing there is: causal and non-causal chains differ only
-//      in the offsets, and share this kernel. Input rows and weight
-//      slices pass through shared memory, the next slice's global loads in
-//      flight while the current one is multiplied. tanh*sigmoid runs in
-//      the epilogue and the gated output stays in shared memory.
-//  (2) projection: out @ wres and out @ wskip over the same rows, the
-//      residual and skip updates in the epilogue.
-// A layer updated in place would be read by neighbouring blocks while it is
-// overwritten, so x ping-pongs between the output buffer and one scratch
-// buffer, ending in the output. Every row of x and skip is written by one
-// block in a fixed summation order: no atomics, results are
-// bit-reproducible and independent of any tiling.
+// Error-compensated TF32. One TF32 product keeps 10 bits of each operand's
+// mantissa, an error of the order of the chains' f32 tolerance after one
+// layer. So each f32 operand is split into hi = tf32(a) and
+// lo = tf32(a - hi), both rounded explicitly (cvt.rna; the hardware's own
+// truncation of raw f32 bits would leave lo unable to compensate), and a
+// product is three tensor-core products, A_hi B_lo and A_lo B_hi first,
+// then A_hi B_hi, into one f32 accumulator: about 21 bits of each operand
+// at a third of the TF32 rate (495 / 3 = 165 TFLOP/s of f32-equivalent
+// work, 2.5x the rate outside the tensor cores).
 //
-// That row-tiled kernel gives a chain ceil(T / 64) blocks. FloWaveNet's late
-// blocks have T = 640 ... 80 rows against conditioning 1280 ... 10240 wide:
-// 10 ... 2 blocks on 132 SMs, each walking a reduction up to 11008 deep four
-// times over. So chains of at most two row tiles an SM (takes_split_path)
-// take the split path instead:
+// Operands. wgmma's TF32 form has no transposed operand: both must have the
+// reduction index contiguous. The activations are the A operand: a thread
+// reads its fragment from shared memory into registers and splits it
+// there, so only one copy of A is staged. The weights are the B operand and
+// are split AHEAD of time: prepare_chain_weights turns one chain's
+// (L, k, C, G), (L, cin, G) and (L, G, C|S) arrays into
+//   wgate_hi, wgate_lo (L, 2G, Kg)   rows [0, G) filter, [G, 2G) gate;
+//                                    Kg = k*C8 + cin8, tap j at j*C8, the
+//                                    conditioning at k*C8
+//   wproj_hi, wproj_lo (L, C+S, G8)  rows [0, C) wres^T, [C, C+S) wskip^T
+// (x8 = x rounded up to 8, the padding zero), once a weight set: 2 x 7.3 MB
+// for a student chain (0.1 GB over the student's 7), 2 x 0.7 GB over
+// FloWaveNet's 48 chains (the last block 2 x 23 MB a layer).
+//
+// One main loop (gemm_kernel). A block of two warpgroups owns a 128-row x
+// 128-column output tile; each warpgroup owns 64 of the rows and both read
+// the same weight tile, which halves the weight traffic from L2 against one
+// warpgroup a block: a 64-row tile reads 2.4 MB of split student weights a
+// layer for 117 MFLOP of TF32 work, 49 flops a byte where the card's
+// tensor rate over its L2 rate is about 120. The reduction is cut into
+// segments (a tap of x, the conditioning, or the gated output), each walked
+// in 32-float chunks: one chunk is a 128-byte row of the 128-byte-swizzled
+// layout wgmma reads, and four m64n128k8 steps of three products. Chunks
+// reach shared memory by cp.async through a ring of 4 stages (18 KB of A,
+// 2 x 16 KB of B a stage, 200 KB a block, so one block an SM): the loads
+// of chunk i+2 are issued while chunk i is multiplied and the wgmma group
+// of chunk i-1 drains (commit_group / wait_group 1); one block barrier a
+// chunk. A copy outside [0, T) rows or past a segment's width is a
+// cp.async of zero source bytes, which zero-fills: that is all the zero
+// padding, window gathering and ragged-width handling there is, and causal
+// and non-causal chains differ only in the offsets. TMA was left out: the
+// tiles come from L2 (the weights of a layer are read by every row tile)
+// and 12 cp.async a thread and chunk are not what the loop waits for.
+//
+// Around the loop, one C entry point enqueues a chain's launches on the
+// caller's stream; the stream orders the layers, and each launch of the main
+// loop is a programmatic dependent launch (its blocks may be scheduled
+// during the tail of the launch before and wait there: 2% at T = 20480,
+// 10-25% on the split path's short launches). Blocks on Hopper run in no
+// order and a row tile is far smaller than the causal chain's 728-row
+// history, so the TPU kernels' sequential grid with carried tails, and the
+// halo windows of the non-causal one, do not carry over.
+//  The row-tiled path, two launches a layer:
+//  (1) gate: grid (row tiles, 64-column tiles of G). A block's 128 columns
+//      are 64 filter and 64 gate columns of the same g, so tanh * sigmoid
+//      is a register epilogue; the gated output goes to a (T, G) buffer.
+//  (2) projection: grid (row tiles, 128-column tiles of [C | S]) over the
+//      gated output, the residual and skip updates in the epilogue.
+//      The gated tile is not kept in shared memory between the two: at 64 KB
+//      a 64 rows it would hold a block to 64 rows a weight tile (L2-bound
+//      at two fifths of the tensor rate) or to one 128-row block an SM with
+//      a two-stage ring; through L2 it costs 2 x 21 MB a layer at T = 20480.
+//  The split path, for chains whose row tiles cannot fill the card:
 //  (0) one pre-pass for the conditioning product of ALL L layers, which does
-//      not depend on x: c @ [wfc | wgc][l], tiled over rows, 64-column
-//      tiles and splits of the cin reduction (gate_partial_kernel; at T = 80,
-//      cin = 10240 it is 272 blocks and 10240 of the 11008 reduction rows);
-//  then per layer
-//  (1) the tap product x[t + off] @ [wf | wg][l], the same kernel split the
-//      same way (k * C reduction rows);
-//  (2) glu_kernel: bias + the pre-pass's partial sums + the taps' partial
-//      sums, each in slice order, then tanh * sigmoid, written to a (T, G)
-//      buffer. The gated output crosses blocks here, so it goes through
-//      global memory (80 KB at T = 80; it stays in L2): a cluster's shared
-//      memory would tie the column split to the cluster size for nothing;
-//  (3) proj_kernel: the projections tiled over rows AND the C + S columns,
-//      with project() and its epilogues from the row-tiled kernel.
-// Partial sums are plain stores to scratch, combined in a fixed order: no
-// atomics, bit-reproducible. The split counts are a function of the shapes
-// and the SM count (split_plan). Measured on an H100 the split path is
-// 24x faster at T = 80 and still 20-55% faster at T = 10240, where its four
-// times as many, smaller blocks fit several an SM; at T = 20480 the two tie.
+//      not depend on x, tiled over rows, columns and splits of the cin
+//      reduction, writing partial sums (FloWaveNet's late blocks have
+//      T = 640 ... 80 rows against conditioning 1280 ... 10240 wide);
+//  then per layer (1) the tap product split the same way, (2) glu_kernel:
+//  bias + the partial sums in slice order, tanh * sigmoid, and (3) the
+//  projection launch of the row-tiled path.
+// x ping-pongs between the output buffer and one scratch buffer, ending in
+// the output. Every output element is written by one thread in a fixed
+// summation order: no atomics, results are bit-reproducible.
+//
+// Tiles and the tail. At T = 20480 a layer's gate launch is 160 x 4 = 640
+// blocks on 132 SMs (4.85 waves, the last one 0.85 full), its projection
+// 160 x 2 = 320 (2.4 waves): the tail costs about 3% and 20% of the two
+// launches' time, 8% of a layer. T, C, G, S and cin need no multiple of a
+// tile: rows past T and columns past G or C + S are zero-filled in shared
+// memory and never stored.
+//
+// Where a block's time goes (scripts/profile_chain_kernel_cuda.py, H100,
+// student width, T = 20480): a gate block takes 32 us, 23 of them its 15
+// chunks (1.5 us a chunk; 1.2 with the loads left out, 1.0 with the
+// products left out: the loop is bound by the 50 KB a chunk it pulls from
+// L2, 5-6 TB/s over the card, before the tensor cores), 5 its epilogue
+// (tanh and exp); a projection block 24 us, 11.5 its 8 chunks, 8 its
+// epilogue, whose reads of x and skip meet every other block's in the
+// same phase. A whole student chain runs at 170 TFLOP/s of TF32 work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 64;         // rows a block owns
-constexpr int kCols = 64;         // columns per pass
-constexpr int kSlice = 16;        // reduction rows per shared-memory slice
-constexpr int kRowStride = kRows + 4;  // transposed tiles: [reduction][row]
+constexpr int kThreads = 256;            // two warpgroups
+constexpr int kBM = 128;                 // rows a block owns, 64 a warpgroup
+constexpr int kBN = 128;                 // columns a block owns
+constexpr int kBK = 32;                  // reduction floats a chunk
+constexpr int kStages = 4;
+// The tensor cores add into their f32 accumulator by truncation, an error
+// that grows with the length of the chain of additions (measured on an
+// H100: 2e-5 on unit-scale sums of 464 terms, four times the error of
+// rounded f32 additions, and 1.4e-5 on a student chain against 3.6e-6 with
+// the promotion). So after every kPromote chunks the accumulator is added
+// into a running total with ordinary rounded f32 additions and started
+// afresh (the next wgmma overwrites it). The wait this needs cost nothing
+// measurable: the loop is bound by its loads. (-DCHAIN_PROMOTE=n is for
+// scripts/profile_chain_kernel_cuda.py, which measures other intervals.)
+#ifndef CHAIN_PROMOTE
+#define CHAIN_PROMOTE 2
+#endif
+constexpr int kPromote = CHAIN_PROMOTE;
+constexpr int kAStride = kBK + 4;        // floats; keeps fragment reads off bank conflicts
+constexpr int kBBytes = kBN * kBK * 4;   // one of hi, lo
+constexpr int kABytes = kBM * kAStride * 4;
+constexpr int kStageBytes = 2 * kBBytes + kABytes;   // a multiple of 1024
+constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + alignment slack
 constexpr int kMaxTaps = 8;
+constexpr int kMaxSegs = kMaxTaps + 1;
+constexpr int kGluThreads = 256;
+constexpr int kMaxDevices = 64;
 constexpr float kSqrtHalf = 0.70710678118654752f;
 
-struct LayerArgs {
-  const float* x_in;   // (T, C) this layer's input
-  const float* c;      // (T, cin)
-  const float* wf;     // (k, C, G)
-  const float* wg;
-  const float* wfc;    // (cin, G)
-  const float* wgc;
-  const float* wres;   // (G, C)
-  const float* wskip;  // (G, S)
-  const float* bf;     // (G)
-  const float* bg;
-  const float* bres;   // (C)
-  const float* bskip;  // (S)
-  float* x_out;        // (T, C) the next layer's input
-  float* skip;         // (T, S)
-  int T, C, G, S, cin, k;
-  int first;           // the chain's first layer writes skip, later ones add
-  int off[kMaxTaps];
-};
+static_assert(kStageBytes % 1024 == 0, "swizzled tiles need 1024-byte alignment");
+static_assert(kSmemBytes <= 232448, "the ring must fit one Hopper block");
+
+__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int round_up(int a, int b) { return ceil_div(a, b) * b; }
 
 __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-__host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+// ---- PTX ----
 
-// Slice `ti` of the gate's reduction: k * tiles_x slices of the taps, then
-// the conditioning's. Each thread fetches 4 input values (reduction index
-// tid % 16, rows tid / 16 + 16 i) and one float4 of each weight matrix
-// (reduction row tid / 16, columns g0 + 4 * (tid % 16) ..).
-__device__ __forceinline__ void fetch_gate_slice(const LayerArgs& a, int ti,
-                                                 int tiles_x, int t0, int g0,
-                                                 float (&av)[4], float4& w0,
-                                                 float4& w1) {
-  const int tid = threadIdx.x;
-  const int n_x = a.k * tiles_x;
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// hi = tf32(v) rounded to nearest (ties away), as a b32 pattern with the low
+// 13 mantissa bits clear
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// The shared-memory descriptor of a K-major B tile in the 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the leading
+// offset unused (1), layout type 1 (B128). `addr` is 1024-byte aligned plus
+// the 32 bytes a k8 step advances.
+__device__ __forceinline__ uint64_t b_descriptor(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// d (64 x 128, f32) += a (64 x 8, tf32, this thread's register fragment) x
+// b (128 x 8 K-major, tf32, shared memory); keep = 0 overwrites d instead
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
+                                                const uint32_t (&a)[4],
+                                                uint64_t desc, int keep = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63},"
+      "{%64,%65,%66,%67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(keep));
+}
+
+// ---- the main loop ----
+
+// One segment of a product's reduction: rows src[t + off] (zero outside
+// [0, T)) of `width` floats against the `width` rounded up to 8 reduction
+// columns of B that start at kbase.
+struct Seg {
   const float* src;
-  const float* pf;
-  const float* pg;
-  int width, roff, k0;
-  if (ti < n_x) {
-    const int j = ti / tiles_x;
-    k0 = (ti - j * tiles_x) * kSlice;
-    src = a.x_in;
-    width = a.C;
-    roff = a.off[j];
-    pf = a.wf + static_cast<size_t>(j) * a.C * a.G;
-    pg = a.wg + static_cast<size_t>(j) * a.C * a.G;
-  } else {
-    k0 = (ti - n_x) * kSlice;
-    src = a.c;
-    width = a.cin;
-    roff = 0;
-    pf = a.wfc;
-    pg = a.wgc;
-  }
-  const int kk = tid % kSlice;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + tid / kSlice + i * (kThreads / kSlice);
-    const int ts = t + roff;
-    const bool ok = t < a.T && ts >= 0 && ts < a.T && k0 + kk < width;
-    av[i] = ok ? __ldg(src + static_cast<size_t>(ts) * width + k0 + kk) : 0.f;
-  }
-  const int row = k0 + tid / 16;
-  const int col = g0 + (tid % 16) * 4;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row < width && col < a.G) {
-    const size_t at = static_cast<size_t>(row) * a.G + col;
-    w0 = __ldg(reinterpret_cast<const float4*>(pf + at));
-    w1 = __ldg(reinterpret_cast<const float4*>(pg + at));
-  } else {
-    w0 = zero;
-    w1 = zero;
-  }
-}
-
-// One float4 of a projection matrix w (G, N): reduction row k0 + tid / 16,
-// columns n0 + 4 * (tid % 16) ..
-__device__ __forceinline__ float4 fetch_proj_slice(const float* w, int G, int N,
-                                                   int k0, int n0) {
-  const int tid = threadIdx.x;
-  const int row = k0 + tid / 16;
-  const int col = n0 + (tid % 16) * 4;
-  if (row < G && col < N)
-    return __ldg(reinterpret_cast<const float4*>(
-        w + static_cast<size_t>(row) * N + col));
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4& a,
-                                       const float4& w) {
-  const float ar[4] = {a.x, a.y, a.z, a.w};
-  const float wr[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], wr[j], acc[i][j]);
-}
-
-// out_s (G rounded up to a slice, kRowStride) @ w (G, N) for the block's
-// rows and the columns [n_begin, n_end) of N, 64 columns a pass; `residual`
-// selects the epilogue.
-__device__ __forceinline__ void project(const LayerArgs& a, const float* w,
-                                        const float* bias, int N, bool residual,
-                                        int t0, const float* out_s, float* w_s,
-                                        int n_begin, int n_end) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int n_slices = ceil_div(a.G, kSlice);
-  for (int n0 = n_begin; n0 < n_end; n0 += kCols) {
-    float acc[4][4] = {};
-    float4 w_next = fetch_proj_slice(w, a.G, N, 0, n0);
-    for (int ti = 0; ti < n_slices; ++ti) {
-      __syncthreads();
-      *reinterpret_cast<float4*>(&w_s[(tid / 16) * kCols + (tid % 16) * 4]) =
-          w_next;
-      __syncthreads();
-      if (ti + 1 < n_slices)
-        w_next = fetch_proj_slice(w, a.G, N, (ti + 1) * kSlice, n0);
-#pragma unroll
-      for (int kk = 0; kk < kSlice; ++kk) {
-        const float4 o4 = *reinterpret_cast<const float4*>(
-            &out_s[(ti * kSlice + kk) * kRowStride + ty * 4]);
-        const float4 w4 =
-            *reinterpret_cast<const float4*>(&w_s[kk * kCols + tx * 4]);
-        fma4x4(acc, o4, w4);
-      }
-    }
-    const int col = n0 + tx * 4;
-    if (col >= N) continue;
-    const float4 b4 = *reinterpret_cast<const float4*>(bias + col);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + ty * 4 + i;
-      if (t >= a.T) continue;
-      const size_t at = static_cast<size_t>(t) * N + col;
-      float4 v = make_float4(acc[i][0] + b4.x, acc[i][1] + b4.y,
-                             acc[i][2] + b4.z, acc[i][3] + b4.w);
-      if (residual) {
-        const float4 x4 = *reinterpret_cast<const float4*>(a.x_in + at);
-        v = make_float4((x4.x + v.x) * kSqrtHalf, (x4.y + v.y) * kSqrtHalf,
-                        (x4.z + v.z) * kSqrtHalf, (x4.w + v.w) * kSqrtHalf);
-        *reinterpret_cast<float4*>(a.x_out + at) = v;
-      } else {
-        if (!a.first) {
-          const float4 s4 = *reinterpret_cast<const float4*>(a.skip + at);
-          v = make_float4(s4.x + v.x, s4.y + v.y, s4.z + v.z, s4.w + v.w);
-        }
-        *reinterpret_cast<float4*>(a.skip + at) = v;
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-chain_layer_kernel(const LayerArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* a_s = smem;                        // [kSlice][kRowStride]
-  float* w0_s = a_s + kSlice * kRowStride;  // [kSlice][kCols]
-  float* w1_s = w0_s + kSlice * kCols;      // [kSlice][kCols]
-  float* out_s = w1_s + kSlice * kCols;     // [G up to a slice][kRowStride]
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int t0 = blockIdx.x * kRows;
-  const int tiles_x = ceil_div(a.C, kSlice);
-  const int n_slices = a.k * tiles_x + ceil_div(a.cin, kSlice);
-
-  // the projection reads whole slices of out_s: rows past G must be finite
-  const int g_pad = ceil_div(a.G, kSlice) * kSlice;
-  for (int e = a.G * kRowStride + tid; e < g_pad * kRowStride; e += kThreads)
-    out_s[e] = 0.f;
-
-  // (1) gate
-  for (int g0 = 0; g0 < a.G; g0 += kCols) {
-    float accf[4][4] = {};
-    float accg[4][4] = {};
-    float av[4];
-    float4 w0, w1;
-    fetch_gate_slice(a, 0, tiles_x, t0, g0, av, w0, w1);
-    for (int ti = 0; ti < n_slices; ++ti) {
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a_s[(tid % kSlice) * kRowStride + tid / kSlice +
-            i * (kThreads / kSlice)] = av[i];
-      *reinterpret_cast<float4*>(&w0_s[(tid / 16) * kCols + (tid % 16) * 4]) = w0;
-      *reinterpret_cast<float4*>(&w1_s[(tid / 16) * kCols + (tid % 16) * 4]) = w1;
-      __syncthreads();
-      if (ti + 1 < n_slices)
-        fetch_gate_slice(a, ti + 1, tiles_x, t0, g0, av, w0, w1);
-#pragma unroll
-      for (int kk = 0; kk < kSlice; ++kk) {
-        const float4 x4 = *reinterpret_cast<const float4*>(
-            &a_s[kk * kRowStride + ty * 4]);
-        const float4 f4 =
-            *reinterpret_cast<const float4*>(&w0_s[kk * kCols + tx * 4]);
-        const float4 g4 =
-            *reinterpret_cast<const float4*>(&w1_s[kk * kCols + tx * 4]);
-        fma4x4(accf, x4, f4);
-        fma4x4(accg, x4, g4);
-      }
-    }
-    const int col = g0 + tx * 4;
-    if (col < a.G) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float bf = a.bf[col + j], bg = a.bg[col + j];
-        float4 o;
-        o.x = tanhf(accf[0][j] + bf) * sigmoidf_(accg[0][j] + bg);
-        o.y = tanhf(accf[1][j] + bf) * sigmoidf_(accg[1][j] + bg);
-        o.z = tanhf(accf[2][j] + bf) * sigmoidf_(accg[2][j] + bg);
-        o.w = tanhf(accf[3][j] + bf) * sigmoidf_(accg[3][j] + bg);
-        *reinterpret_cast<float4*>(&out_s[(col + j) * kRowStride + ty * 4]) = o;
-      }
-    }
-  }
-
-  // (2) projections; project() synchronises before it first reads out_s
-  project(a, a.wres, a.bres, a.C, true, t0, out_s, w0_s, 0, a.C);
-  project(a, a.wskip, a.bskip, a.S, false, t0, out_s, w0_s, 0, a.S);
-}
-
-// ---- The split path, for chains whose row tiles cannot fill the card ----
-//
-// One product of the gate, without its activation: for every row t and both
-// halves (filter, gate),
-//   part[layer, split, t, :] = sum over the split's reduction slices of
-//                              src[t + off(seg)] @ w[layer, seg]
-// The reduction is n_seg segments of `width` rows (the k taps over x, or the
-// one conditioning segment over c), cut into 16-row slices; split s owns
-// slices [s * slices_per_split, (s + 1) * slices_per_split). The grid is
-// (row tiles, 64-column tiles of G, layers * splits).
-struct PartialArgs {
-  const float* src;  // (T, width): x or c
-  const float* wf;   // (layers, n_seg, width, G)
-  const float* wg;
-  float* part;       // (layers, splits, T, 2G): [filter | gate]
-  int T, G, width, n_seg, splits, slices_per_split;
-  int off[kMaxTaps];
+  int width;
+  int off;
+  int kbase;
+  int vec;  // rows are 16-byte aligned: copy four floats at a time
 };
 
-__device__ __forceinline__ void fetch_partial_slice(
-    const PartialArgs& a, const float* wf, const float* wg, int ti, int tiles_w,
-    int t0, int g0, float (&av)[4], float4& w0, float4& w1) {
+enum Epilogue { kEpiGlu, kEpiPartial, kEpiProject, kEpiPlain };
+
+// out tile = A @ B^T over the block's chunks. blockIdx.x: 128-row tile;
+// blockIdx.y: column tile; blockIdx.z: layer * splits + split.
+struct GemmArgs {
+  Seg seg[kMaxSegs];
+  int n_seg;
+  int n_chunks;           // 32-float chunks over all segments
+  int splits;             // the chunks are cut into this many runs ...
+  int chunks_per_split;   // ... of this length
+  const float* bhi;       // (layers, b_rows, ldb), hi and lo parts
+  const float* blo;
+  int ldb;
+  int b_rows;
+  int T;
+  int G;                  // gate epilogues: the tile is 64 filter | 64 gate columns
+  // kEpiGlu: gated[t, g] = tanh(f + bf[g]) * sigmoid(h + bg[g])
+  const float* bf;
+  const float* bg;
+  float* gated;
+  // kEpiPartial: part[z, t, :] = [f | h], raw sums
+  float* part;
+  // kEpiProject: columns [0, C) update x, [C, C + S) update skip
+  const float* x_in;
+  const float* bres;
+  const float* bskip;
+  float* x_out;
+  float* skip;
+  int C, S, first;
+  // kEpiPlain: out[t, n] = the product, n < b_rows
+  float* out;
+};
+
+// Stage `stage` <- chunk (seg s, floats [k0, k0 + 32)) of A and of both
+// parts of B, as cp.async copies; a copy that is out of range reads zero
+// bytes and zero-fills.
+__device__ __forceinline__ void load_chunk(const GemmArgs& a, const float* bhi,
+                                           const float* blo, uint32_t stage,
+                                           int s, int k0, int t0, int n0,
+                                           int n1, int lim0, int lim1) {
   const int tid = threadIdx.x;
-  const int j = ti / tiles_w;
-  const int k0 = (ti - j * tiles_w) * kSlice;
-  const int roff = a.off[j];
-  const int kk = tid % kSlice;
+  const int piece = tid % 8;
+  const Seg seg = a.seg[s];
+  const int width8 = round_up(seg.width, 8);
+  const int kp = k0 + piece * 4;
+  // B: 128 rows x 8 pieces of 16 bytes, hi and lo; piece p of row n lands
+  // at chunk p ^ (n % 8) of the row (the 128-byte swizzle)
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + tid / kSlice + i * (kThreads / kSlice);
-    const int ts = t + roff;
-    const bool ok = t < a.T && ts >= 0 && ts < a.T && k0 + kk < a.width;
-    av[i] = ok ? __ldg(a.src + static_cast<size_t>(ts) * a.width + k0 + kk)
-               : 0.f;
+  for (int i = 0; i < kBN / 32; ++i) {
+    const int nrow = tid / 8 + 32 * i;
+    const int row = nrow < 64 ? n0 + nrow : n1 + nrow - 64;
+    const bool ok = row < (nrow < 64 ? lim0 : lim1) && kp < width8;
+    const size_t at = ok ? static_cast<size_t>(row) * a.ldb + seg.kbase + kp : 0;
+    const uint32_t dst = stage + nrow * 128 + ((piece ^ (nrow & 7)) << 4);
+    cp_async_16(dst, bhi + at, ok);
+    cp_async_16(dst + kBBytes, blo + at, ok);
   }
-  const int row = k0 + tid / 16;
-  const int col = g0 + (tid % 16) * 4;
-  if (row < a.width && col < a.G) {
-    const size_t at =
-        (static_cast<size_t>(j) * a.width + row) * a.G + col;
-    w0 = __ldg(reinterpret_cast<const float4*>(wf + at));
-    w1 = __ldg(reinterpret_cast<const float4*>(wg + at));
-  } else {
-    w0 = make_float4(0.f, 0.f, 0.f, 0.f);
-    w1 = w0;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gate_partial_kernel(const PartialArgs a) {
-  __shared__ __align__(16) float a_s[kSlice * kRowStride];
-  __shared__ __align__(16) float w0_s[kSlice * kCols];
-  __shared__ __align__(16) float w1_s[kSlice * kCols];
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int t0 = blockIdx.x * kRows, g0 = blockIdx.y * kCols;
-  const int layer = blockIdx.z / a.splits, split = blockIdx.z % a.splits;
-  const int tiles_w = ceil_div(a.width, kSlice);
-  const int s_begin = split * a.slices_per_split;
-  const int s_end = min(a.n_seg * tiles_w, s_begin + a.slices_per_split);
-  const size_t w_layer = static_cast<size_t>(layer) * a.n_seg * a.width * a.G;
-  const float* wf = a.wf + w_layer;
-  const float* wg = a.wg + w_layer;
-
-  float accf[4][4] = {};
-  float accg[4][4] = {};
-  if (s_begin < s_end) {
-    float av[4];
-    float4 w0, w1;
-    fetch_partial_slice(a, wf, wg, s_begin, tiles_w, t0, g0, av, w0, w1);
-    for (int ti = s_begin; ti < s_end; ++ti) {
-      __syncthreads();
+  // A: 128 rows x 8 pieces
+  const uint32_t a_s = stage + 2 * kBBytes;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a_s[(tid % kSlice) * kRowStride + tid / kSlice +
-            i * (kThreads / kSlice)] = av[i];
-      *reinterpret_cast<float4*>(&w0_s[(tid / 16) * kCols + (tid % 16) * 4]) = w0;
-      *reinterpret_cast<float4*>(&w1_s[(tid / 16) * kCols + (tid % 16) * 4]) = w1;
-      __syncthreads();
-      if (ti + 1 < s_end)
-        fetch_partial_slice(a, wf, wg, ti + 1, tiles_w, t0, g0, av, w0, w1);
+  for (int i = 0; i < kBM / 32; ++i) {
+    const int row = tid / 8 + 32 * i;
+    const int t = t0 + row;
+    const int ts = t + seg.off;
+    const bool row_ok = t < a.T && ts >= 0 && ts < a.T;
+    const float* src = seg.src + (row_ok ? static_cast<size_t>(ts) * seg.width : 0);
+    const uint32_t dst = a_s + (row * kAStride + piece * 4) * 4;
+    if (seg.vec) {
+      const bool ok = row_ok && kp < seg.width;
+      cp_async_16(dst, src + (ok ? kp : 0), ok);
+    } else {
 #pragma unroll
-      for (int kk = 0; kk < kSlice; ++kk) {
-        const float4 x4 = *reinterpret_cast<const float4*>(
-            &a_s[kk * kRowStride + ty * 4]);
-        const float4 f4 =
-            *reinterpret_cast<const float4*>(&w0_s[kk * kCols + tx * 4]);
-        const float4 g4 =
-            *reinterpret_cast<const float4*>(&w1_s[kk * kCols + tx * 4]);
-        fma4x4(accf, x4, f4);
-        fma4x4(accg, x4, g4);
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = row_ok && kp + e < seg.width;
+        cp_async_4(dst + 4 * e, src + (ok ? kp + e : 0), ok);
       }
     }
   }
-  const int col = g0 + tx * 4;
-  if (col >= a.G) return;
-  float* part = a.part + static_cast<size_t>(blockIdx.z) * a.T * 2 * a.G;
+}
+
+// The products of one staged chunk for this warpgroup's 64 rows: four k8
+// steps, each A_hi B_lo, A_lo B_hi, A_hi B_hi into acc, committed as one
+// wgmma group. The fragment registers are this call's own, so that the
+// caller can leave one group in flight.
+__device__ __forceinline__ void mma_chunk(float (&acc)[64], uint32_t stage,
+                                          const float* a_s, bool fresh) {
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int wg = threadIdx.x / 128;
+  const int r = wg * 64 + warp * 16 + lane / 4, c = lane % 4;
+  uint32_t hi[kBK / 8][4], lo[kBK / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty * 4 + i;
-    if (t >= a.T) continue;
-    float* row = part + static_cast<size_t>(t) * 2 * a.G + col;
-    *reinterpret_cast<float4*>(row) =
-        make_float4(accf[i][0], accf[i][1], accf[i][2], accf[i][3]);
-    *reinterpret_cast<float4*>(row + a.G) =
-        make_float4(accg[i][0], accg[i][1], accg[i][2], accg[i][3]);
+  for (int s = 0; s < kBK / 8; ++s) {
+    // the m64k8 fragment: rows r and r + 8, reduction columns c and c + 4
+    split_tf32(a_s[r * kAStride + 8 * s + c], hi[s][0], lo[s][0]);
+    split_tf32(a_s[(r + 8) * kAStride + 8 * s + c], hi[s][1], lo[s][1]);
+    split_tf32(a_s[r * kAStride + 8 * s + c + 4], hi[s][2], lo[s][2]);
+    split_tf32(a_s[(r + 8) * kAStride + 8 * s + c + 4], hi[s][3], lo[s][3]);
   }
+  wgmma_fence();
+#pragma unroll
+  for (int s = 0; s < kBK / 8; ++s) {
+    const uint64_t d_hi = b_descriptor(stage + 32 * s);
+    const uint64_t d_lo = b_descriptor(stage + kBBytes + 32 * s);
+#ifndef CHAIN_NO_PRODUCTS
+    wgmma_m64n128k8(acc, hi[s], d_lo, (s > 0 || !fresh) ? 1 : 0);
+    wgmma_m64n128k8(acc, lo[s], d_hi);
+    wgmma_m64n128k8(acc, hi[s], d_hi);
+#else   // keep the fragment loads and splits alive
+    acc[s] += __uint_as_float(hi[s][0] ^ hi[s][1] ^ hi[s][2] ^ hi[s][3] ^
+                              lo[s][0] ^ lo[s][1] ^ lo[s][2] ^ lo[s][3]) +
+              static_cast<float>(d_hi ^ d_lo);
+#endif
+  }
+  wgmma_commit();
+}
+
+// Measurement builds only (scripts/profile_chain_kernel.py compiles them
+// into a library of their own). CHAIN_STAMPS: thread 0 of every block
+// records the global timer at entry, after the first loads are issued, when
+// the first chunk has landed, after the main loop and after the epilogue,
+// and its SM. CHAIN_NO_LOADS / CHAIN_NO_PRODUCTS leave the ring's refills
+// or the wgmma instructions out, for the time of the other side alone:
+// their results are wrong.
+#ifdef CHAIN_STAMPS
+constexpr int kStampBlocks = 8192, kStampFields = 6;
+__device__ unsigned long long g_stamps[4 * kStampBlocks * kStampFields];
+#define CHAIN_STAMP(epi, field)                                              \
+  if (threadIdx.x == 0) {                                                    \
+    const int b_ = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z); \
+    unsigned long long v_;                                                   \
+    if ((field) == 5) { unsigned sm_; asm("mov.u32 %0, %%smid;" : "=r"(sm_)); v_ = sm_; } \
+    else asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v_));              \
+    if (b_ < kStampBlocks) g_stamps[((epi) * kStampBlocks + b_) * kStampFields + (field)] = v_; \
+  }
+#else
+#define CHAIN_STAMP(epi, field)
+#endif
+
+// The loader's position in the reduction: the segment and the offset in it
+// of the next chunk to load.
+struct ChunkCursor {
+  int seg, k0;
+  __device__ __forceinline__ void advance(const GemmArgs& a) {
+    k0 += kBK;
+    if (k0 >= round_up(a.seg[seg].width, 8)) { ++seg; k0 = 0; }
+  }
+};
+
+template <int EPI>
+__global__ void __launch_bounds__(kThreads, 1)
+gemm_kernel(const __grid_constant__ GemmArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t ring = (raw + 1023) & ~1023u;   // shared-window address
+  const unsigned char* ring_ptr = smem_raw + (ring - raw);
+
+  const int tid = threadIdx.x;
+  CHAIN_STAMP(EPI, 0)
+  CHAIN_STAMP(EPI, 5)
+  const int t0 = blockIdx.x * kBM;
+  const int layer = blockIdx.z / a.splits, split = blockIdx.z % a.splits;
+  constexpr bool kGate = EPI == kEpiGlu || EPI == kEpiPartial;
+  // the tile's 128 columns as two runs of 64 rows of B
+  const int n0 = blockIdx.y * (kGate ? 64 : kBN);
+  const int n1 = kGate ? a.G + n0 : n0 + 64;
+  const int lim0 = kGate ? a.G : a.b_rows;
+  const int lim1 = kGate ? 2 * a.G : a.b_rows;
+  const size_t b_layer = static_cast<size_t>(layer) * a.b_rows * a.ldb;
+  const float* bhi = a.bhi + b_layer;
+  const float* blo = a.blo + b_layer;
+
+  const int c_begin = split * a.chunks_per_split;
+  const int n = max(min(a.n_chunks, c_begin + a.chunks_per_split) - c_begin, 0);
+  ChunkCursor cur = {0, 0};
+  for (int i = 0; i < c_begin; ++i) cur.advance(a);
+  // Programmatic dependent launch: the next launch on the stream may be
+  // scheduled onto SMs that this one's tail leaves idle, and this block
+  // touches no memory before everything earlier on the stream is complete
+  // and visible.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+
+  // acc is the tensor cores' accumulator, sum the running total: see
+  // kPromote. 226-234 registers a thread, no spills.
+  float acc[64], sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.f;
+
+  // Chunks i and i + 1 are in flight when chunk i is awaited. Chunk i + 2
+  // goes into the stage of chunk i - 2, whose wgmma group every thread saw
+  // complete (wait_group 1 of iteration i - 1) before this iteration's
+  // barrier. The loop is unrolled by two so that the fragment registers of
+  // a group still in flight are not the ones being refilled.
+  for (int p = 0; p < 2; ++p) {
+    if (p < n) {
+      load_chunk(a, bhi, blo, ring + p * kStageBytes, cur.seg, cur.k0, t0, n0,
+                 n1, lim0, lim1);
+      cur.advance(a);
+    }
+    cp_async_commit();
+  }
+  CHAIN_STAMP(EPI, 1)
+#pragma unroll 1
+  for (int i0 = 0; i0 < n; i0 += 2) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = i0 + u;
+      if (i < n) {
+        cp_async_wait<1>();
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        __syncthreads();
+        if (i == 0) { CHAIN_STAMP(EPI, 2) }
+        const int slot = i % kStages;
+        mma_chunk(acc, ring + slot * kStageBytes,
+                  reinterpret_cast<const float*>(ring_ptr + slot * kStageBytes +
+                                                 2 * kBBytes),
+                  i % kPromote == 0);
+        // the products are queued before the next loads' address arithmetic
+        // (measured 5% faster than loads first)
+#ifndef CHAIN_NO_LOADS
+        if (i + 2 < n) {
+          load_chunk(a, bhi, blo, ring + ((i + 2) % kStages) * kStageBytes,
+                     cur.seg, cur.k0, t0, n0, n1, lim0, lim1);
+          cur.advance(a);
+        }
+#endif
+        cp_async_commit();
+        if (i % kPromote == kPromote - 1 || i == n - 1) {
+          wgmma_wait<0>();
+#pragma unroll
+          for (int e = 0; e < 64; ++e) sum[e] += acc[e];
+        } else {
+          wgmma_wait<1>();
+        }
+      }
+    }
+  }
+
+  CHAIN_STAMP(EPI, 3)
+  // sum[4 j + 2 h + e] is row r + 8 h, tile column 8 j + 2 c + e
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int r = t0 + (tid / 128) * 64 + warp * 16 + lane / 4, c = lane % 4;
+  if (EPI == kEpiGlu || EPI == kEpiPartial) {
+    float* part = nullptr;
+    if (EPI == kEpiPartial)
+      part = a.part + static_cast<size_t>(blockIdx.z) * a.T * 2 * a.G;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + 8 * j + 2 * c;
+      if (col >= a.G) continue;
+      float2 bf = make_float2(0.f, 0.f), bg = bf;
+      if (EPI == kEpiGlu) {
+        bf = *reinterpret_cast<const float2*>(a.bf + col);
+        bg = *reinterpret_cast<const float2*>(a.bg + col);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = r + 8 * h;
+        if (t >= a.T) continue;
+        const float f0 = sum[4 * j + 2 * h], f1 = sum[4 * j + 2 * h + 1];
+        const float g0 = sum[32 + 4 * j + 2 * h], g1 = sum[32 + 4 * j + 2 * h + 1];
+        if (EPI == kEpiGlu) {
+          *reinterpret_cast<float2*>(a.gated + static_cast<size_t>(t) * a.G + col) =
+              make_float2(tanhf(f0 + bf.x) * sigmoidf_(g0 + bg.x),
+                          tanhf(f1 + bf.y) * sigmoidf_(g1 + bg.y));
+        } else {
+          float* row = part + static_cast<size_t>(t) * 2 * a.G + col;
+          *reinterpret_cast<float2*>(row) = make_float2(f0, f1);
+          *reinterpret_cast<float2*>(row + a.G) = make_float2(g0, g1);
+        }
+      }
+    }
+  } else if (EPI == kEpiPlain) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * c;
+      if (col >= a.b_rows) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = r + 8 * h;
+        if (t >= a.T) continue;
+        float* o = a.out + static_cast<size_t>(t) * a.b_rows + col;
+        o[0] = sum[4 * j + 2 * h];
+        if (col + 1 < a.b_rows) o[1] = sum[4 * j + 2 * h + 1];
+      }
+    }
+  } else {
+    // The residual and skip updates read what they add to. All the reads
+    // go out before the first store: the compiler cannot tell that x_in,
+    // x_out and skip do not overlap, and a load behind every store is one
+    // L2 round trip after another (measured: 12.5 us of a 25.7 us block).
+    float2 old[32];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * c;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = r + 8 * h;
+        old[2 * j + h] = make_float2(0.f, 0.f);
+        if (col >= a.b_rows || t >= a.T) continue;
+        if (col < a.C)
+          old[2 * j + h] = *reinterpret_cast<const float2*>(
+              a.x_in + static_cast<size_t>(t) * a.C + col);
+        else if (!a.first)
+          old[2 * j + h] = *reinterpret_cast<const float2*>(
+              a.skip + static_cast<size_t>(t) * a.S + col - a.C);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * c;
+      if (col >= a.b_rows) continue;
+      const bool res = col < a.C;
+      const float2 b = *reinterpret_cast<const float2*>(
+          res ? a.bres + col : a.bskip + col - a.C);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = r + 8 * h;
+        if (t >= a.T) continue;
+        const float2 o = old[2 * j + h];
+        const float vx = sum[4 * j + 2 * h] + b.x;
+        const float vy = sum[4 * j + 2 * h + 1] + b.y;
+        if (res)
+          *reinterpret_cast<float2*>(a.x_out + static_cast<size_t>(t) * a.C +
+                                     col) =
+              make_float2((o.x + vx) * kSqrtHalf, (o.y + vy) * kSqrtHalf);
+        else
+          *reinterpret_cast<float2*>(a.skip + static_cast<size_t>(t) * a.S +
+                                     col - a.C) =
+              make_float2(o.x + vx, o.y + vy);
+      }
+    }
+  }
+  CHAIN_STAMP(EPI, 4)
 }
 
 // out[t, g] = tanh(hf) * sigmoid(hg), hf/hg = bias + the conditioning's
 // partial sums + the taps' partial sums, each in slice order.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGluThreads)
 glu_kernel(const float* cpart, int c_splits, const float* gpart, int g_splits,
            const float* bf, const float* bg, float* out, int T, int G) {
   const int g4 = G / 4;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  const int idx = blockIdx.x * kGluThreads + threadIdx.x;
   if (idx >= T * g4) return;
   const int t = idx / g4, g = (idx - t * g4) * 4;
   float4 f = *reinterpret_cast<const float4*>(bf + g);
@@ -450,53 +627,106 @@ glu_kernel(const float* cpart, int c_splits, const float* gpart, int g_splits,
                   tanhf(f.z) * sigmoidf_(h.z), tanhf(f.w) * sigmoidf_(h.w));
 }
 
-// The projections of one layer from the gated output in global memory: the
-// grid is (row tiles, 64-column tiles of C then of S).
-__global__ void __launch_bounds__(kThreads)
-proj_kernel(const LayerArgs a, const float* gated) {
-  extern __shared__ __align__(16) float smem[];
-  float* w_s = smem + kSlice * kRowStride;       // [kSlice][kCols]
-  float* out_s = w_s + 2 * kSlice * kCols;       // as in chain_layer_kernel
-  const int tid = threadIdx.x;
-  const int t0 = blockIdx.x * kRows;
-  const int g_pad = ceil_div(a.G, kSlice) * kSlice;
-  // the rows' gated output, transposed: out_s[g][row]; zero past T and G
-  for (int g = tid % kSlice; g < g_pad; g += kSlice) {
-    for (int row = tid / kSlice; row < kRows; row += kThreads / kSlice) {
-      const int t = t0 + row;
-      out_s[g * kRowStride + row] =
-          (t < a.T && g < a.G)
-              ? __ldg(gated + static_cast<size_t>(t) * a.G + g)
-              : 0.f;
-    }
+// ---- the weights' prepared form ----
+
+// hi/lo[l, n, kk] of the gate matrix: row n < G is filter column n, row
+// G + n gate column n; kk walks tap j's C channels at j * C8, then the
+// conditioning's cin at k * C8; the padding is zero. Threads run along n,
+// the sources' contiguous index.
+__global__ void __launch_bounds__(256)
+prepare_gate_kernel(const float* wf, const float* wg, const float* wfc,
+                    const float* wgc, float* hi, float* lo, int L, int k, int C,
+                    int G, int cin) {
+  const int C8 = round_up(C, 8), Kg = k * C8 + round_up(cin, 8);
+  const size_t total = static_cast<size_t>(L) * Kg * 2 * G;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (idx >= total) return;
+  const int n = idx % (2 * G);
+  const int kk = (idx / (2 * G)) % Kg;
+  const int l = idx / (static_cast<size_t>(2 * G) * Kg);
+  const bool gate = n >= G;
+  const int col = gate ? n - G : n;
+  float v = 0.f;
+  if (kk < k * C8) {
+    const int j = kk / C8, ch = kk % C8;
+    if (ch < C)
+      v = (gate ? wg : wf)[((static_cast<size_t>(l) * k + j) * C + ch) * G + col];
+  } else if (kk - k * C8 < cin) {
+    v = (gate ? wgc : wfc)[(static_cast<size_t>(l) * cin + kk - k * C8) * G + col];
   }
-  const int tiles_res = ceil_div(a.C, kCols);
-  const int tile = blockIdx.y;
-  // project() synchronises before it first reads out_s
-  if (tile < tiles_res)
-    project(a, a.wres, a.bres, a.C, true, t0, out_s, w_s, tile * kCols,
-            min(a.C, (tile + 1) * kCols));
-  else
-    project(a, a.wskip, a.bskip, a.S, false, t0, out_s, w_s,
-            (tile - tiles_res) * kCols,
-            min(a.S, (tile - tiles_res + 1) * kCols));
+  uint32_t h, w;
+  split_tf32(v, h, w);
+  const size_t at = (static_cast<size_t>(l) * 2 * G + n) * Kg + kk;
+  hi[at] = __uint_as_float(h);
+  lo[at] = __uint_as_float(w);
 }
 
-size_t smem_bytes(int G) {
-  const size_t g_pad = static_cast<size_t>(ceil_div(G, kSlice)) * kSlice;
-  return sizeof(float) *
-         (kSlice * kRowStride + 2 * kSlice * kCols + g_pad * kRowStride);
+// hi/lo[l, n, g] of the projection matrix: row n < C is wres[l, :, n], row
+// C + n is wskip[l, :, n]; g >= G is zero.
+__global__ void __launch_bounds__(256)
+prepare_proj_kernel(const float* wres, const float* wskip, float* hi, float* lo,
+                    int L, int C, int G, int S) {
+  const int G8 = round_up(G, 8), N = C + S;
+  const size_t total = static_cast<size_t>(L) * G8 * N;
+  const size_t idx = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (idx >= total) return;
+  const int n = idx % N;
+  const int g = (idx / N) % G8;
+  const int l = idx / (static_cast<size_t>(N) * G8);
+  float v = 0.f;
+  if (g < G)
+    v = n < C ? wres[(static_cast<size_t>(l) * G + g) * C + n]
+              : wskip[(static_cast<size_t>(l) * G + g) * S + n - C];
+  uint32_t h, w;
+  split_tf32(v, h, w);
+  const size_t at = (static_cast<size_t>(l) * N + n) * G8 + g;
+  hi[at] = __uint_as_float(h);
+  lo[at] = __uint_as_float(w);
+}
+
+// ---- host side ----
+
+int chunks_of(int width) { return ceil_div(round_up(width, 8), kBK); }
+
+bool rows_aligned(const float* p, int width) {
+  return width % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <int EPI>
+cudaError_t launch_gemm(const GemmArgs& a, dim3 grid, cudaStream_t s) {
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  // the shared-memory opt-in is per kernel and device: asked for once each
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices || !allowed[dev]) {
+    err = cudaFuncSetAttribute(gemm_kernel<EPI>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return err;
+    if (dev >= 0 && dev < kMaxDevices) allowed[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gemm_kernel<EPI>, a);
 }
 
 struct ChainArgs {
   const float* x;
   const float* c;
-  const float* wf;
-  const float* wg;
-  const float* wfc;
-  const float* wgc;
-  const float* wres;
-  const float* wskip;
+  const float* wgate_hi;  // the prepared form, see prepare_chain_weights
+  const float* wgate_lo;
+  const float* wproj_hi;
+  const float* wproj_lo;
   const float* bf;
   const float* bg;
   const float* bres;
@@ -505,47 +735,52 @@ struct ChainArgs {
   float* x_out;
   float* skip;
   float* scratch;  // chain_scratch_floats() floats
-  int path;        // kPathAuto, or one forced for tests and measurements
+  int path;        // 0, or a path forced for tests and measurements
 };
 
-constexpr int kPathAuto = 0, kPathRows = 1, kPathSplit = 2;
+constexpr int kPathRows = 1, kPathSplit = 2;  // 0: the shapes decide
 
 // How the split path cuts a chain: the reduction splits of the conditioning
 // pre-pass and of a layer's tap product, chosen so that each launch has
-// about two blocks an SM and no split is under a few slices. A function of
+// about two blocks an SM and no split is under a few chunks. A function of
 // the shapes and the SM count alone.
 struct SplitPlan {
-  int c_splits, c_slices;  // pre-pass: splits, slices a split
-  int g_splits, g_slices;  // tap product of one layer
+  int c_splits, c_chunks;  // pre-pass: splits, chunks a split
+  int g_splits, g_chunks;  // tap product of one layer
 };
 
 SplitPlan split_plan(int T, int C, int G, int cin, int L, int k, int sms) {
-  const int tiles = ceil_div(T, kRows) * ceil_div(G, kCols);
-  auto cut = [&](int n_tiles, int n_slices, int min_slices, int* splits,
-                 int* slices) {
+  const int tiles = ceil_div(T, kBM) * ceil_div(G, 64);
+  auto cut = [&](int n_tiles, int n_chunks, int min_chunks, int* splits,
+                 int* chunks) {
     int want = ceil_div(2 * sms, n_tiles);
-    const int most = n_slices / min_slices > 1 ? n_slices / min_slices : 1;
+    const int most = n_chunks / min_chunks > 1 ? n_chunks / min_chunks : 1;
     if (want > most) want = most;
-    *slices = ceil_div(n_slices, want);
-    *splits = ceil_div(n_slices, *slices);
+    *chunks = ceil_div(n_chunks, want);
+    *splits = ceil_div(n_chunks, *chunks);
   };
   SplitPlan p;
-  cut(tiles * L, ceil_div(cin, kSlice), 8, &p.c_splits, &p.c_slices);
-  cut(tiles, k * ceil_div(C, kSlice), 4, &p.g_splits, &p.g_slices);
+  cut(tiles * L, chunks_of(cin), 4, &p.c_splits, &p.c_chunks);
+  cut(tiles, k * chunks_of(C), 2, &p.g_splits, &p.g_chunks);
   return p;
 }
 
-// The split path serves chains of at most two row tiles an SM (T <= 16896
-// on 132 SMs). Measured on an H100, it is several times faster where the
-// row tiles cannot fill the card and still 20-55% faster up to T = 10240
-// (its blocks are four times as many and small enough for several an SM);
-// at T = 20480 the two tie, and the split path's partial sums, L * T * 2G
-// floats for the pre-pass alone, are then a quarter of a gigabyte. A rule of
-// the shapes and the SM count alone, so results are a function of the inputs.
-bool takes_split_path(int T, int sms, int path) {
+// The split path serves chains whose gate launch on the row-tiled path
+// would have under half a block an SM (at G = 256 on 132 SMs: T <= 2048).
+// Measured on an H100 with both paths forced (chip_smoke.py, ms): the
+// row-tiled path is faster at 80 blocks and more (FloWaveNet's blocks 0 and
+// 2, T = 10240 and 2560: 0.46-0.51 and 0.23-0.25 against 0.52-0.63 and
+// 0.27-0.29; block 1 ties at 0.33-0.36; the student's T = 20480, 5119 and
+// 4096: 1.32-1.42, 0.53-0.57 and 0.37-0.39 against 1.62-1.71, 0.59 and
+// 0.54-0.61), the split path at 40 and fewer (blocks 3-7, T = 1280 ... 80:
+// 0.22-0.25, 0.19-0.22, 0.19-0.22, 0.17-0.23, 0.20-0.25 against 0.25-0.28,
+// 0.30-0.31, 0.43-0.48, 0.67-0.76, 1.15-1.28), where the conditioning is
+// also the wider part of the reduction. A rule of the shapes and the SM
+// count alone, so results are a function of the inputs.
+bool takes_split_path(int T, int G, int sms, int path) {
   if (path == kPathRows) return false;
   if (path == kPathSplit) return true;
-  return ceil_div(T, kRows) <= 2 * sms;
+  return 2 * ceil_div(T, kBM) * ceil_div(G, 64) < sms;
 }
 
 int device_sms(int* sms) {
@@ -556,125 +791,148 @@ int device_sms(int* sms) {
   return static_cast<int>(err);
 }
 
-// Floats of scratch a chain needs: the (T, C) buffer x ping-pongs through
-// and, on the split path, the partial sums of the pre-pass (L, c_splits, T,
-// 2G) and of one layer's tap product (g_splits, T, 2G) and the gated output
-// (T, G).
+// Floats of scratch a chain needs: the (T, C) buffer x ping-pongs through,
+// the gated output (T, G) and, on the split path, the partial sums of the
+// pre-pass (L, c_splits, T, 2G) and of one layer's tap product (g_splits,
+// T, 2G).
 size_t chain_scratch_floats(int T, int C, int G, int cin, int L, int k, int sms,
                             int path) {
-  size_t n = static_cast<size_t>(T) * C;
-  if (takes_split_path(T, sms, path)) {
+  size_t n = static_cast<size_t>(T) * C + static_cast<size_t>(T) * G;
+  if (takes_split_path(T, G, sms, path)) {
     const SplitPlan p = split_plan(T, C, G, cin, L, k, sms);
     n += static_cast<size_t>(L) * p.c_splits * T * 2 * G +
-         static_cast<size_t>(p.g_splits) * T * 2 * G +
-         static_cast<size_t>(T) * G;
+         static_cast<size_t>(p.g_splits) * T * 2 * G;
   }
   return n;
 }
 
-LayerArgs layer_args(const ChainArgs& c, const int* offsets, int l,
-                     const float* x_in) {
-  LayerArgs a;
+// The gate product's arguments for layer l (l < 0: every layer, for the
+// pre-pass): the taps of x_in when `taps`, the conditioning when `cond`.
+GemmArgs gate_args(const ChainArgs& c, const int* offsets, int l,
+                   const float* x_in, bool taps, bool cond) {
+  GemmArgs a = {};
+  const int C8 = round_up(c.C, 8);
+  int n = 0, chunks = 0;
+  if (taps) {
+    for (int j = 0; j < c.k; ++j) {
+      a.seg[n++] = Seg{x_in, c.C, offsets[l * c.k + j], j * C8,
+                       rows_aligned(x_in, c.C)};
+      chunks += chunks_of(c.C);
+    }
+  }
+  if (cond) {
+    a.seg[n++] = Seg{c.c, c.cin, 0, c.k * C8, rows_aligned(c.c, c.cin)};
+    chunks += chunks_of(c.cin);
+  }
+  a.n_seg = n;
+  a.n_chunks = chunks;
+  a.splits = 1;
+  a.chunks_per_split = chunks;
+  a.ldb = c.k * C8 + round_up(c.cin, 8);
+  a.b_rows = 2 * c.G;
+  const size_t at = l < 0 ? 0 : static_cast<size_t>(l) * a.b_rows * a.ldb;
+  a.bhi = c.wgate_hi + at;
+  a.blo = c.wgate_lo + at;
+  a.T = c.T;
+  a.G = c.G;
+  return a;
+}
+
+// The projection launch of layer l: the gated output against [wres | wskip],
+// the residual and skip updates in the epilogue. Returns the layer's output
+// buffer in *x_next.
+cudaError_t launch_projection(const ChainArgs& c, int l, const float* x_in,
+                              float* gated, cudaStream_t s,
+                              const float** x_next) {
+  GemmArgs a = {};
+  a.seg[0] = Seg{gated, c.G, 0, 0, rows_aligned(gated, c.G)};
+  a.n_seg = 1;
+  a.n_chunks = a.chunks_per_split = chunks_of(c.G);
+  a.splits = 1;
+  a.ldb = round_up(c.G, 8);
+  a.b_rows = c.C + c.S;
+  const size_t at = static_cast<size_t>(l) * a.b_rows * a.ldb;
+  a.bhi = c.wproj_hi + at;
+  a.blo = c.wproj_lo + at;
+  a.T = c.T;
   a.x_in = x_in;
-  a.c = c.c;
-  a.wf = c.wf + static_cast<size_t>(l) * c.k * c.C * c.G;
-  a.wg = c.wg + static_cast<size_t>(l) * c.k * c.C * c.G;
-  a.wfc = c.wfc + static_cast<size_t>(l) * c.cin * c.G;
-  a.wgc = c.wgc + static_cast<size_t>(l) * c.cin * c.G;
-  a.wres = c.wres + static_cast<size_t>(l) * c.G * c.C;
-  a.wskip = c.wskip + static_cast<size_t>(l) * c.G * c.S;
-  a.bf = c.bf + static_cast<size_t>(l) * c.G;
-  a.bg = c.bg + static_cast<size_t>(l) * c.G;
   a.bres = c.bres + static_cast<size_t>(l) * c.C;
   a.bskip = c.bskip + static_cast<size_t>(l) * c.S;
   // ping-pong so that the last layer writes x_out
   a.x_out = ((c.L - 1 - l) % 2 == 0) ? c.x_out : c.scratch;
   a.skip = c.skip;
-  a.T = c.T; a.C = c.C; a.G = c.G; a.S = c.S; a.cin = c.cin; a.k = c.k;
+  a.C = c.C;
+  a.S = c.S;
   a.first = (l == 0);
-  for (int j = 0; j < kMaxTaps; ++j)
-    a.off[j] = j < c.k ? offsets[l * c.k + j] : 0;
-  return a;
+  *x_next = a.x_out;
+  return launch_gemm<kEpiProject>(
+      a, dim3(ceil_div(c.T, kBM), ceil_div(c.C + c.S, kBN)), s);
 }
 
 // The split path: one pre-pass for every layer's conditioning product, then
-// per layer the tap product, the GLU and the projections, all on `s`.
+// per layer the tap product, the GLU and the projection, all on `s`.
 int launch_chain_split(const ChainArgs& c, const int* offsets, int sms,
                        cudaStream_t s) {
   const SplitPlan p = split_plan(c.T, c.C, c.G, c.cin, c.L, c.k, sms);
-  const size_t smem = smem_bytes(c.G);
-  cudaError_t err = cudaFuncSetAttribute(
-      proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const size_t layer_part = static_cast<size_t>(c.T) * 2 * c.G;
-  float* cpart = c.scratch + static_cast<size_t>(c.T) * c.C;
+  float* gated = c.scratch + static_cast<size_t>(c.T) * c.C;
+  float* cpart = gated + static_cast<size_t>(c.T) * c.G;
   float* gpart = cpart + static_cast<size_t>(c.L) * p.c_splits * layer_part;
-  float* gated = gpart + static_cast<size_t>(p.g_splits) * layer_part;
-  const int row_tiles = ceil_div(c.T, kRows), col_tiles = ceil_div(c.G, kCols);
-  if (static_cast<int64_t>(c.L) * p.c_splits > 65535 || col_tiles > 65535)
+  const int row_tiles = ceil_div(c.T, kBM), col_tiles = ceil_div(c.G, 64);
+  if (static_cast<int64_t>(c.L) * p.c_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
 
-  PartialArgs pre;
-  pre.src = c.c; pre.wf = c.wfc; pre.wg = c.wgc; pre.part = cpart;
-  pre.T = c.T; pre.G = c.G; pre.width = c.cin; pre.n_seg = 1;
-  pre.splits = p.c_splits; pre.slices_per_split = p.c_slices;
-  for (int j = 0; j < kMaxTaps; ++j) pre.off[j] = 0;
-  gate_partial_kernel<<<dim3(row_tiles, col_tiles, c.L * p.c_splits), kThreads,
-                        0, s>>>(pre);
-  err = cudaGetLastError();
+  GemmArgs pre = gate_args(c, offsets, -1, nullptr, false, true);
+  pre.splits = p.c_splits;
+  pre.chunks_per_split = p.c_chunks;
+  pre.part = cpart;
+  cudaError_t err = launch_gemm<kEpiPartial>(
+      pre, dim3(row_tiles, col_tiles, c.L * p.c_splits), s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float* x_in = c.x;
   for (int l = 0; l < c.L; ++l) {
-    const LayerArgs a = layer_args(c, offsets, l, x_in);
-    PartialArgs taps;
-    taps.src = x_in; taps.wf = a.wf; taps.wg = a.wg; taps.part = gpart;
-    taps.T = c.T; taps.G = c.G; taps.width = c.C; taps.n_seg = c.k;
-    taps.splits = p.g_splits; taps.slices_per_split = p.g_slices;
-    for (int j = 0; j < kMaxTaps; ++j) taps.off[j] = a.off[j];
-    gate_partial_kernel<<<dim3(row_tiles, col_tiles, p.g_splits), kThreads, 0,
-                          s>>>(taps);
-    err = cudaGetLastError();
+    GemmArgs taps = gate_args(c, offsets, l, x_in, true, false);
+    taps.splits = p.g_splits;
+    taps.chunks_per_split = p.g_chunks;
+    taps.part = gpart;
+    err = launch_gemm<kEpiPartial>(taps, dim3(row_tiles, col_tiles, p.g_splits),
+                                   s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    glu_kernel<<<ceil_div(c.T * (c.G / 4), kThreads), kThreads, 0, s>>>(
+    glu_kernel<<<ceil_div(c.T * (c.G / 4), kGluThreads), kGluThreads, 0, s>>>(
         cpart + static_cast<size_t>(l) * p.c_splits * layer_part, p.c_splits,
-        gpart, p.g_splits, a.bf, a.bg, gated, c.T, c.G);
+        gpart, p.g_splits, c.bf + static_cast<size_t>(l) * c.G,
+        c.bg + static_cast<size_t>(l) * c.G, gated, c.T, c.G);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    proj_kernel<<<dim3(row_tiles,
-                       ceil_div(c.C, kCols) + ceil_div(c.S, kCols)),
-                  kThreads, smem, s>>>(a, gated);
-    err = cudaGetLastError();
+    err = launch_projection(c, l, x_in, gated, s, &x_in);
     if (err != cudaSuccess) return static_cast<int>(err);
-    x_in = a.x_out;
   }
   return 0;
 }
 
-// offsets: L * k row offsets, layer-major. On the row-tiled path one launch
-// a layer on `s`; chains of few rows take the split path.
+// offsets: L * k row offsets, layer-major. On the row-tiled path two
+// launches a layer on `s`; chains of few rows take the split path.
 int launch_chain(const ChainArgs& c, const int* offsets, cudaStream_t s) {
   if (c.k < 1 || c.k > kMaxTaps || c.L < 1 || c.T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   int sms = 0;
   const int dev_err = device_sms(&sms);
   if (dev_err != 0) return dev_err;
-  if (takes_split_path(c.T, sms, c.path))
+  if (takes_split_path(c.T, c.G, sms, c.path))
     return launch_chain_split(c, offsets, sms, s);
-  const size_t smem = smem_bytes(c.G);
-  cudaError_t err = cudaFuncSetAttribute(
-      chain_layer_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = ceil_div(c.T, kRows);
+  float* gated = c.scratch + static_cast<size_t>(c.T) * c.C;
   const float* x_in = c.x;
   for (int l = 0; l < c.L; ++l) {
-    const LayerArgs a = layer_args(c, offsets, l, x_in);
-    chain_layer_kernel<<<grid, kThreads, smem, s>>>(a);
-    err = cudaGetLastError();
+    GemmArgs gate = gate_args(c, offsets, l, x_in, true, true);
+    gate.bf = c.bf + static_cast<size_t>(l) * c.G;
+    gate.bg = c.bg + static_cast<size_t>(l) * c.G;
+    gate.gated = gated;
+    cudaError_t err = launch_gemm<kEpiGlu>(
+        gate, dim3(ceil_div(c.T, kBM), ceil_div(c.G, 64)), s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    x_in = a.x_out;
+    err = launch_projection(c, l, x_in, gated, s, &x_in);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
 }
@@ -698,12 +956,9 @@ int launch_causal(const ChainArgs& c, cudaStream_t s) {
 
 }  // namespace
 
-// Bytes of dynamic shared memory a block needs at gate width G.
-extern "C" size_t fused_chain_smem_bytes(int G) { return smem_bytes(G); }
-
 // Floats of scratch a chain of these shapes needs on the current device
 // (into *floats), and whether it takes the split path (into *split);
-// `path` 0 lets the shapes decide, 1 forces the row-tiled kernel, 2 the
+// `path` 0 lets the shapes decide, 1 forces the row-tiled path, 2 the
 // split path. Returns 0 or a cudaError_t.
 extern "C" int fused_chain_scratch_floats(int T, int C, int G, int cin, int L,
                                           int k, int path, size_t* floats,
@@ -712,23 +967,78 @@ extern "C" int fused_chain_scratch_floats(int T, int C, int G, int cin, int L,
   const int err = device_sms(&sms);
   if (err != 0) return err;
   *floats = chain_scratch_floats(T, C, G, cin, L, k, sms, path);
-  *split = takes_split_path(T, sms, path) ? 1 : 0;
+  *split = takes_split_path(T, G, sms, path) ? 1 : 0;
   return 0;
 }
 
-#define CHAIN_PARAMS                                                          \
-  const float *x, const float *c, const float *wf, const float *wg,           \
-      const float *wfc, const float *wgc, const float *wres,                  \
-      const float *wskip, const float *bf, const float *bg,                   \
-      const float *bres, const float *bskip, int T, int C, int G, int S,      \
-      int cin, int L, int k, int path
-#define CHAIN_ARGS                                                            \
-  ChainArgs { x, c, wf, wg, wfc, wgc, wres, wskip, bf, bg, bres, bskip, T, C, \
-              G, S, cin, L, k, x_out, skip, scratch, path }
+// Split and transpose one chain's weights (the layout of
+// ops.fused_resblock.stack_block_weights) into the prepared form
+// (wgate_* of L * 2G * (k*C8 + cin8) floats, wproj_* of L * (C+S) * G8), on
+// `stream`. Returns 0 or a cudaError_t.
+extern "C" int fused_chain_prepare_f32(const float* wf, const float* wg,
+                                       const float* wfc, const float* wgc,
+                                       const float* wres, const float* wskip,
+                                       int C, int G, int S, int cin, int L,
+                                       int k, float* wgate_hi, float* wgate_lo,
+                                       float* wproj_hi, float* wproj_lo,
+                                       void* stream) {
+  const size_t gate = static_cast<size_t>(L) * 2 * G *
+                      (k * round_up(C, 8) + round_up(cin, 8));
+  const size_t proj = static_cast<size_t>(L) * (C + S) * round_up(G, 8);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  prepare_gate_kernel<<<static_cast<unsigned>((gate + 255) / 256), 256, 0, s>>>(
+      wf, wg, wfc, wgc, wgate_hi, wgate_lo, L, k, C, G, cin);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prepare_proj_kernel<<<static_cast<unsigned>((proj + 255) / 256), 256, 0, s>>>(
+      wres, wskip, wproj_hi, wproj_lo, L, C, G, S);
+  return static_cast<int>(cudaGetLastError());
+}
 
-// Each entry point runs a whole chain on `stream` and returns
-// cudaGetLastError() of the first launch that failed, or 0. Needs
-// C, G, S multiples of 4, 16-byte aligned pointers, k <= 8, L <= 64, and
+// out (M, N) = a (M, K) @ b^T, b given as its split parts b_hi, b_lo (N, K8)
+// with K8 = K rounded up to 8: the main loop alone, for checks against a
+// library product. Returns 0 or a cudaError_t.
+extern "C" int fused_chain_matmul_f32(const float* a, const float* b_hi,
+                                      const float* b_lo, int M, int N, int K,
+                                      float* out, void* stream) {
+  GemmArgs g = {};
+  g.seg[0] = Seg{a, K, 0, 0, rows_aligned(a, K)};
+  g.n_seg = 1;
+  g.n_chunks = g.chunks_per_split = chunks_of(K);
+  g.splits = 1;
+  g.bhi = b_hi;
+  g.blo = b_lo;
+  g.ldb = round_up(K, 8);
+  g.b_rows = N;
+  g.T = M;
+  g.out = out;
+  return static_cast<int>(launch_gemm<kEpiPlain>(
+      g, dim3(ceil_div(M, kBM), ceil_div(N, kBN)),
+      static_cast<cudaStream_t>(stream)));
+}
+
+#ifdef CHAIN_STAMPS
+// Copy out the stamps of the last launch of each epilogue kind:
+// (4 kinds, 8192 blocks, 6 fields) unsigned 64-bit values.
+extern "C" int fused_chain_read_stamps(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps)));
+}
+#endif
+
+#define CHAIN_PARAMS                                                          \
+  const float *x, const float *c, const float *wgate_hi,                      \
+      const float *wgate_lo, const float *wproj_hi, const float *wproj_lo,    \
+      const float *bf, const float *bg, const float *bres,                    \
+      const float *bskip, int T, int C, int G, int S, int cin, int L, int k,  \
+      int path
+#define CHAIN_ARGS                                                            \
+  ChainArgs { x, c, wgate_hi, wgate_lo, wproj_hi, wproj_lo, bf, bg, bres,     \
+              bskip, T, C, G, S, cin, L, k, x_out, skip, scratch, path }
+
+// Each entry point runs a whole chain on `stream`, on the prepared weights
+// of fused_chain_prepare_f32, and returns cudaGetLastError() of the first
+// launch that failed, or 0. Needs C, G, S multiples of 4, 16-byte aligned
+// x, weights, biases and outputs, k <= 8, L <= 64, and
 // fused_chain_scratch_floats() floats of scratch for the same `path`.
 
 // The causal chain as the IAF student serves it (TPU: _chain_kernel_tiled).

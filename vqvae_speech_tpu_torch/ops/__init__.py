@@ -10,9 +10,13 @@ from vqvae_speech_tpu_torch.ops.fused_resblock import (
     fused_block_chain,
     fused_block_chain_nc,
     fused_block_chain_nc_torch,
+    fused_block_chain_tf32_torch,
     fused_block_chain_tiled,
     fused_block_chain_tiled_torch,
     fused_block_chain_torch,
+    prepare_block_chain,
+    prepared_chain_weights_torch,
+    split_tf32,
     stack_block_weights,
 )
 from vqvae_speech_tpu_torch.ops.mel import melspectrogram, normalized_log_mel
@@ -39,6 +43,8 @@ __all__ = [
     "vq_distances", "vq_search", "vq_search_torch",
     "fused_block_chain", "fused_block_chain_nc", "fused_block_chain_nc_torch",
     "fused_block_chain_tiled", "fused_block_chain_tiled_torch",
-    "fused_block_chain_torch", "stack_block_weights", "melspectrogram",
+    "fused_block_chain_torch", "fused_block_chain_tf32_torch",
+    "prepare_block_chain", "prepared_chain_weights_torch", "split_tf32",
+    "stack_block_weights", "melspectrogram",
     "normalized_log_mel",
 ]

@@ -331,15 +331,20 @@ wavenet_step_cuda.launches = 0
 
 def _bind_fused_resblock(lib: ctypes.CDLL) -> None:
     i32, ptr = ctypes.c_int, ctypes.c_void_p
-    lib.fused_chain_smem_bytes.argtypes = [i32]
-    lib.fused_chain_smem_bytes.restype = ctypes.c_size_t
     # T, C, G, cin, L, k, path, *floats, *split
     lib.fused_chain_scratch_floats.argtypes = (
         [i32] * 7 + [ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(i32)])
     lib.fused_chain_scratch_floats.restype = i32
-    # x, c, wf, wg, wfc, wgc, wres, wskip, bf, bg, bres, bskip, T, C, G, S,
-    # cin, L, k, path, [dilations,] x_out, skip, scratch, stream
-    chain = [ptr] * 12 + [i32] * 8
+    # wf, wg, wfc, wgc, wres, wskip, C, G, S, cin, L, k, wgate_hi, wgate_lo,
+    # wproj_hi, wproj_lo, stream
+    lib.fused_chain_prepare_f32.argtypes = [ptr] * 6 + [i32] * 6 + [ptr] * 5
+    lib.fused_chain_prepare_f32.restype = i32
+    # a, b_hi, b_lo, M, N, K, out, stream
+    lib.fused_chain_matmul_f32.argtypes = [ptr] * 3 + [i32] * 3 + [ptr] * 2
+    lib.fused_chain_matmul_f32.restype = i32
+    # x, c, wgate_hi, wgate_lo, wproj_hi, wproj_lo, bf, bg, bres, bskip, T, C,
+    # G, S, cin, L, k, path, [dilations,] x_out, skip, scratch, stream
+    chain = [ptr] * 10 + [i32] * 8
     for name in ("fused_chain_f32", "fused_chain_tiled_f32"):
         getattr(lib, name).argtypes = chain + [ptr] * 4
         getattr(lib, name).restype = i32
@@ -351,100 +356,197 @@ def _bind_fused_resblock(lib: ctypes.CDLL) -> None:
 FUSED_CHAIN_MAX_TAPS = 8
 FUSED_CHAIN_MAX_LAYERS = 64
 # The chain kernels' two decompositions. "auto" is what every caller gets:
-# the shapes and the device's SM count decide (chains of at most two 64-row
-# tiles an SM take the split path). The other two
-# force one, for tests and measurements of both sides of that switch.
+# the shapes and the device's SM count decide (chains whose row-tiled gate
+# launch would have under half a block an SM take the split path). The
+# other two force one, for tests and measurements of both sides of that
+# switch.
 FUSED_CHAIN_PATHS = {"auto": 0, "rows": 1, "split": 2}
 _STACKED = ("wf", "wg", "wfc", "wgc", "wres", "wskip", "bf", "bg", "bres",
             "bskip")
+_BIASES = ("bf", "bg", "bres", "bskip")
+
+
+def _check_chain_tensor(name, arg, t, dev, aligned=True):
+    if not t.is_cuda or (dev is not None and t.device != dev):
+        raise ValueError(f"{name}: {arg} must be a CUDA tensor"
+                         f"{'' if dev is None else f' on {dev}'}, got "
+                         f"{t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {arg} must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+
+
+class PreparedFusedChain:
+    """One chain's weights bound to the chain kernels
+    (csrc/fused_resblock.cu): everything that does not change from call to
+    call is checked, laid out and allocated here, ONCE.
+
+    The kernels multiply on the tensor cores in error-compensated TF32 and
+    read the weights as the B operand, which must have the reduction index
+    contiguous and comes split into a hi and a lo part. So the stacked
+    arrays of ``ops.fused_resblock.stack_block_weights`` are transposed and
+    split by a small kernel into ``wgate`` (2, L, 2G, k*C8 + cin8) and
+    ``wproj`` (2, L, C+S, G8) (index 0 hi, 1 lo; x8 = x rounded up to 8;
+    the layout of ``ops.fused_resblock.prepared_chain_weights_torch``):
+    ``nbytes`` more device memory, twice the chain's weights.
+
+    ``run(...)`` then checks x and c_up and launches.
+    """
+
+    def __init__(self, stacked, name="fused_block_chain_cuda"):
+        weights = {n: stacked[n] for n in _STACKED}
+        wf = weights["wf"]
+        dev = wf.device if wf.is_cuda else None
+        for arg, t in weights.items():
+            _check_chain_tensor(name, arg, t, dev)
+        if wf.dim() != 4:
+            raise ValueError(f"{name}: wf must be (L, k, C, G), got "
+                             f"{tuple(wf.shape)}")
+        L, k, C, G = wf.shape
+        cin = weights["wfc"].shape[1] if weights["wfc"].dim() == 3 else 0
+        S = weights["wskip"].shape[-1]
+        want = dict(wf=(L, k, C, G), wg=(L, k, C, G), wfc=(L, cin, G),
+                    wgc=(L, cin, G), wres=(L, G, C), wskip=(L, G, S),
+                    bf=(L, G), bg=(L, G), bres=(L, C), bskip=(L, S))
+        for arg, shape in want.items():
+            if tuple(weights[arg].shape) != shape:
+                raise ValueError(f"{name}: {arg} has shape "
+                                 f"{tuple(weights[arg].shape)}, expected "
+                                 f"{shape}")
+        if (cin < 1 or not 1 <= k <= FUSED_CHAIN_MAX_TAPS
+                or not 1 <= L <= FUSED_CHAIN_MAX_LAYERS
+                or C % 4 or G % 4 or S % 4 or min(C, G, S) < 4):
+            raise ValueError(
+                f"{name}: needs cin >= 1, 1 <= k <= {FUSED_CHAIN_MAX_TAPS}, "
+                f"1 <= L <= {FUSED_CHAIN_MAX_LAYERS} and C, G, S positive "
+                f"multiples of 4; got cin={cin} k={k} L={L} C={C} G={G} "
+                f"S={S}")
+        self.device = dev
+        self.layers, self.kernel_size = L, k
+        self.dims = dict(L=L, k=k, C=C, G=G, S=S, cin=cin)
+        self._biases = [weights[n] for n in _BIASES]
+        self._lib = lib = _library("fused_resblock", _bind_fused_resblock)
+        with torch.cuda.device(dev):
+            self.wgate = torch.empty(
+                (2, L, 2 * G, k * (-(-C // 8) * 8) + -(-cin // 8) * 8),
+                dtype=torch.float32, device=dev)
+            self.wproj = torch.empty((2, L, C + S, -(-G // 8) * 8),
+                                     dtype=torch.float32, device=dev)
+            err = lib.fused_chain_prepare_f32(
+                *(weights[n].data_ptr() for n in _STACKED[:6]), C, G, S, cin,
+                L, k, self.wgate[0].data_ptr(), self.wgate[1].data_ptr(),
+                self.wproj[0].data_ptr(), self.wproj[1].data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: preparing the weights failed with "
+                               f"CUDA error {err}")
+        self.nbytes = 4 * (self.wgate.numel() + self.wproj.numel())
+        self._plans = {}    # (T, path id) -> (scratch floats, split path?)
+
+    def _plan(self, name, T, path_id):
+        plan = self._plans.get((T, path_id))
+        if plan is None:
+            d = self.dims
+            n_floats, split = ctypes.c_size_t(), ctypes.c_int()
+            err = self._lib.fused_chain_scratch_floats(
+                T, d["C"], d["G"], d["cin"], d["L"], d["k"], path_id,
+                ctypes.byref(n_floats), ctypes.byref(split))
+            if err != 0:
+                raise RuntimeError(f"{name}: CUDA error {err} sizing the "
+                                   "scratch")
+            plan = self._plans[(T, path_id)] = (n_floats.value,
+                                                bool(split.value))
+        return plan
+
+    def run(self, name, entry, x, c_up, dilations=None, path="auto"):
+        """Run the C entry point ``entry`` on the current stream: x (T, C),
+        c_up (T, cin) -> (x (T, C), skip (T, S)), freshly allocated."""
+        if path not in FUSED_CHAIN_PATHS:
+            raise ValueError(f"{name}: path must be one of "
+                             f"{sorted(FUSED_CHAIN_PATHS)}, got {path!r}")
+        dev, d = self.device, self.dims
+        # the conditioning may start at any float: its rows are copied one
+        # float at a time unless they are 16-byte aligned
+        _check_chain_tensor(name, "x", x, dev)
+        _check_chain_tensor(name, "c_up", c_up, dev, aligned=False)
+        if x.dim() != 2 or x.shape[1] != d["C"] or x.shape[0] < 1:
+            raise ValueError(f"{name}: x has shape {tuple(x.shape)}, expected "
+                             f"(T >= 1, {d['C']})")
+        T = x.shape[0]
+        if tuple(c_up.shape) != (T, d["cin"]):
+            raise ValueError(f"{name}: c_up has shape {tuple(c_up.shape)}, "
+                             f"expected {(T, d['cin'])}")
+        L, k = d["L"], d["k"]
+        reach = max(dilations) if dilations is not None else k ** (L - 1)
+        if ((k - 1) * reach >= 2 ** 31
+                or T * max(d["C"], d["S"], d["cin"], 2 * d["G"]) >= 2 ** 31):
+            raise ValueError(f"{name}: T={T} or dilation {reach} out of range")
+        extra = []
+        if dilations is not None:
+            if len(dilations) != L or min(dilations) < 1:
+                raise ValueError(f"{name}: needs {L} positive dilations, got "
+                                 f"{tuple(dilations)}")
+            extra = [(ctypes.c_int * L)(*(int(v) for v in dilations))]
+        path_id = FUSED_CHAIN_PATHS[path]
+        with torch.cuda.device(dev):
+            n_floats, split = self._plan(name, T, path_id)
+            x_out = torch.empty((T, d["C"]), dtype=torch.float32, device=dev)
+            skip = torch.empty((T, d["S"]), dtype=torch.float32, device=dev)
+            scratch = torch.empty((n_floats,), dtype=torch.float32, device=dev)
+            err = getattr(self._lib, entry)(
+                x.data_ptr(), c_up.data_ptr(), self.wgate[0].data_ptr(),
+                self.wgate[1].data_ptr(), self.wproj[0].data_ptr(),
+                self.wproj[1].data_ptr(),
+                *(b.data_ptr() for b in self._biases), T, d["C"], d["G"],
+                d["S"], d["cin"], L, k, path_id, *extra, x_out.data_ptr(),
+                skip.data_ptr(), scratch.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+        _fused_chain_launch.last_split = split
+        return x_out, skip
 
 
 def _fused_chain_launch(name, entry, x, c_up, stacked, dilations=None,
                         path="auto"):
-    """Check the arguments of one fused chain, allocate its outputs and
-    scratch (the buffer x ping-pongs through and, on the split path, the
-    partial sums and the gated output) and run the C entry point ``entry``
-    of csrc/fused_resblock.cu on the current stream. x (T, C), c_up
-    (T, cin), stacked as ``ops.fused_resblock.stack_block_weights`` ->
-    (x (T, C), skip (T, S))."""
-    if path not in FUSED_CHAIN_PATHS:
-        raise ValueError(f"{name}: path must be one of "
-                         f"{sorted(FUSED_CHAIN_PATHS)}, got {path!r}")
-    args = dict(x=x, c_up=c_up, **{n: stacked[n] for n in _STACKED})
-    dev = x.device
-    for arg, t in args.items():
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name}: {arg} must be a CUDA tensor on {dev}, "
-                             f"got {t.device}")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-        # everything but the conditioning is read or written as float4
-        if arg != "c_up" and t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
-    if x.dim() != 2 or c_up.dim() != 2 or stacked["wf"].dim() != 4:
-        raise ValueError(f"{name}: x must be (T, C), c_up (T, cin) and wf "
-                         f"(L, k, C, G); got {tuple(x.shape)}, "
-                         f"{tuple(c_up.shape)}, {tuple(stacked['wf'].shape)}")
-    T, C = x.shape
-    cin = c_up.shape[1]
-    L, k, _, G = stacked["wf"].shape
-    S = stacked["wskip"].shape[-1]
-    want = dict(c_up=(T, cin), wf=(L, k, C, G), wg=(L, k, C, G),
-                wfc=(L, cin, G), wgc=(L, cin, G), wres=(L, G, C),
-                wskip=(L, G, S), bf=(L, G), bg=(L, G), bres=(L, C),
-                bskip=(L, S))
-    for arg, shape in want.items():
-        if tuple(args[arg].shape) != shape:
-            raise ValueError(f"{name}: {arg} has shape "
-                             f"{tuple(args[arg].shape)}, expected {shape}")
-    if (T < 1 or cin < 1 or not 1 <= k <= FUSED_CHAIN_MAX_TAPS
-            or not 1 <= L <= FUSED_CHAIN_MAX_LAYERS
-            or C % 4 or G % 4 or S % 4 or min(C, G, S) < 4):
-        raise ValueError(
-            f"{name}: needs T, cin >= 1, 1 <= k <= {FUSED_CHAIN_MAX_TAPS}, "
-            f"1 <= L <= {FUSED_CHAIN_MAX_LAYERS} and C, G, S positive "
-            f"multiples of 4; got T={T} cin={cin} k={k} L={L} C={C} G={G} "
-            f"S={S}")
-    reach = (max(dilations) if dilations is not None else k ** (L - 1))
-    if (k - 1) * reach >= 2 ** 31 or T * max(C, S, cin) >= 2 ** 62:
-        raise ValueError(f"{name}: dilation {reach} out of range")
-    lib = _library("fused_resblock", _bind_fused_resblock)
-    if lib.fused_chain_smem_bytes(G) > _MAX_SMEM:
-        raise ValueError(f"{name}: gate width {G} too wide for one block's "
-                         "shared memory")
-    x_out = torch.empty((T, C), dtype=torch.float32, device=dev)
-    skip = torch.empty((T, S), dtype=torch.float32, device=dev)
-    extra = []
-    if dilations is not None:
-        if len(dilations) != L or min(dilations) < 1:
-            raise ValueError(f"{name}: needs {L} positive dilations, got "
-                             f"{tuple(dilations)}")
-        extra = [(ctypes.c_int * L)(*(int(d) for d in dilations))]
-    path_id = FUSED_CHAIN_PATHS[path]
-    with torch.cuda.device(dev):
-        n_floats, split = ctypes.c_size_t(), ctypes.c_int()
-        err = lib.fused_chain_scratch_floats(
-            T, C, G, cin, L, k, path_id, ctypes.byref(n_floats),
-            ctypes.byref(split))
-        if err != 0:
-            raise RuntimeError(f"{name}: CUDA error {err} sizing the scratch")
-        scratch = torch.empty((n_floats.value,), dtype=torch.float32,
-                              device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(
-            *(t.data_ptr() for t in args.values()), T, C, G, S, cin, L, k,
-            path_id, *extra, x_out.data_ptr(), skip.data_ptr(),
-            scratch.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
-    _fused_chain_launch.last_split = bool(split.value)
-    return x_out, skip
+    """Run one fused chain on the current stream. ``stacked`` is a
+    ``PreparedFusedChain``, or the dictionary of
+    ``ops.fused_resblock.stack_block_weights``, which is prepared here for
+    this one call. x (T, C), c_up (T, cin) -> (x (T, C), skip (T, S))."""
+    if not isinstance(stacked, PreparedFusedChain):
+        stacked = PreparedFusedChain(stacked, name)
+    return stacked.run(name, entry, x, c_up, dilations, path)
 
 
 # whether the last chain launched took the split path (for tests and reports)
 _fused_chain_launch.last_split = False
+
+
+def tf32x3_matmul_cuda(a, b_hi, b_lo):
+    """a (M, K) @ b^T through the chain kernels' main loop alone, b given as
+    its split parts (N, K rounded up to 8) as
+    ``ops.fused_resblock.split_tf32`` makes them: a check of the loop
+    against a library product, not a path of the port."""
+    name = "tf32x3_matmul_cuda"
+    for arg, t in (("a", a), ("b_hi", b_hi), ("b_lo", b_lo)):
+        _check_chain_tensor(name, arg, t, a.device if a.is_cuda else None)
+    M, K = a.shape
+    N, K8 = b_hi.shape
+    if b_lo.shape != b_hi.shape or K8 != -(-K // 8) * 8 or min(M, N, K) < 1:
+        raise ValueError(f"{name}: a {tuple(a.shape)} against b_hi "
+                         f"{tuple(b_hi.shape)}, b_lo {tuple(b_lo.shape)}")
+    lib = _library("fused_resblock", _bind_fused_resblock)
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.fused_chain_matmul_f32(
+            a.data_ptr(), b_hi.data_ptr(), b_lo.data_ptr(), M, N, K,
+            out.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+    return out
 
 
 def fused_block_chain_tiled_cuda(x, c_up, stacked, path="auto"):

@@ -29,6 +29,14 @@ tensor always goes to the hand-written kernel ``csrc/fused_resblock.cu``, a
 CPU tensor to the plain chain. There is no threshold and no fallback. The
 JAX functions' ``tile`` and ``interpret`` arguments size and emulate the TPU
 kernel and have no counterpart: no result here depends on a tiling.
+
+The kernel multiplies on the tensor cores in error-compensated TF32: each
+f32 operand is split into ``hi = tf32(a)`` and ``lo = tf32(a - hi)`` and a
+product is ``hi @ lo + lo @ hi + hi @ hi`` with f32 sums. ``split_tf32`` and
+``fused_block_chain_tf32_torch`` are that arithmetic in plain PyTorch (its
+twin, for tests on any device), ``prepared_chain_weights_torch`` the layout
+the kernel reads its weights in, and ``prepare_block_chain`` binds a
+weight set to the kernel once, for callers that run a chain many times.
 """
 import math
 
@@ -36,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from vqvae_speech_tpu_torch.ops._kernels import (
+    PreparedFusedChain,
     fused_block_chain_cuda,
     fused_block_chain_nc_cuda,
     fused_block_chain_tiled_cuda,
@@ -92,23 +101,103 @@ def _shifted(x, off):
     return F.pad(x, (0, 0, -off, off))
 
 
-def _chain_torch(x, c_up, stacked, offsets):
+def _chain_torch(x, c_up, stacked, offsets, mm=torch.matmul):
+    """The chain with every product taken by ``mm``."""
     skip = x.new_zeros((x.shape[0], stacked["wskip"].shape[-1]))
     for l, offs in enumerate(offsets):
-        hf = c_up @ stacked["wfc"][l] + stacked["bf"][l]
-        hg = c_up @ stacked["wgc"][l] + stacked["bg"][l]
+        hf = mm(c_up, stacked["wfc"][l]) + stacked["bf"][l]
+        hg = mm(c_up, stacked["wgc"][l]) + stacked["bg"][l]
         for j, off in enumerate(offs):
             xs = _shifted(x, off)
-            hf = hf + xs @ stacked["wf"][l, j]
-            hg = hg + xs @ stacked["wg"][l, j]
+            hf = hf + mm(xs, stacked["wf"][l, j])
+            hg = hg + mm(xs, stacked["wg"][l, j])
         out = torch.tanh(hf) * torch.sigmoid(hg)
-        skip = skip + (out @ stacked["wskip"][l] + stacked["bskip"][l])
-        x = (x + out @ stacked["wres"][l] + stacked["bres"][l]) * _SQRT_HALF
+        skip = skip + (mm(out, stacked["wskip"][l]) + stacked["bskip"][l])
+        x = (x + mm(out, stacked["wres"][l]) + stacked["bres"][l]) * _SQRT_HALF
     return x, skip
 
 
+def split_tf32(a):
+    """(hi, lo) with ``hi = tf32(a)`` and ``lo = tf32(a - hi)``, both f32
+    tensors whose low 13 mantissa bits are clear. The rounding is to nearest
+    with ties away from zero, as the kernel's ``cvt.rna.tf32.f32``, done on
+    the bit patterns: add half a TF32 unit to the magnitude and cut."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(a)
+    return hi, rna(a - hi)
+
+
+def _matmul_tf32x3(a, b):
+    """a @ b as the kernel takes it: three products of TF32 values, the two
+    small ones first, summed in f32."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
+
+
+def _matmul_tf32(a, b):
+    """a @ b in one TF32 product: what the split avoids."""
+    return split_tf32(a)[0] @ split_tf32(b)[0]
+
+
+def fused_block_chain_tf32_torch(x, c_up, stacked, layers, kernel_size,
+                                 dilations=None, causal=True, passes=3):
+    """The chain with the kernel's arithmetic, in plain PyTorch: every
+    product in error-compensated TF32 (``passes=3``), or in one TF32
+    product (``passes=1``, for measuring what the compensation buys).
+    ``dilations`` defaults to kernel_size**l."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    _check_layers(stacked, layers, kernel_size)
+    offsets = (_causal_offsets if causal else _centred_offsets)(
+        kernel_size, _nc_dilations(layers, kernel_size, dilations))
+    return _chain_torch(x, c_up, stacked, offsets,
+                        _matmul_tf32x3 if passes == 3 else _matmul_tf32)
+
+
+def prepared_chain_weights_torch(stacked):
+    """One chain's weights as the kernel reads them, built with plain
+    tensor operations: reduction index contiguous, split into TF32 parts.
+
+      wgate (2, L, 2G, k*C8 + cin8)  rows [0, G) filter, [G, 2G) gate; along
+                                     the reduction tap j's C channels at
+                                     j*C8, then the conditioning's cin
+      wproj (2, L, C+S, G8)          rows [0, C) wres^T, [C, C+S) wskip^T
+
+    Index 0 is hi, 1 lo; x8 is x rounded up to 8, the padding zero."""
+    def pad8(w):                              # along the last axis
+        return F.pad(w, (0, -w.shape[-1] % 8))
+
+    taps = torch.cat([stacked["wf"], stacked["wg"]], dim=-1)    # (L,k,C,2G)
+    cond = torch.cat([stacked["wfc"], stacked["wgc"]], dim=-1)  # (L,cin,2G)
+    L, k, _, G2 = taps.shape
+    gate = torch.cat([pad8(taps.permute(0, 3, 1, 2)).reshape(L, G2, -1),
+                      pad8(cond.permute(0, 2, 1))], dim=-1)
+    proj = pad8(torch.cat([stacked["wres"], stacked["wskip"]],
+                          dim=-1).permute(0, 2, 1))
+    return dict(wgate=torch.stack(split_tf32(gate.contiguous())),
+                wproj=torch.stack(split_tf32(proj.contiguous())))
+
+
+def prepare_block_chain(stacked):
+    """Bind one chain's stacked weights to the chain kernel, once: CUDA
+    weights become a ``PreparedFusedChain`` (validated, transposed, split,
+    about twice the weights' bytes of device memory more), which the three
+    ``fused_block_chain*`` functions take in place of ``stacked``. CPU
+    weights are returned as they are: the plain chain needs nothing."""
+    if isinstance(stacked, PreparedFusedChain) or not stacked["wf"].is_cuda:
+        return stacked
+    return PreparedFusedChain(stacked)
+
+
 def _check_layers(stacked, layers, kernel_size):
-    L, k = stacked["wf"].shape[:2]
+    if isinstance(stacked, PreparedFusedChain):
+        L, k = stacked.layers, stacked.kernel_size
+    else:
+        L, k = stacked["wf"].shape[:2]
     if (L, k) != (layers, kernel_size):
         raise ValueError(f"stacked weights hold {L} layers of kernel {k}, "
                          f"not layers={layers}, kernel_size={kernel_size}")

@@ -314,7 +314,9 @@ class BucketedParallelSynthesisServer:
         but None raises.
     use_fused_chain : max_batch=1 only: run the vocoder's resblock chains
         through the fused chain (causal for iaf_student, non-causal for
-        flowavenet): the hand-written CUDA kernel on a GPU.
+        flowavenet): the hand-written CUDA kernel on a GPU, every chain's
+        weights bound to it once, at load (about twice the chains'
+        weights of device memory more).
     device : where the model runs ("cuda", "cpu"); no default.
     """
 
@@ -344,10 +346,12 @@ class BucketedParallelSynthesisServer:
         self._cfg = cfg
         self._teacher_cfg = teacher_cfg
         if kind == "flowavenet":
-            self._params = load_flowavenet_params(params, cfg, self._device)
+            self._params = load_flowavenet_params(
+                params, cfg, self._device, prepare_chains=use_fused_chain)
             scales = cfg.upsample_scales
         else:
-            self._params = load_student_params(params, cfg, self._device)
+            self._params = load_student_params(
+                params, cfg, self._device, prepare_chains=use_fused_chain)
             # only the teacher's upsampling stack is used
             self._upsample = {"upsample_conv": load_upsample_params(
                 teacher_params["upsample_conv"], self._device)}
