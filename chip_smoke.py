@@ -8,7 +8,10 @@
    WaveNet decode-step layer stack (csrc/wavenet_step.cu) and the fused
    gated-resblock chains (csrc/fused_resblock.cu).
 2. VQ kernel phase: holds vq_search against its plain PyTorch version on
-   the same CUDA tensors at the serving and benchmark shapes, and times both.
+   the same CUDA tensors at the serving, training and benchmark shapes, runs
+   each twice and requires bit-equal outputs, counts the device kernels one
+   search launches (torch.profiler: one, two above the one-launch rule), and
+   times both.
 3. Encode slice phase: serves mixed-length VCTK requests through all three
    buckets of BucketedEncodeServer at the flagship vq44-mfcc39 width, with
    random weights from numpy_params(seed=0); checks that the kernel ran,
@@ -16,6 +19,16 @@
    JAX package's codes in tests/data/torch_port_flagship_codes.npz, and that
    the eval forward gives finite reconstructions; reports requests/s and
    frames/s, and the VQ kernel's device time a launch from torch.profiler.
+   Train phase (runs right after it): the flagship jitter12 experiment's train
+   step (make_train_step: forward, MSE + VQ loss, backward, amsgrad, EMA
+   state) at full width and batch 64 on MFCC features of VCTK crops, 5
+   warm-up and 50 timed steps on one fixed batch, for the gradient and the
+   EMA quantizer. Checks one kernel launch a step, finite losses and a
+   falling reconstruction loss, the kernel's forward and the search's backward against the plain
+   search with autograd on the step's own latents, and one whole step on
+   the card against the same step on the CPU; reports ms a step, steps/s
+   and, from torch.profiler, the device's idle share and the shares of the
+   VQ kernel, the convolutions forward and backward and the optimizer.
 4. Decode-step kernel phase: holds glu_stack_step against its plain
    PyTorch chain at the vctk_wavenet width (20 layers, k=3, C=G=768,
    S=256) for batch 1, 8 and 32 with and without the legacy skip scaling,
@@ -68,7 +81,7 @@ Imports nothing of JAX.
 
     python3 chip_smoke.py --phases step_kernel,synthesis
 
-runs only the named phases (kernel, slice, step_kernel, synthesis,
+runs only the named phases (kernel, slice, train, step_kernel, synthesis,
 chain_kernel, vocoder), for work on one kernel; such a run prints neither
 of the two JSON lines.
 """
@@ -128,6 +141,23 @@ GOLDEN = os.path.join(REPO_ROOT, "tests", "data",
 KERNEL_SHAPES = ((1, 44), (1000, 44), (1536, 44), (3072, 44), (6144, 44),
                  (24576, 44), (1536, 1000), (12, 29), (24, 29))
 TIMED_SHAPE = (1536, 44)
+# the train phase: the jitter12 experiment of
+# configurations/experiments_vq44-mfcc39.json at the largest batch of
+# experiments_vq44-mfcc39-batch_sizes.json (64 x 24 latent rows = 1536, the
+# timed shape), learning rate of configurations/vctk_features.yaml
+TRAIN_BATCH = 64
+TRAIN_SAMPLES = 7680
+TRAIN_WARMUP, TRAIN_STEPS = 5, 50
+TRAIN_LEARNING_RATE = 2e-4
+# the kernel's outputs and the search's backward against the plain search
+# on the same latents: sums of at most 1536 f32 terms in another order,
+# as a share of the tensor's largest magnitude (or of 1 if that is smaller:
+# after 55 steps on one batch the gradient quantizer's latents have grown)
+TRAIN_KERNEL_TOL = 1e-5
+# one whole step on the card against the CPU's: relative on the loss,
+# absolute on the updated codebook (one amsgrad step moves a weight by at
+# most the learning rate)
+TRAIN_LOSS_RTOL, TRAIN_CODEBOOK_ATOL = 1e-4, 1e-5
 # a differing index is a near-tie when its distance is within this of the
 # winner's: 1e-5 * (||z||^2 + 1) between the kernel and the plain search on
 # the same tensors (f32 summation order); 1e-4 * (||z||^2 + 1) against the
@@ -393,21 +423,36 @@ def _per_launch_ms(fn, launches=100, warmup=3):
     return start.elapsed_time(end) / launches
 
 
-def _device_profile(fn):
+def _profiled(fn):
     """``fn`` under torch.profiler's CUDA activity: (host seconds of the
-    window, {kernel name: device microseconds})."""
+    window, the events that show device time). A window now and then comes
+    back with no device event at all (seen about once in three runs around
+    one short launch); it is taken again, up to three times, and a profiler
+    that still shows nothing on the card raises: every count, share and
+    device time printed from it is a measurement, never a blank."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    return window, {e.key: e.self_device_time_total
-                    for e in prof.key_averages()
-                    if e.self_device_time_total > 0}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        events = [e for e in prof.key_averages()
+                  if e.self_device_time_total > 0]
+        if events:
+            return window, events
+    raise AssertionError("torch.profiler showed nothing on the card in "
+                         "three windows")
+
+
+def _device_profile(fn):
+    """(host seconds of the window, {kernel name: device microseconds})
+    of ``fn`` under the profiler. ``fn`` may run more than once."""
+    window, events = _profiled(fn)
+    return window, {e.key: e.self_device_time_total for e in events}
 
 
 def _median_seconds(fn, repeats=3):
@@ -443,7 +488,7 @@ def _near_ties(flat, codebook, got_idx, want_idx, rel_tol):
 def kernel_phase():
     """The kernel against vq_search_torch on the same CUDA tensors."""
     import torch
-    from vqvae_speech_tpu_torch.ops import vq_search, vq_search_torch
+    from vqvae_speech_tpu_torch.ops import _kernels, vq_search, vq_search_torch
 
     rng = np.random.default_rng(SEED)
     max_err, timed = 0.0, None
@@ -465,13 +510,26 @@ def kernel_phase():
         torch.testing.assert_close(got.dw, plain_dw, rtol=1e-4, atol=1e-4)
         err = (got.dw - plain_dw).abs().max().item()
         max_err = max(max_err, err)
+        again = vq_search(flat, cb)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"vq_search N={N} K={K}: two runs on the "
+                                 "same inputs differ")
+        plan = _kernels.vq_search_plan(N, K, 64, flat.device)
+        ran = _device_kernel_counts(lambda: vq_search(flat, cb))
+        if sum(ran.values()) != plan["device_kernels"]:
+            raise AssertionError(
+                f"vq_search N={N} K={K}: the profiler saw {ran}, the plan "
+                f"says {plan['device_kernels']} device kernels a search")
         ms = _median_ms(lambda: vq_search(flat, cb))
         plain_ms = _median_ms(lambda: vq_search_torch(flat, cb))
         if (N, K) == TIMED_SHAPE:
             timed = (ms, plain_ms)
         print(f"kernel vq_search N={N} K={K} D=64: near-tie rows {n_diff}, "
-              f"max_abs_err {err:.3e}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms (median of 50, CUDA events)")
+              f"max_abs_err {err:.3e}, two runs bit-equal, "
+              f"{sum(ran.values())} device "
+              f"kernel(s) a search ({plan['blocks']} blocks), kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms (median of 50, CUDA "
+              "events)")
     return max_err, timed
 
 
@@ -544,36 +602,252 @@ def slice_phase(gpu):
           f"[{gpu}]")
 
     # the VQ kernel's own time on the device, without the host's launch cost
-    before = _kernels.vq_search_cuda.launches
-    _, busy_us = _device_profile(lambda: server.encode(load))
-    n = _kernels.vq_search_cuda.launches - before
+    def encode_once():
+        _kernels.vq_search_cuda.launches = 0
+        server.encode(load)
+
+    _, busy_us = _device_profile(encode_once)
+    n = _kernels.vq_search_cuda.launches
     vq_us = {k: v for k, v in busy_us.items() if "vq_" in k}
-    if vq_us and n:
-        print(f"slice: vq_search device time {sum(vq_us.values()) / n / 1e3:.4f} "
-              f"ms a launch over {n} launches of one encode of {len(load)} "
-              f"requests (torch.profiler; " + ", ".join(
-                  f"{k[k.index('vq_'):].split('(')[0]} {v / n:.1f} us"
-                  for k, v in vq_us.items())
-              + f"), {sum(vq_us.values()) / sum(busy_us.values()):.4f} of the "
-              f"device time [{gpu}]")
-    else:
-        print("slice: the profiler showed no device time for vq_search; "
-              "not measured")
+    if not vq_us or not n:
+        raise AssertionError("slice: the profiler showed no vq_search kernel "
+                             f"in an encode that launched it {n} times")
+    print(f"slice: vq_search device time {sum(vq_us.values()) / n / 1e3:.4f} "
+          f"ms a launch over {n} launches of one encode of {len(load)} "
+          f"requests (torch.profiler; " + ", ".join(
+              f"{k[k.index('vq_'):].split('(')[0]} {v / n:.1f} us"
+              for k, v in vq_us.items())
+          + f"), {sum(vq_us.values()) / sum(busy_us.values()):.4f} of the "
+          f"device time [{gpu}]")
     return launches
+
+
+def train_batch(device):
+    """The train phase's fixed batch: TRAIN_BATCH crops of TRAIN_SAMPLES
+    samples at seeded offsets of VCTK p300_000..009 (tiled where shorter) ->
+    MFCC + deltas through the port's ops/dsp.py -> (64, 47, 39), standardised
+    per coefficient over the batch (the experiments' ``normalize: true`` uses
+    corpus statistics; the loader that computes them is a later slice)."""
+    import torch
+    from vqvae_speech_tpu_torch.data.audio import load_and_preprocess
+    from vqvae_speech_tpu_torch.ops import speech_features
+
+    cfg = FLAGSHIP_CONFIG
+    rng = np.random.default_rng(SEED)
+    crops = []
+    for i in range(TRAIN_BATCH):
+        w, _ = load_and_preprocess(
+            os.path.join(WAVE_DIR, f"p300_{i % 10:03d}.wav"), 16000)
+        w = np.tile(w, -(-2 * TRAIN_SAMPLES // len(w)))
+        at = int(rng.integers(0, len(w) - TRAIN_SAMPLES))
+        crops.append(w[at:at + TRAIN_SAMPLES].astype(np.float32))
+    x = speech_features(
+        cfg["input_features_type"],
+        torch.from_numpy(np.stack(crops)).to(device), cfg["sampling_rate"],
+        cfg["input_features_filters"], cfg["augment_input_features"])
+    x = (x - x.mean((0, 1))) / x.std((0, 1))
+    return {"input_features": x, "output_features": x}
+
+
+def _train_setup(config, device):
+    """(state, step) around a fresh ConvVQVAE from numpy_params(seed=0)."""
+    from vqvae_speech_tpu_torch.convert import load_jax_params, numpy_params
+    from vqvae_speech_tpu_torch.models import ConvVQVAE
+    from vqvae_speech_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    model = load_jax_params(ConvVQVAE.from_config(config),
+                            *numpy_params(config, seed=SEED))
+    optimizer = make_optimizer(config["learning_rate"])
+    return (create_train_state(model, optimizer, device=device, seed=SEED),
+            make_train_step(config, optimizer))
+
+
+def _search_against_plain(model, batch):
+    """The kernel's forward and the search's backward against the plain
+    search under autograd, on the model's own latents and codebook. Returns
+    (near-tie rows, largest difference as a share of its tensor's scale)."""
+    import torch
+    import torch.nn.functional as F
+    from vqvae_speech_tpu_torch.ops import (
+        reference_flatten,
+        vq_search,
+        vq_search_torch,
+    )
+
+    with torch.no_grad():
+        flat = reference_flatten(model.latents(batch["input_features"]),
+                                 model.vq.codebook.shape[1]).contiguous()
+    codebook = model.vq.codebook.detach().clone()
+    K = codebook.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    w_q = torch.randn(flat.shape, device="cuda", generator=gen)
+    w_dw = torch.randn(codebook.shape, device="cuda", generator=gen)
+
+    f_k, c_k = flat.clone().requires_grad_(), codebook.clone().requires_grad_()
+    got = vq_search(f_k, c_k)
+    ((got.quantized * w_q).sum() + (got.dw * w_dw).sum()).backward()
+    n_diff = _near_ties(flat, codebook, got.indices,
+                        vq_search_torch(flat, codebook).indices,
+                        NEAR_TIE_SAME_INPUT)
+    # the plain chain on the kernel's own indices (the plain search's, when
+    # no row differs), differentiated by autograd
+    f_p, c_p = flat.clone().requires_grad_(), codebook.clone().requires_grad_()
+    onehot = F.one_hot(got.indices.long(), K).float()
+    quantized, counts, dw = onehot @ c_p, onehot.sum(0), onehot.t() @ f_p
+    ((quantized * w_q).sum() + (dw * w_dw).sum()).backward()
+    worst = 0.0
+    for name, a, b in (("quantized", got.quantized, quantized),
+                       ("counts", got.counts, counts), ("dw", got.dw, dw),
+                       ("g_flat", f_k.grad, f_p.grad),
+                       ("g_codebook", c_k.grad, c_p.grad)):
+        scale = max(1.0, b.detach().abs().max().item())
+        err = (a.detach() - b.detach()).abs().max().item() / scale
+        if not err <= TRAIN_KERNEL_TOL:
+            raise AssertionError(f"train: {name} of the kernel path is "
+                                 f"{err:.3e} of its scale from the plain "
+                                 "search's")
+        worst = max(worst, err)
+    return n_diff, worst
+
+
+def train_phase(gpu):
+    """The flagship train step on the card; returns (kernel launches, the VQ
+    kernel's device ms a launch or None)."""
+    import torch
+    from vqvae_speech_tpu_torch.nn import jitter_masks
+    from vqvae_speech_tpu_torch.ops import _kernels
+
+    base = dict(FLAGSHIP_CONFIG, use_jitter=True,
+                learning_rate=TRAIN_LEARNING_RATE)
+    batch = train_batch("cuda")
+    shape = tuple(batch["input_features"].shape)
+    if shape != (TRAIN_BATCH, 47, 39):
+        raise AssertionError(f"train batch shape {shape}")
+    total_launches, vq_device_ms = 0, None
+    for name, config in (("gradient VQ", base),
+                         ("EMA VQ", dict(base, decay=0.99))):
+        state, step = _train_setup(config, "cuda")
+        before = _kernels.vq_search_cuda.launches
+        losses, recons = [], []
+        for _ in range(TRAIN_WARMUP):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+            recons.append(metrics["reconstruction_loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+            recons.append(metrics["reconstruction_loss"])
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / TRAIN_STEPS
+        launches = _kernels.vq_search_cuda.launches - before
+        total_launches += launches
+        if launches != TRAIN_WARMUP + TRAIN_STEPS:
+            raise AssertionError(
+                f"train [{name}]: {launches} vq_search launches in "
+                f"{TRAIN_WARMUP + TRAIN_STEPS} steps")
+        losses, recons = torch.stack(losses).cpu(), torch.stack(recons).cpu()
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"train [{name}]: non-finite loss")
+        # the reconstruction term is the one held to fall: on one repeated
+        # batch at this width the gradient quantizer's latents outrun its
+        # codebook (the reference's drift: the JAX step's VQ terms grow the
+        # same way, tests/test_torch_train_step.py), which the total shows
+        if not recons[-1] < recons[0]:
+            raise AssertionError(
+                f"train [{name}]: reconstruction loss {recons[0]:.4f} -> "
+                f"{recons[-1]:.4f} did not fall")
+        print(f"train [{name}]: batch {TRAIN_BATCH} x 47 frames, "
+              f"{TRAIN_WARMUP} + {TRAIN_STEPS} steps, one vq_search launch a "
+              f"step; reconstruction loss {recons[0]:.4f} -> "
+              f"{recons[-1]:.4f}, loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+              f"(largest {losses.max():.4f}), perplexity "
+              f"{metrics['perplexity'].item():.2f}; {sec * 1e3:.3f} ms a "
+              f"step, {1 / sec:.1f} steps/s (host clock around "
+              f"{TRAIN_STEPS} steps ending in a sync) [{gpu}]")
+
+        n_diff, worst = _search_against_plain(state.model, batch)
+        print(f"train [{name}]: kernel forward and search backward on the "
+              f"step's latents vs the plain search under autograd: near-tie "
+              f"rows {n_diff}, quantized, counts, dw, g_flat, g_codebook "
+              f"within {worst:.2e} of their scale (limit {TRAIN_KERNEL_TOL})")
+
+        n_prof = 10
+        before = _kernels.vq_search_cuda.launches
+        window, busy_us = _device_profile(
+            lambda: [step(state, batch) for _ in range(n_prof)])
+        total_launches += _kernels.vq_search_cuda.launches - before
+        total_us = sum(busy_us.values())
+
+        def share(pick):
+            return sum(v for k, v in busy_us.items()
+                       if pick(k.lower())) / total_us
+
+        def is_conv(k):
+            return any(n in k for n in ("cudnn", "xmma", "conv",
+                                        "implicit", "cutlass", "gemm"))
+
+        def is_bwd(k):
+            return any(n in k for n in ("wgrad", "dgrad", "bwd",
+                                        "backward"))
+
+        vq_us = sum(v for k, v in busy_us.items() if "vq_" in k)
+        if not vq_us > 0:
+            raise AssertionError(f"train [{name}]: the profiler showed no "
+                                 "vq_search kernel in the steps")
+        vq_device_ms = vq_us / n_prof / 1e3
+        print(f"train [{name}] profile ({n_prof} steps, torch.profiler "
+              f"CUDA activity): window {window / n_prof * 1e3:.3f} ms a "
+              f"step, device busy {total_us / n_prof / 1e3:.3f} ms a "
+              f"step, idle share {1 - total_us / 1e6 / window:.3f}; "
+              f"vq_search {vq_device_ms:.5f} ms a step "
+              f"({vq_us / total_us:.4f} of device time), convolution "
+              f"kernels forward {share(lambda k: is_conv(k) and not is_bwd(k)):.3f}"
+              f" and backward {share(lambda k: is_conv(k) and is_bwd(k)):.3f}"
+              f" (by kernel name), optimizer (multi_tensor_apply) "
+              f"{share(lambda k: 'multi_tensor' in k):.3f} [{gpu}]")
+        for key, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {us / n_prof / 1e3:10.4f} ms a step  {key[:100]}")
+        del state
+        torch.cuda.empty_cache()
+
+    # one whole step on the card against the same step on the CPU: same
+    # weights, batch and jitter masks
+    masks = jitter_masks(24, base["jitter_probability"],
+                         generator=torch.Generator().manual_seed(SEED))
+    results = {}
+    for device in ("cuda", "cpu"):
+        state, step = _train_setup(base, device)
+        on_device = {k: v.to(device) for k, v in batch.items()}
+        before = _kernels.vq_search_cuda.launches
+        state, metrics = step(state, on_device, jitter_masks=masks)
+        total_launches += _kernels.vq_search_cuda.launches - before
+        results[device] = (metrics["loss"].item(),
+                           state.model.vq.codebook.detach().cpu())
+    (loss_gpu, cb_gpu), (loss_cpu, cb_cpu) = results["cuda"], results["cpu"]
+    cb_err = (cb_gpu - cb_cpu).abs().max().item()
+    if abs(loss_gpu - loss_cpu) > TRAIN_LOSS_RTOL * abs(loss_cpu):
+        raise AssertionError(f"train: one step's loss {loss_gpu} on the card "
+                             f"vs {loss_cpu} on the CPU")
+    if not cb_err <= TRAIN_CODEBOOK_ATOL:
+        raise AssertionError(f"train: updated codebook {cb_err:.3e} from the "
+                             "CPU step's")
+    print(f"train: one step on the card vs the same step on the CPU (same "
+          f"weights, batch, jitter masks): loss {loss_gpu:.6f} vs "
+          f"{loss_cpu:.6f}, updated codebook within {cb_err:.2e} (limits "
+          f"{TRAIN_LOSS_RTOL} relative, {TRAIN_CODEBOOK_ATOL})")
+    return total_launches, vq_device_ms
 
 
 def _device_kernel_counts(fn):
     """{name: launches} of everything that ran on the device (kernels,
     memsets, copies) while ``fn`` ran once, from torch.profiler."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.key: e.count for e in prof.key_averages()
-            if e.self_device_time_total > 0}
+    return {e.key: e.count for e in _profiled(fn)[1]}
 
 
 def _us(row):
@@ -708,8 +982,7 @@ def step_kernel_phase(gpu):
             # the kernel's own time on the device, without launch gaps
             _, busy_us = _device_profile(
                 lambda: [step(x0, taps, cond) for _ in range(20)])
-            device = (f"{sum(busy_us.values()) / 20 / 1e3:.4f} ms a launch"
-                      if busy_us else "not measured (no device time shown)")
+            device = f"{sum(busy_us.values()) / 20 / 1e3:.4f} ms a launch"
             plain_ms = _per_launch_ms(
                 lambda: glu_stack_step_torch(legacy=legacy, **args))
             weight_bytes = 4 * sum(w[n].numel() for n in ("wtap", "wskip",
@@ -932,17 +1205,13 @@ def synthesis_phase(gpu):
         [lcs[i] for i in idx], [speakers[i] for i in idx]))
     total_us = sum(busy_us.values())
     kernel_us = sum(v for k, v in busy_us.items() if "step_kernel" in k)
-    if total_us > 0:
-        print(f"synthesis profile (bucket {bucket}, torch.profiler CUDA "
-              f"activity): window {window:.3f} s, device busy "
-              f"{total_us / 1e6:.3f} s, idle share "
-              f"{1 - total_us / 1e6 / window:.3f}; decode-step kernels "
-              f"{kernel_us / total_us:.3f} of device time [{gpu}]")
-        for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"  {us / 1e3:10.2f} ms  {name[:100]}")
-    else:
-        print("synthesis profile: the profiler showed no device time; idle "
-              "share not measured")
+    print(f"synthesis profile (bucket {bucket}, torch.profiler CUDA "
+          f"activity): window {window:.3f} s, device busy "
+          f"{total_us / 1e6:.3f} s, idle share "
+          f"{1 - total_us / 1e6 / window:.3f}; decode-step kernels "
+          f"{kernel_us / total_us:.3f} of device time [{gpu}]")
+    for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {us / 1e3:10.2f} ms  {name[:100]}")
     return step_launches, vq_launches
 
 
@@ -1295,19 +1564,15 @@ def vocoder_phase(gpu):
         window, busy_us = _device_profile(
             lambda: fused_server.synthesize([mel]))
         total_us = sum(busy_us.values())
-        if total_us > 0:
-            chain_us = sum(v for k, v in busy_us.items() if any(
-                n in k for n in ("gemm_kernel", "glu_kernel")))
-            print(f"vocoder {kind} profile (one fused bucket-80 request, "
-                  f"torch.profiler CUDA activity): window {window * 1e3:.2f} "
-                  f"ms, device busy {total_us / 1e3:.2f} ms, idle share "
-                  f"{1 - total_us / 1e6 / window:.3f}; chain kernels "
-                  f"{chain_us / total_us:.3f} of device time [{gpu}]")
-            for key, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
-                print(f"  {us / 1e3:10.3f} ms  {key[:100]}")
-        else:
-            print(f"vocoder {kind} profile: the profiler showed no device "
-                  "time; idle share not measured")
+        chain_us = sum(v for k, v in busy_us.items() if any(
+            n in k for n in ("gemm_kernel", "glu_kernel")))
+        print(f"vocoder {kind} profile (one fused bucket-80 request, "
+              f"torch.profiler CUDA activity): window {window * 1e3:.2f} "
+              f"ms, device busy {total_us / 1e3:.2f} ms, idle share "
+              f"{1 - total_us / 1e6 / window:.3f}; chain kernels "
+              f"{chain_us / total_us:.3f} of device time [{gpu}]")
+        for key, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {us / 1e3:10.3f} ms  {key[:100]}")
         del fused_server, single_server, plain_server
         torch.cuda.empty_cache()
 
@@ -1338,8 +1603,8 @@ def vocoder_phase(gpu):
     return launches
 
 
-PHASES = ("kernel", "slice", "step_kernel", "synthesis", "chain_kernel",
-          "vocoder")
+PHASES = ("kernel", "slice", "train", "step_kernel", "synthesis",
+          "chain_kernel", "vocoder")
 
 
 def main():
@@ -1391,6 +1656,7 @@ def main():
     if set(only) != set(PHASES):
         for name, fn, args in (
                 ("kernel", kernel_phase, ()), ("slice", slice_phase, (gpu,)),
+                ("train", train_phase, (gpu,)),
                 ("step_kernel", step_kernel_phase, (gpu,)),
                 ("synthesis", synthesis_phase, (gpu,)),
                 ("chain_kernel", chain_kernel_phase, (gpu,)),
@@ -1402,6 +1668,7 @@ def main():
 
     vq_err, (vq_ms, vq_plain_ms) = phase(kernel_phase)
     encode_vq_launches = phase(slice_phase, gpu)
+    train_vq_launches, vq_device_ms = phase(train_phase, gpu)
     step_err, (step_ms, step_plain_ms) = phase(step_kernel_phase, gpu)
     step_launches, synth_vq_launches = phase(synthesis_phase, gpu)
     chains = phase(chain_kernel_phase, gpu)
@@ -1413,11 +1680,11 @@ def main():
 
     # no single PyTorch call computes any of these fused functions (a search
     # with its statistics, a whole layer stack, a whole resblock chain)
-    def line(name, source, replaces, launches, numbers):
+    def line(name, source, replaces, launches, numbers, **more):
         return dict(name=name, route="cuda",
                     source=f"vqvae_speech_tpu_torch/csrc/{source}",
                     replaces=replaces, launches=launches, **numbers,
-                    library_ms=None)
+                    library_ms=None, **more)
 
     from vqvae_speech_tpu_torch.models.wavenet_decoder import (
         wavenet_config_from,
@@ -1430,9 +1697,12 @@ def main():
         wcfg.gate_channels, wcfg.skip_out_channels)
     print(json.dumps({"kernels": [
         line("vq_search", "vq_search.cu", "vqvae_speech_tpu/ops/vq.py:91",
-             encode_vq_launches + synth_vq_launches,
+             encode_vq_launches + train_vq_launches + synth_vq_launches,
              dict(max_abs_err=vq_err, ms=vq_ms, plain_ms=vq_plain_ms,
-                  bound_ms=vq_bound[0], bound_by=vq_bound[1])),
+                  bound_ms=vq_bound[0], bound_by=vq_bound[1]),
+             # ms is by CUDA events, which at this size time the host's
+             # launch; device_ms is the kernel's own time in the train steps
+             device_ms=vq_device_ms),
         line("wavenet_step", "wavenet_step.cu",
              "vqvae_speech_tpu/ops/wavenet_step.py:35", step_launches,
              dict(max_abs_err=step_err, ms=step_ms, plain_ms=step_plain_ms,

@@ -116,9 +116,77 @@ def test_numpy_params_has_the_jax_tree(variant):
 
 
 def test_unported_options_raise():
+    """Jitter and speaker conditioning are ported; what still raises is the
+    train step's ``compute_dtype`` and ``mesh``, and a conditioned decoder
+    called without speaker ids."""
+    from vqvae_speech_tpu_torch.train import make_optimizer, make_train_step
+
     with pytest.raises(NotImplementedError):
-        ConvVQVAE.from_config(dict(CFG, use_speaker_conditioning=True,
-                                   num_speakers=3))
-    model = ConvVQVAE.from_config(dict(CFG, use_jitter=True)).train()
+        make_train_step(dict(CFG, compute_dtype="bfloat16"),
+                        make_optimizer(1e-3))
     with pytest.raises(NotImplementedError):
+        make_train_step(CFG, make_optimizer(1e-3), mesh=object())
+    model = ConvVQVAE.from_config(dict(CFG, use_speaker_conditioning=True,
+                                       num_speakers=3))
+    with pytest.raises(ValueError):
         model(torch.zeros(1, 47, 39))
+    model = ConvVQVAE.from_config(dict(CFG, use_jitter=True)).train()
+    assert model(torch.zeros(1, 47, 39)).reconstructed_x.shape == (1, 47, 39)
+
+
+VARIANTS_TRAIN = {
+    "jitter": {"use_jitter": True},
+    "jitter_live": {"use_jitter": True, "jitter_gradient_detach": False},
+    "speaker": {"use_speaker_conditioning": True, "num_speakers": 4},
+    "speaker_jitter_ema": {"use_speaker_conditioning": True, "num_speakers": 4,
+                           "use_jitter": True, "decay": 0.99},
+}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS_TRAIN))
+def test_training_forward_matches_jax(variant):
+    """The training forward with jitter (the JAX side's masks, recomputed
+    from its key) and speaker conditioning: reconstruction within rtol/atol
+    1e-4, losses rtol 1e-4, and the speaker table loads through
+    ``load_jax_params`` / ``numpy_params``."""
+    cfg = dict(CFG, **VARIANTS_TRAIN[variant])
+    params, state = conv_vqvae_init(jax.random.PRNGKey(0), cfg)
+    model = load_jax_params(ConvVQVAE.from_config(cfg), _numpy_tree(params),
+                            _numpy_tree(state)).train()
+    x = np.random.default_rng(0).standard_normal((3, 47, 39)).astype(np.float32)
+    ids = (np.array([2, 0, 3], np.int32)
+           if cfg["use_speaker_conditioning"] else None)
+    key = jax.random.PRNGKey(4)
+    want = conv_vqvae_apply(params, state, jnp.asarray(x), cfg, training=True,
+                            rng=key, use_pallas=False,
+                            speaker_ids=None if ids is None
+                            else jnp.asarray(ids))
+    k_rep, k_dir = jax.random.split(key)
+    masks = (torch.from_numpy(np.array(jax.random.bernoulli(k_rep, 0.88, (24,)))),
+             torch.from_numpy(np.array(jnp.where(
+                 jax.random.bernoulli(k_dir, 0.5, (24,)), 1, -1)).astype(np.int64)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x),
+                    None if ids is None else torch.from_numpy(ids),
+                    jitter_masks=masks)
+    np.testing.assert_array_equal(got.encoding_indices.numpy(),
+                                  np.asarray(want.encoding_indices))
+    np.testing.assert_allclose(got.reconstructed_x.numpy(),
+                               np.asarray(want.reconstructed_x),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.vq_loss.item(), float(want.vq_loss),
+                               rtol=1e-4)
+    np.testing.assert_allclose(got.pre_vq_latents.numpy(),
+                               np.asarray(want.pre_vq_latents),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(got.encodings.numpy(),
+                                  np.asarray(want.encodings))
+    np.testing.assert_allclose(got.counts.numpy(),
+                               np.asarray(want.encodings).sum((0, 1)))
+    if cfg["use_speaker_conditioning"]:
+        np_params, np_state = numpy_params(cfg, seed=3)
+        assert (jax.tree_util.tree_structure(np_params)
+                == jax.tree_util.tree_structure(_numpy_tree(params)))
+        assert np_params["decoder"]["speaker_embedding"]["table"].shape == (4, 40)
+        assert np_params["decoder"]["conv_1"]["w"].shape == (3, 16 + 40, 32)
+        load_jax_params(ConvVQVAE.from_config(cfg), np_params, np_state)

@@ -22,6 +22,7 @@ for the fused chain under ``"chains"``. ``numpy_gaussian_wavenet_params``,
 in the JAX layout that both packages load.
 """
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,6 +32,7 @@ from vqvae_speech_tpu_torch.models.clarinet import (
     StudentConfig,
 )
 from vqvae_speech_tpu_torch.models.conv_vqvae import ConvVQVAE, feature_channels
+from vqvae_speech_tpu_torch.models.decoder import GIN_CHANNELS
 from vqvae_speech_tpu_torch.models.flowavenet.model import (
     CouplingNetConfig,
     FlowavenetConfig,
@@ -98,13 +100,149 @@ def load_jax_params(model: ConvVQVAE, params: dict, state: dict) -> ConvVQVAE:
     _load_encoder(model.encoder, params["encoder"])
     _load_conv(model.pre_vq_conv, params["pre_vq_conv"])
     dec = params["decoder"]
+    if (model.decoder.speaker_embedding is None) != (
+            "speaker_embedding" not in dec):
+        raise ValueError("speaker-conditioning mismatch between config and "
+                         "params")
     if "speaker_embedding" in dec:
-        raise NotImplementedError("speaker conditioning is not ported yet")
+        _copy(model.decoder.speaker_embedding.table,
+              dec["speaker_embedding"]["table"])
     for name in ("conv_1", "conv_trans_1", "conv_trans_2", "conv_trans_3"):
         _load_conv(getattr(model.decoder, name), dec[name])
     _load_stack(model.decoder.residual_stack, dec["residual_stack"])
     _load_vq(model.vq, params, state)
+    if (model.revival_usage is None) != ("revival" not in state):
+        raise ValueError("codebook_revival mismatch between config and state")
+    if "revival" in state:
+        _copy(model.revival_usage, state["revival"]["usage"])
     return model
+
+
+# -------------------- back to the JAX layout --------------------
+
+
+class ParamLeaf(NamedTuple):
+    path: tuple           # the leaf's keys in the JAX param tree
+    tensor: torch.Tensor  # the port's parameter
+    is_kernel: bool       # a conv kernel: JAX layout is transpose(2, 1, 0)
+
+
+def _conv_leaves(path, module):
+    if module.use_weight_norm:
+        yield ParamLeaf(path + ("v",), module.v, True)
+        yield ParamLeaf(path + ("g",), module.g, False)
+    else:
+        yield ParamLeaf(path + ("w",), module.weight, True)
+    if module.bias is not None:
+        yield ParamLeaf(path + ("b",), module.bias, False)
+
+
+def _stack_leaves(path, stack):
+    yield from _conv_leaves(path + ("block", "conv1"), stack.block.conv1)
+    yield from _conv_leaves(path + ("block", "conv2"), stack.block.conv2)
+
+
+def jax_param_leaves(model: ConvVQVAE) -> list:
+    """Every parameter of ``model`` with its place in the JAX package's
+    ``conv_vqvae_init`` param tree, in JAX's flatten order (sorted keys): the
+    map that checkpoint writing, optimizer-state conversion and the gradient
+    statistics' layer names all go through."""
+    leaves = []
+    for name in ("conv_1", "conv_2", "conv_3", "conv_4", "conv_5"):
+        leaves += _conv_leaves(("encoder", name), getattr(model.encoder, name))
+    leaves += _stack_leaves(("encoder", "residual_stack"),
+                            model.encoder.residual_stack)
+    leaves += _conv_leaves(("pre_vq_conv",), model.pre_vq_conv)
+    if not model.vq.ema:
+        leaves.append(ParamLeaf(("vq", "codebook"), model.vq.codebook, False))
+    dec = model.decoder
+    for name in ("conv_1", "conv_trans_1", "conv_trans_2", "conv_trans_3"):
+        leaves += _conv_leaves(("decoder", name), getattr(dec, name))
+    leaves += _stack_leaves(("decoder", "residual_stack"), dec.residual_stack)
+    if dec.speaker_embedding is not None:
+        leaves.append(ParamLeaf(("decoder", "speaker_embedding", "table"),
+                                dec.speaker_embedding.table, False))
+    if len(leaves) != len(list(model.parameters())):
+        raise AssertionError("a parameter of the model has no place in the "
+                             "JAX param tree")
+    return sorted(leaves, key=lambda leaf: leaf.path)
+
+
+def nest_by_path(items) -> dict:
+    """(path, value) pairs -> nested dicts keyed by the paths' parts."""
+    tree = {}
+    for path, value in items:
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return tree
+
+
+def _to_jax_layout(leaf: ParamLeaf, value: torch.Tensor) -> np.ndarray:
+    a = value.detach().cpu().numpy()
+    return np.ascontiguousarray(a.transpose(2, 1, 0)) if leaf.is_kernel \
+        else a.copy()
+
+
+def export_jax_params(model: ConvVQVAE):
+    """The inverse of ``load_jax_params``: ``(params, model_state)`` as
+    nested dicts of numpy arrays in the JAX tree's names and layouts
+    ((K, Cin, Cout) kernels, weight-norm ``v``/``g``, the EMA state under
+    ``model_state["vq"]``, ``revival.usage``)."""
+    params = nest_by_path((leaf.path, _to_jax_layout(leaf, leaf.tensor))
+                          for leaf in jax_param_leaves(model))
+    params.setdefault("vq", {})
+    state = {"vq": {k: v.detach().cpu().numpy().copy()
+                    for k, v in model.vq.ema_state().items()}
+             if model.vq.ema else {}}
+    if model.revival_usage is not None:
+        state["revival"] = {
+            "usage": model.revival_usage.detach().cpu().numpy().copy()}
+    return params, state
+
+
+def _moment_index(model: ConvVQVAE) -> dict:
+    """id(parameter) -> its position in ``list(model.parameters())``, the
+    order of the optimizer's moment lists."""
+    return {id(p): i for i, p in enumerate(model.parameters())}
+
+
+def export_jax_opt_state(model: ConvVQVAE, opt_state):
+    """The optimizer's state as ``optax.amsgrad`` lays it out, in plain
+    tuples of numpy arrays: ``((count, mu, nu, nu_max), ())``, each moment a
+    tree shaped like ``params`` with every leaf transposed as its weight is.
+    (The port imports no optax, so it writes no optax NamedTuples; the
+    leaves flatten in the same order.)"""
+    at = _moment_index(model)
+    leaves = jax_param_leaves(model)
+
+    def tree(moments):
+        out = nest_by_path(
+            (leaf.path, _to_jax_layout(leaf, moments[at[id(leaf.tensor)]]))
+            for leaf in leaves)
+        out.setdefault("vq", {})
+        return out
+
+    return ((np.asarray(opt_state.count, np.int32), tree(opt_state.mu),
+             tree(opt_state.nu), tree(opt_state.nu_max)), ())
+
+
+def load_jax_opt_state(model: ConvVQVAE, opt_state, into) -> None:
+    """Copy an ``optax.amsgrad`` state, as the checkpoint reader returns it
+    (nested tuples ``((count, mu, nu, nu_max), ...)`` of param-shaped trees),
+    into the port's ``AmsgradState`` ``into``, in place."""
+    (count, mu, nu, nu_max), *_ = opt_state
+    at = _moment_index(model)
+    into.count = int(np.asarray(count))
+    for leaf in jax_param_leaves(model):
+        for src, dst in ((mu, into.mu), (nu, into.nu), (nu_max, into.nu_max)):
+            value = src
+            for key in leaf.path:
+                value = value[key]
+            value = np.asarray(value)
+            _copy(dst[at[id(leaf.tensor)]],
+                  value.transpose(2, 1, 0) if leaf.is_kernel else value)
 
 
 def load_wavenet_params(module: WaveNet, tree: dict) -> WaveNet:
@@ -332,13 +470,12 @@ def _vq_tree(rng, config: dict):
 def numpy_params(config: dict, seed: int):
     """Random (params, state) with exactly ``conv_vqvae_init``'s tree
     structure and shapes, made with ``np.random.default_rng(seed)``."""
-    if config["use_speaker_conditioning"]:
-        raise NotImplementedError("speaker conditioning is not ported yet")
     rng = np.random.default_rng(seed)
     wn = config["use_kaiming_normal"]
     hid = config["num_hiddens"]
     K, D = config["num_embeddings"], config["embedding_dim"]
     fin = feature_channels(config, "input")
+    spk = config["use_speaker_conditioning"]
     params = {
         "encoder": {
             "conv_1": _conv(rng, fin, hid, 3, wn=wn),
@@ -351,7 +488,8 @@ def numpy_params(config: dict, seed: int):
         "pre_vq_conv": _conv(rng, hid, D, 3),
         "vq": {},
         "decoder": {
-            "conv_1": _conv(rng, D, hid, 3, wn=wn),
+            "conv_1": _conv(rng, D + (GIN_CHANNELS if spk else 0), hid, 3,
+                            wn=wn),
             "residual_stack": _stack(rng, hid, hid,
                                      config["residual_channels"], wn),
             "conv_trans_1": _conv_t(rng, hid, hid, 3, wn),
@@ -361,6 +499,10 @@ def numpy_params(config: dict, seed: int):
         },
     }
     params["vq"], vq_state = _vq_tree(rng, config)
+    if spk:   # drawn last: the other leaves do not depend on the option
+        params["decoder"]["speaker_embedding"] = {"table": (
+            0.1 * rng.standard_normal((config.get("num_speakers", 0),
+                                       GIN_CHANNELS))).astype(np.float32)}
     state = {"vq": vq_state}
     if config.get("codebook_revival", False):
         state["revival"] = {"usage": np.full((K,), 1.0 / K, np.float32)}

@@ -2,10 +2,12 @@
 
 Counterpart of ``vqvae_speech_tpu/models/conv_vqvae.py`` (reference
 src/models/convolutional_vq_vae.py). ``encode`` is ``conv_vqvae_encode`` and
-``forward`` is ``conv_vqvae_apply`` without training-time jitter; both take
-(B, T, C_in) features and return latents in (B, T', D).
+``forward`` is ``conv_vqvae_apply``, training-time jitter and speaker
+conditioning included; both take (B, T, C_in) features and return latents in
+(B, T', D). With ``codebook_revival`` the module also holds the revival
+extension's usage EMA (``revival_usage``, the JAX ``state["revival"]``).
 """
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -16,17 +18,31 @@ from vqvae_speech_tpu_torch.models.vq import VectorQuantizer, VQOutput
 from vqvae_speech_tpu_torch.nn import Conv1d
 
 
-class ConvVQVAEOutput(NamedTuple):
-    reconstructed_x: torch.Tensor  # (B, T, C_out) trimmed to input length
-    vq_loss: torch.Tensor
-    losses: dict
-    perplexity: torch.Tensor
-    encoding_indices: torch.Tensor  # (N, 1) reference-layout flat indices
-    quantized: torch.Tensor         # (B, T', D) straight-through latents
-    encodings: torch.Tensor         # (B, T', K)
-    distances: torch.Tensor         # (B, T', K)
-    new_state: dict                 # {"vq": EMA state or {}}
-    pre_vq_latents: torch.Tensor    # (B, T', D), detached
+class ConvVQVAEOutput:
+    """What one forward returns; the JAX package's field names. ``encodings``
+    and ``distances`` (B, T', K) are the quantizer's, built when first read
+    (``models.vq.VQOutput``)."""
+
+    def __init__(self, reconstructed_x, vq_out: VQOutput, new_state,
+                 pre_vq_latents):
+        self.reconstructed_x = reconstructed_x   # (B, T, C_out), input length
+        self.vq_loss = vq_out.vq_loss
+        self.losses = vq_out.losses
+        self.perplexity = vq_out.perplexity
+        self.encoding_indices = vq_out.indices   # (N, 1) reference layout
+        self.quantized = vq_out.quantized        # (B, T', D) straight-through
+        self.counts = vq_out.counts              # (K,) rows per code
+        self.new_state = new_state               # {"vq": ..., ["revival"]}
+        self.pre_vq_latents = pre_vq_latents     # (B, T', D), detached
+        self._vq_out = vq_out
+
+    @property
+    def encodings(self) -> torch.Tensor:
+        return self._vq_out.encodings
+
+    @property
+    def distances(self) -> torch.Tensor:
+        return self._vq_out.distances
 
 
 def feature_channels(config: dict, prefix: str) -> int:
@@ -56,7 +72,13 @@ class ConvVQVAE(nn.Module):
             D, feature_channels(config, "output"), hid, n_res,
             config["residual_channels"], wn,
             config["use_speaker_conditioning"], config["use_jitter"],
-            generator)
+            generator, num_speakers=config.get("num_speakers", 0),
+            jitter_probability=config["jitter_probability"])
+        if config.get("codebook_revival", False):
+            K = config["num_embeddings"]
+            self.register_buffer("revival_usage", torch.full((K,), 1.0 / K))
+        else:
+            self.revival_usage = None
 
     @classmethod
     def from_config(cls, config: dict,
@@ -71,22 +93,27 @@ class ConvVQVAE(nn.Module):
         """Encoder + pre-VQ + VQ (``conv_vqvae_encode``)."""
         return self.vq(self.latents(x_btc))
 
-    def forward(self, x_btc: torch.Tensor) -> ConvVQVAEOutput:
+    def forward(self, x_btc: torch.Tensor, speaker_ids=None, *,
+                jitter_masks=None,
+                jitter_generator: Optional[torch.Generator] = None
+                ) -> ConvVQVAEOutput:
         """Full forward (``conv_vqvae_apply``); the output is trimmed back to
-        the input frame count (reference convolutional_vq_vae.py:133-137)."""
+        the input frame count (reference convolutional_vq_vae.py:133-137).
+
+        In training, a ``use_jitter`` model jitters the quantized latents with
+        ``jitter_masks`` = (replace, direction) when given and with draws from
+        ``jitter_generator`` otherwise; the config's
+        ``jitter_gradient_detach`` (default True, PARITY #34) picks the
+        replaced frames' gradient semantics."""
         z = self.latents(x_btc)
         vq_out = self.vq(z)
-        recon = self.decoder(vq_out.quantized.transpose(1, 2))
+        recon = self.decoder(
+            vq_out.quantized.transpose(1, 2), speaker_ids,
+            jitter_masks=jitter_masks, jitter_generator=jitter_generator,
+            jitter_detach=self.config.get("jitter_gradient_detach", True))
         recon = recon[:, :, :x_btc.shape[1]].transpose(1, 2)
-        return ConvVQVAEOutput(
-            reconstructed_x=recon,
-            vq_loss=vq_out.vq_loss,
-            losses=vq_out.losses,
-            perplexity=vq_out.perplexity,
-            encoding_indices=vq_out.indices,
-            quantized=vq_out.quantized,
-            encodings=vq_out.encodings,
-            distances=vq_out.distances,
-            new_state={"vq": vq_out.new_state or {}},
-            pre_vq_latents=z.detach().transpose(1, 2),
-        )
+        new_state = {"vq": vq_out.new_state or {}}
+        if self.revival_usage is not None:
+            new_state["revival"] = {"usage": self.revival_usage}
+        return ConvVQVAEOutput(recon, vq_out, new_state,
+                               z.detach().transpose(1, 2))

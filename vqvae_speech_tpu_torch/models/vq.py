@@ -10,13 +10,18 @@ src/models/vector_quantizer.py and vector_quantizer_ema.py):
 * EMA variant (``decay > 0``): in training, the Laplace-smoothed cluster-size
   EMA and the dw EMA are applied BEFORE the quantized output is produced, and
   the quantized rows come from the UPDATED codebook (PARITY #2); the codebook
-  and EMA statistics are buffers, updated in place,
+  and EMA statistics are buffers, and an update REPLACES them with new
+  tensors, so a ``new_state`` handed out by one call is not changed by the
+  next (the JAX package returns fresh arrays),
 * perplexity = exp(entropy of code usage), from the kernel's counts / N.
 
 Input is (B, C, T); the returned VQOutput keeps the JAX package's layouts:
 quantized (B, T, C), encodings and distances (B, T', K), indices (N, 1).
+A forward builds no (N, K) tensor of its own: ``encodings`` and ``distances``
+are computed when first read (eager PyTorch drops no dead code, and a train
+step reads neither).
 """
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -30,15 +35,52 @@ from vqvae_speech_tpu_torch.ops.vq import (
 )
 
 
-class VQOutput(NamedTuple):
-    vq_loss: torch.Tensor       # scalar loss to add to the objective
-    quantized: torch.Tensor     # (B, T, C) straight-through quantized latents
-    perplexity: torch.Tensor    # scalar exp-entropy of code usage
-    encodings: torch.Tensor     # (B, T', K) one-hot in reference layout
-    distances: torch.Tensor     # (B, T', K) distances, pre-update codebook
-    indices: torch.Tensor       # (N, 1) int32 flat indices (reference layout)
-    losses: dict                # per-term scalars
-    new_state: Optional[dict]   # EMA state after this call (None: gradient)
+class VQOutput:
+    """What one quantizer call returns; the JAX package's field names.
+
+    ``encodings`` (B, T', K) one-hot and ``distances`` (B, T', K), the latter
+    against the codebook the search saw (pre-update, PARITY #2), are built on
+    first read from the call's own latents and codebook and then kept. The
+    codebook is not cloned, so ``distances`` must be read before anything
+    writes into it in place (an optimizer step on the gradient variant's
+    parameter, a revival): a first read after such a write raises.
+    """
+
+    def __init__(self, *, vq_loss, quantized, perplexity, indices, losses,
+                 new_state, counts, flat, codebook, batch_time):
+        self.vq_loss = vq_loss          # scalar loss to add to the objective
+        self.quantized = quantized      # (B, T, C) straight-through latents
+        self.perplexity = perplexity    # scalar exp-entropy of code usage
+        self.indices = indices          # (N, 1) int32 flat indices
+        self.losses = losses            # per-term scalars
+        self.new_state = new_state      # EMA state after this call, or None
+        self.counts = counts            # (K,) rows per code in this call
+        self._flat = flat
+        self._codebook = codebook
+        self._codebook_version = codebook._version
+        self._batch_time = batch_time
+        self._encodings = self._distances = None
+
+    @property
+    def encodings(self) -> torch.Tensor:
+        if self._encodings is None:
+            onehot = F.one_hot(self.indices[:, 0].long(),
+                               self._codebook.shape[0])
+            self._encodings = onehot.to(self._flat.dtype).reshape(
+                *self._batch_time, -1)
+        return self._encodings
+
+    @property
+    def distances(self) -> torch.Tensor:
+        if self._distances is None:
+            if self._codebook._version != self._codebook_version:
+                raise RuntimeError(
+                    "VQOutput.distances was first read after the codebook "
+                    "this call searched was changed in place (an optimizer "
+                    "step or a revival); read it before the update")
+            self._distances = vq_distances(
+                self._flat, self._codebook).reshape(*self._batch_time, -1)
+        return self._distances
 
 
 class VectorQuantizer(nn.Module):
@@ -64,34 +106,38 @@ class VectorQuantizer(nn.Module):
                 torch.empty(K, D).uniform_(-1.0 / K, 1.0 / K,
                                            generator=generator))
 
+    def ema_state(self) -> dict:
+        """The EMA variant's buffers, as the JAX package's ``state["vq"]``."""
+        return {"codebook": self.codebook,
+                "ema_cluster_size": self.ema_cluster_size,
+                "ema_w": self.ema_w}
+
     def _ema_update(self, counts: torch.Tensor, dw: torch.Tensor) -> None:
+        """New buffers in place of the old ones: tensors handed out earlier
+        (a ``new_state``, a pending ``distances``) keep their values."""
         K = self.codebook.shape[0]
         decay, eps = self.decay, self.epsilon
         cluster = self.ema_cluster_size * decay + (1 - decay) * counts
         n = cluster.sum()
         cluster = (cluster + eps) / (n + K * eps) * n
         ema_w = self.ema_w * decay + (1 - decay) * dw
-        self.ema_cluster_size.copy_(cluster)
-        self.ema_w.copy_(ema_w)
-        self.codebook.copy_(ema_w / cluster[:, None])
+        self.ema_cluster_size = cluster
+        self.ema_w = ema_w
+        self.codebook = ema_w / cluster[:, None]
 
     def forward(self, z_bct: torch.Tensor) -> VQOutput:
         B, C, T = z_bct.shape
-        K, D = self.codebook.shape
-        pre_update_codebook = self.codebook.detach().clone() if self.ema \
-            else self.codebook
+        D = self.codebook.shape[1]
+        searched_codebook = self.codebook.detach()
         flat = reference_flatten(z_bct, D)
         res = vq_search(flat, self.codebook)
-        onehot = F.one_hot(res.indices.long(), K).to(flat.dtype)
 
         new_state = None
         if self.ema:
             if self.training:
                 with torch.no_grad():
                     self._ema_update(res.counts, res.dw)
-            new_state = {"codebook": self.codebook,
-                         "ema_cluster_size": self.ema_cluster_size,
-                         "ema_w": self.ema_w}
+            new_state = self.ema_state()
             # quantize with the (possibly updated) codebook; a row gather is
             # exactly onehot @ codebook
             quant_flat = self.codebook[res.indices.long()]
@@ -115,14 +161,15 @@ class VectorQuantizer(nn.Module):
         avg_probs = res.counts.to(flat.dtype) / flat.shape[0]
         perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
 
-        distances = vq_distances(flat, pre_update_codebook).reshape(B, T, -1)
         return VQOutput(
             vq_loss=vq_loss,
             quantized=quantized_st.transpose(1, 2),
             perplexity=perplexity,
-            encodings=onehot.reshape(B, T, -1),
-            distances=distances,
             indices=res.indices[:, None],
             losses=losses,
             new_state=new_state,
+            counts=res.counts,
+            flat=flat.detach(),
+            codebook=searched_codebook,
+            batch_time=(B, T),
         )

@@ -73,16 +73,40 @@ def _library(name: str, bind) -> ctypes.CDLL:
 
 
 def _bind_vq_search(lib: ctypes.CDLL) -> None:
-    lib.vq_search_smem_bytes.argtypes = [ctypes.c_int]
-    lib.vq_search_smem_bytes.restype = ctypes.c_size_t
     ptr = ctypes.c_void_p
-    # z, codebook, N, K, D, idx, q, counts, dw, stream
+    # N, K, D, *out (5 int64)
+    lib.vq_search_plan.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                                   ctypes.POINTER(ctypes.c_int64)]
+    lib.vq_search_plan.restype = ctypes.c_int
+    # z, codebook, N, K, D, idx, q, counts, dw, scratch, stream
     lib.vq_search_f32.argtypes = [ptr, ptr, ctypes.c_int64, ctypes.c_int,
-                                  ctypes.c_int, ptr, ptr, ptr, ptr, ptr]
+                                  ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr]
     lib.vq_search_f32.restype = ctypes.c_int
 
 
-_MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
+_VQ_PLAN_FIELDS = ("fused", "device_kernels", "blocks", "smem_bytes",
+                   "scratch_floats")
+_vq_plans = {}     # (device index, N, K, D) -> plan dict
+
+
+def vq_search_plan(N: int, K: int, D: int, device) -> dict:
+    """How csrc/vq_search.cu will run a search of this shape on ``device``:
+    ``fused`` (one launch with the statistics, by the rule on (K, D) in the
+    source header), ``device_kernels`` a search (1 or 2), the persistent
+    grid's ``blocks``, ``smem_bytes`` a block and ``scratch_floats``. Raises
+    when no block can hold the embedding width."""
+    device = torch.device(device)
+    key = (device.index, N, K, D)
+    plan = _vq_plans.get(key)
+    if plan is None:
+        lib = _library("vq_search", _bind_vq_search)
+        out = (ctypes.c_int64 * len(_VQ_PLAN_FIELDS))()
+        with torch.cuda.device(device):
+            if lib.vq_search_plan(N, K, D, out):
+                raise ValueError(f"vq_search_cuda: embedding_dim {D} too wide "
+                                 "for one block's shared memory")
+        plan = _vq_plans[key] = dict(zip(_VQ_PLAN_FIELDS, out))
+    return plan
 
 
 def vq_search_cuda(flat: torch.Tensor, codebook: torch.Tensor):
@@ -90,6 +114,10 @@ def vq_search_cuda(flat: torch.Tensor, codebook: torch.Tensor):
 
     flat (N, D), codebook (K, D) -> (indices (N,) int32, quantized (N, D),
     counts (K,), dw (K, D)), all f32 except the indices.
+
+    Outputs and the kernel's scratch (the blocks' partial statistics) come
+    from ``torch.empty`` on the current stream: no host sync, nothing to
+    initialise, and the caching allocator keeps two streams' launches apart.
     """
     for name, t in (("flat", flat), ("codebook", codebook)):
         if not t.is_cuda:
@@ -110,20 +138,24 @@ def vq_search_cuda(flat: torch.Tensor, codebook: torch.Tensor):
                          f" codebook {tuple(codebook.shape)}")
     if N >= 1 << 24:
         raise ValueError("vq_search_cuda: counts are exact only below 2^24 rows")
-    lib = _library("vq_search", _bind_vq_search)
-    if lib.vq_search_smem_bytes(D) > _MAX_SMEM:
-        raise ValueError(f"vq_search_cuda: embedding_dim {D} too wide for one "
-                         "block's shared memory")
+    if D == 64 and codebook.data_ptr() % 16:
+        raise ValueError("vq_search_cuda: a 64-wide codebook is copied in "
+                         "16-byte pieces and must be 16-byte aligned")
     dev = flat.device
+    plan = vq_search_plan(N, K, D, dev)
+    lib = _library("vq_search", _bind_vq_search)
     idx = torch.empty((N,), dtype=torch.int32, device=dev)
     q = torch.empty((N, D), dtype=torch.float32, device=dev)
     counts = torch.empty((K,), dtype=torch.float32, device=dev)
     dw = torch.empty((K, D), dtype=torch.float32, device=dev)
+    scratch = torch.empty((plan["scratch_floats"],), dtype=torch.float32,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vq_search_f32(flat.data_ptr(), codebook.data_ptr(), N, K, D,
                                 idx.data_ptr(), q.data_ptr(),
-                                counts.data_ptr(), dw.data_ptr(), stream)
+                                counts.data_ptr(), dw.data_ptr(),
+                                scratch.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"vq_search_cuda: launch failed with CUDA error {err}")
     vq_search_cuda.launches += 1

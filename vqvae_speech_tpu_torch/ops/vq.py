@@ -15,7 +15,10 @@ of the Pallas ``_vq_kernel``), a CPU tensor to the plain chain. It is
 differentiable through ``VQSearchFunction``, whose backward is the JAX
 package's ``_vq_vjp_bwd``: the argmin is piecewise constant, so
 ``g_codebook = onehot^T @ g_quantized`` and ``g_flat = onehot @ g_dw``, both
-rebuilt from the saved indices.
+rebuilt from the saved indices. That backward is plain array code in the JAX
+package too (no kernel); here each product is computed only when its incoming
+gradient exists and its input wants one, and ``onehot @ g_dw`` is the row
+gather ``g_dw[indices]`` (the same values: one term a row).
 
 **Flatten semantics.** The reference flattens its (B, C, T) input with
 ``permute(1, 2, 0).contiguous().view(-1, D)`` (PARITY #1): rows of the
@@ -78,14 +81,22 @@ class VQSearchFunction(torch.autograd.Function):
         ctx.save_for_backward(res.indices)
         ctx.num_embeddings = codebook.shape[0]
         ctx.mark_non_differentiable(res.indices, res.counts)
+        # an output nobody differentiated arrives in backward as None, not
+        # as a tensor of zeros
+        ctx.set_materialize_grads(False)
         return tuple(res)
 
     @staticmethod
     def backward(ctx, g_idx, g_q, g_counts, g_dw):
         (idx,) = ctx.saved_tensors
-        onehot = F.one_hot(idx.long(), ctx.num_embeddings).to(g_q.dtype)
-        # quantized = onehot @ codebook, dw = onehot^T @ flat (argmin fixed)
-        return onehot @ g_dw, onehot.t() @ g_q
+        g_flat = g_codebook = None
+        # dw = onehot^T @ flat and quantized = onehot @ codebook, argmin fixed
+        if g_dw is not None and ctx.needs_input_grad[0]:
+            g_flat = g_dw[idx.long()]
+        if g_q is not None and ctx.needs_input_grad[1]:
+            onehot = F.one_hot(idx.long(), ctx.num_embeddings).to(g_q.dtype)
+            g_codebook = onehot.t() @ g_q
+        return g_flat, g_codebook
 
 
 def vq_search(flat: torch.Tensor, codebook: torch.Tensor) -> VQSearchResult:
