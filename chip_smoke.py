@@ -423,36 +423,19 @@ def _per_launch_ms(fn, launches=100, warmup=3):
     return start.elapsed_time(end) / launches
 
 
-def _profiled(fn):
-    """``fn`` under torch.profiler's CUDA activity: (host seconds of the
-    window, the events that show device time). A window now and then comes
-    back with no device event at all (seen about once in three runs around
-    one short launch); it is taken again, up to three times, and a profiler
-    that still shows nothing on the card raises: every count, share and
-    device time printed from it is a measurement, never a blank."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _device_profile(fn, kernel=None, launches=None):
+    """(host seconds of ``fn``, {kernel name: device microseconds}) from
+    torch.profiler, through the port's guard against lost device events
+    (utils/profiling.py), which raises rather than return a blank. Where
+    ``kernel`` is given, a window counts only if it shows ``launches()``
+    kernels whose name holds ``kernel``. ``fn`` may run more than once."""
+    from vqvae_speech_tpu_torch.utils.profiling import device_events
 
-    for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            window = time.perf_counter() - t0
-        events = [e for e in prof.key_averages()
-                  if e.self_device_time_total > 0]
-        if events:
-            return window, events
-    raise AssertionError("torch.profiler showed nothing on the card in "
-                         "three windows")
+    def check(events):
+        return sum(e.count for e in events if kernel in e.key) == launches()
 
-
-def _device_profile(fn):
-    """(host seconds of the window, {kernel name: device microseconds})
-    of ``fn`` under the profiler. ``fn`` may run more than once."""
-    window, events = _profiled(fn)
-    return window, {e.key: e.self_device_time_total for e in events}
+    window, events = device_events(fn, check=check if kernel else None)
+    return window, {e.key: e.us for e in events}
 
 
 def _median_seconds(fn, repeats=3):
@@ -606,7 +589,8 @@ def slice_phase(gpu):
         _kernels.vq_search_cuda.launches = 0
         server.encode(load)
 
-    _, busy_us = _device_profile(encode_once)
+    _, busy_us = _device_profile(
+        encode_once, "vq_", lambda: _kernels.vq_search_cuda.launches)
     n = _kernels.vq_search_cuda.launches
     vq_us = {k: v for k, v in busy_us.items() if "vq_" in k}
     if not vq_us or not n:
@@ -780,7 +764,8 @@ def train_phase(gpu):
         n_prof = 10
         before = _kernels.vq_search_cuda.launches
         window, busy_us = _device_profile(
-            lambda: [step(state, batch) for _ in range(n_prof)])
+            lambda: [step(state, batch) for _ in range(n_prof)],
+            "vq_", lambda: n_prof)
         total_launches += _kernels.vq_search_cuda.launches - before
         total_us = sum(busy_us.values())
 
@@ -846,8 +831,10 @@ def train_phase(gpu):
 
 def _device_kernel_counts(fn):
     """{name: launches} of everything that ran on the device (kernels,
-    memsets, copies) while ``fn`` ran once, from torch.profiler."""
-    return {e.key: e.count for e in _profiled(fn)[1]}
+    memsets, copies) in one call of ``fn``, from torch.profiler."""
+    from vqvae_speech_tpu_torch.utils.profiling import device_events
+
+    return {e.key: e.count for e in device_events(fn)[1]}
 
 
 def _us(row):
@@ -981,7 +968,8 @@ def step_kernel_phase(gpu):
             ms = _per_launch_ms(lambda: step(x0, taps, cond))
             # the kernel's own time on the device, without launch gaps
             _, busy_us = _device_profile(
-                lambda: [step(x0, taps, cond) for _ in range(20)])
+                lambda: [step(x0, taps, cond) for _ in range(20)],
+                "step_kernel", lambda: 20)
             device = f"{sum(busy_us.values()) / 20 / 1e3:.4f} ms a launch"
             plain_ms = _per_launch_ms(
                 lambda: glu_stack_step_torch(legacy=legacy, **args))
@@ -1201,8 +1189,13 @@ def synthesis_phase(gpu):
     # device busy and idle share over one synthesize (bucket 12)
     bucket = SYNTH_BUCKETS[0]
     idx = per_bucket[bucket]
-    window, busy_us = _device_profile(lambda: server.synthesize(
-        [lcs[i] for i in idx], [speakers[i] for i in idx]))
+    def synthesize_once():
+        _kernels.wavenet_step_cuda.launches = 0
+        server.synthesize([lcs[i] for i in idx], [speakers[i] for i in idx])
+
+    window, busy_us = _device_profile(
+        synthesize_once, "step_kernel",
+        lambda: _kernels.wavenet_step_cuda.launches)
     total_us = sum(busy_us.values())
     kernel_us = sum(v for k, v in busy_us.items() if "step_kernel" in k)
     print(f"synthesis profile (bucket {bucket}, torch.profiler CUDA "

@@ -43,16 +43,10 @@ def _event_ms(fn, n=200):
 
 
 def _device_ms(fn, n=200):
-    from torch.profiler import ProfilerActivity, profile
+    from vqvae_speech_tpu_torch.utils.profiling import device_events
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    return sum(r[1] for r in rows) / n / 1e3, rows
+    _, rows = device_events(lambda: [fn() for _ in range(n)])
+    return sum(r.us for r in rows) / n / 1e3, rows
 
 
 PHASES = ("codebook staged", "first tile in shared memory",
