@@ -29,6 +29,23 @@
    the card against the same step on the CPU; reports ms a step, steps/s
    and, from torch.profiler, the device's idle share and the shares of the
    VQ kernel, the convolutions forward and backward and the optimizer.
+   Experiment phase (right after it): the flagship's training loop through
+   the port's CLI (python -m vqvae_speech_tpu_torch.main) in a temporary
+   directory with configurations/ and data/vctk/raw linked in: export of
+   the tracked VCTK subset (400 wavs, 320 / 80 split) to the feature store,
+   its normalizer, then the jitter12 experiment of
+   configurations/experiments_vq44-mfcc39.json at full width and batch 2
+   with num_epochs cut to 2, and a resume to epoch 3 after raising
+   num_epochs in the frozen config. Checks the store's shapes and counts,
+   the checkpoints, the optimizer count, finite losses and a falling mean
+   reconstruction loss. In process, on the same store, one epoch through
+   Experiment.build_trainer(device="cuda"): the trainer turns cuDNN's TF32
+   off (the configuration's f32), one VQ kernel launch a step,
+   every prefetched batch bit-equal to the loader's, seconds an epoch,
+   steps/s, ms a step beside the bare step's, the device's idle share from
+   torch.profiler; then the epoch-3 checkpoint and the normalizer in
+   BucketedEncodeServer encode the val split, codes against the plain
+   search on the server's own latents.
 4. Decode-step kernel phase: holds glu_stack_step against its plain
    PyTorch chain at the vctk_wavenet width (20 layers, k=3, C=G=768,
    S=256) for batch 1, 8 and 32 with and without the legacy skip scaling,
@@ -81,9 +98,9 @@ Imports nothing of JAX.
 
     python3 chip_smoke.py --phases step_kernel,synthesis
 
-runs only the named phases (kernel, slice, train, step_kernel, synthesis,
-chain_kernel, vocoder), for work on one kernel; such a run prints neither
-of the two JSON lines.
+runs only the named phases (kernel, slice, train, experiment, step_kernel,
+synthesis, chain_kernel, vocoder), for work on one kernel or slice; such a
+run prints neither of the two JSON lines.
 """
 import concurrent.futures
 import json
@@ -135,11 +152,12 @@ GOLDEN = os.path.join(REPO_ROOT, "tests", "data",
 # (N, K) at D=64: N=1536, 3072 and 6144 are the server's launches (64 waves
 # x 24, 48 and 96 latent rows at the 7680, 15360 and 30720 buckets), 24576
 # is bench.py's batch 1024 x 24 rows, K=1000 the largest codebook of
-# configurations/experiments_mfcc39-codebook_sizes.json; N=12 and 24 at
-# K=29 are the synthesis slice's local_conditioning (one item of 12 or 24
-# latent frames against the vctk_wavenet codebook)
-KERNEL_SHAPES = ((1, 44), (1000, 44), (1536, 44), (3072, 44), (6144, 44),
-                 (24576, 44), (1536, 1000), (12, 29), (24, 29))
+# configurations/experiments_mfcc39-codebook_sizes.json; N=48 at K=44 is
+# the training loop's (jitter12 at batch 2 x 24 latent rows, once a step);
+# N=12 and 24 at K=29 are the synthesis slice's local_conditioning (one item
+# of 12 or 24 latent frames against the vctk_wavenet codebook)
+KERNEL_SHAPES = ((1, 44), (48, 44), (1000, 44), (1536, 44), (3072, 44),
+                 (6144, 44), (24576, 44), (1536, 1000), (12, 29), (24, 29))
 TIMED_SHAPE = (1536, 44)
 # the train phase: the jitter12 experiment of
 # configurations/experiments_vq44-mfcc39.json at the largest batch of
@@ -700,7 +718,7 @@ def _search_against_plain(model, batch):
 
 def train_phase(gpu):
     """The flagship train step on the card; returns (kernel launches, the VQ
-    kernel's device ms a launch or None)."""
+    kernel's device ms a launch, the gradient VQ's ms a step)."""
     import torch
     from vqvae_speech_tpu_torch.nn import jitter_masks
     from vqvae_speech_tpu_torch.ops import _kernels
@@ -711,7 +729,7 @@ def train_phase(gpu):
     shape = tuple(batch["input_features"].shape)
     if shape != (TRAIN_BATCH, 47, 39):
         raise AssertionError(f"train batch shape {shape}")
-    total_launches, vq_device_ms = 0, None
+    total_launches, vq_device_ms, step_ms = 0, None, {}
     for name, config in (("gradient VQ", base),
                          ("EMA VQ", dict(base, decay=0.99))):
         state, step = _train_setup(config, "cuda")
@@ -729,6 +747,7 @@ def train_phase(gpu):
             recons.append(metrics["reconstruction_loss"])
         torch.cuda.synchronize()
         sec = (time.perf_counter() - t0) / TRAIN_STEPS
+        step_ms[name] = sec * 1e3
         launches = _kernels.vq_search_cuda.launches - before
         total_launches += launches
         if launches != TRAIN_WARMUP + TRAIN_STEPS:
@@ -826,7 +845,320 @@ def train_phase(gpu):
           f"weights, batch, jitter masks): loss {loss_gpu:.6f} vs "
           f"{loss_cpu:.6f}, updated codebook within {cb_err:.2e} (limits "
           f"{TRAIN_LOSS_RTOL} relative, {TRAIN_CODEBOOK_ATOL})")
-    return total_launches, vq_device_ms
+    return total_launches, vq_device_ms, step_ms["gradient VQ"]
+
+
+# the experiment phase: the flagship run of the CLI's default mode,
+# configurations/experiments_vq44-mfcc39.json's "jitter12" experiment
+# unchanged (768 hidden, K=44, D=64, batch 2, normalize, jitter 0.12, the
+# gradient VQ, learning rate 2e-4 from configurations/vctk_features.yaml)
+# except num_epochs, cut from 15 to 2, then raised to 3 in the frozen config
+# for the resume; on the tracked VCTK subset (quality_parity/raw, 400 wavs,
+# a 0.8 split: 320 train utterances, 160 steps an epoch at batch 2)
+EXPERIMENTS_SPEC = os.path.join("configurations", "experiments_vq44-mfcc39.json")
+EXPERIMENT = "jitter12"
+EXPERIMENT_EPOCHS, RESUMED_EPOCHS = 2, 3
+CORPUS_ROOT = os.path.join(REPO_ROOT, "quality_parity", "raw")
+EXPERIMENT_BARE_STEPS = 50
+SERVE_MAX_BATCH = 40
+# the server's normalized MFCCs of the val waves against the exported ones
+# normalized alike: the same f32 pipeline on the card at another batch size
+# (40 waves a launch, 256 in the export), divided by the train std
+SERVE_FEATURE_TOL = 1e-3
+
+
+def _cli(work, *args):
+    """One run of the port's CLI in ``work``; returns (seconds, stdout)."""
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "vqvae_speech_tpu_torch.main", *args],
+        cwd=work, env=env, capture_output=True, text=True, timeout=600)
+    sec = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"experiment: `main {' '.join(args)}` exited "
+                             f"{out.returncode}:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    return sec, out.stdout
+
+
+def _epoch_losses(ckpt):
+    recon = [e["reconstruction_loss"] for e in ckpt["train_res_recon_error"]]
+    total = [e["loss"] for e in ckpt["train_res_recon_error"]]
+    return np.asarray(recon), np.asarray(total)
+
+
+def _experiment_workdir(work):
+    """configurations/ (the base YAML linked, the experiments JSON with
+    jitter12 alone and num_epochs cut) and data/vctk/raw linked to the
+    tracked corpus, as the CLI expects them under its working directory."""
+    with open(os.path.join(REPO_ROOT, EXPERIMENTS_SPEC)) as f:
+        spec = json.load(f)
+    spec["experiments"] = {EXPERIMENT: dict(spec["experiments"][EXPERIMENT],
+                                            num_epochs=EXPERIMENT_EPOCHS)}
+    os.makedirs(os.path.join(work, "configurations"))
+    os.symlink(os.path.join(REPO_ROOT, "configurations", "vctk_features.yaml"),
+               os.path.join(work, "configurations", "vctk_features.yaml"))
+    with open(os.path.join(work, EXPERIMENTS_SPEC), "w") as f:
+        json.dump(spec, f, indent=4)
+    os.makedirs(os.path.join(work, "data", "vctk"))
+    os.symlink(CORPUS_ROOT, os.path.join(work, "data", "vctk", "raw"))
+    return spec
+
+
+def experiment_phase(gpu):
+    """The flagship's training loop through the port's CLI, resumed, then
+    the loop in process and the trained checkpoint served; returns (the VQ
+    kernel's launches on that path, the loop's ms a step without the
+    checkpoint, the bare step's at batch 2)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from vqvae_speech_tpu_torch.data import FeatureStore, load_normalizer
+    from vqvae_speech_tpu_torch.data.export import export_to_features
+    from vqvae_speech_tpu_torch.data.prefetch import prefetch_to_device
+    from vqvae_speech_tpu_torch.data.vctk import VCTK
+    from vqvae_speech_tpu_torch.ops import _kernels, vq_search_torch
+    from vqvae_speech_tpu_torch.serve import BucketedEncodeServer
+    from vqvae_speech_tpu_torch.train import (
+        Experiment,
+        find_checkpoints,
+        freeze_configuration,
+        load_checkpoint,
+        load_configuration,
+        update_configuration_from_experiments,
+    )
+    from vqvae_speech_tpu_torch.utils.profiling import device_events
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_experiment_")
+    here = os.getcwd()
+    try:
+        spec = _experiment_workdir(work)
+        export_sec, _ = _cli(work, "--export_to_features")
+        stats_sec, _ = _cli(work, "--compute_dataset_stats")
+        train_sec, train_out = _cli(work)
+        os.chdir(work)
+        base = update_configuration_from_experiments(
+            EXPERIMENTS_SPEC, load_configuration(os.path.join(
+                "configurations", "vctk_features.yaml")))
+        features = os.path.join("data", "vctk", base["features_path"])
+        store = FeatureStore(features)
+        n = {}
+        for split in ("train", "val"):
+            data = store.open(split)
+            n[split] = data["speaker_ids"].shape[0]
+            for column, shape in (("input_features", (47, 39)),
+                                  ("output_features", (47, 39)),
+                                  ("preprocessed_audio", (7681,))):
+                got = tuple(data[column].shape)
+                if got != (n[split],) + shape:
+                    raise AssertionError(f"experiment: {split}.{column} "
+                                         f"shape {got}")
+        if (n["train"], n["val"]) != (320, 80):
+            raise AssertionError(f"experiment: {n} utterances exported of "
+                                 "the 320 / 80 split")
+        normalizer = load_normalizer(base["normalizer_path"])
+        if normalizer["train_mean"].shape != (39,):
+            raise AssertionError("experiment: normalizer of shape "
+                                 f"{normalizer['train_mean'].shape}")
+        exp_dir = spec["experiments_path"]
+        steps = n["train"] // spec["experiments"][EXPERIMENT]["batch_size"]
+        epochs = [e for e, _ in find_checkpoints(exp_dir, EXPERIMENT)]
+        if epochs != list(range(1, EXPERIMENT_EPOCHS + 1)):
+            raise AssertionError(f"experiment: checkpoints of epochs {epochs}")
+        recon, total = zip(*(
+            _epoch_losses(load_checkpoint(path))
+            for _, path in find_checkpoints(exp_dir, EXPERIMENT)))
+        if not all(np.isfinite(r).all() and np.isfinite(t).all() and
+                   len(r) == steps for r, t in zip(recon, total)):
+            raise AssertionError("experiment: non-finite losses or a loss "
+                                 "list of another length than the epoch")
+        if not recon[1].mean() < recon[0].mean():
+            raise AssertionError(
+                f"experiment: mean reconstruction loss {recon[0].mean():.4f} "
+                f"in epoch 1, {recon[1].mean():.4f} in epoch 2")
+
+        # the resume: num_epochs 3 in the frozen config, the CLI again
+        frozen = os.path.join(exp_dir, f"{EXPERIMENT}_configuration.yaml")
+        freeze_configuration(dict(load_configuration(frozen),
+                                  num_epochs=RESUMED_EPOCHS), exp_dir,
+                             EXPERIMENT)
+        resume_sec, resume_out = _cli(work)
+        found = find_checkpoints(exp_dir, EXPERIMENT)
+        if [e for e, _ in found] != list(range(1, RESUMED_EPOCHS + 1)):
+            raise AssertionError(f"experiment: after the resume, checkpoints "
+                                 f"{[e for e, _ in found]}")
+        last = load_checkpoint(found[-1][1])
+        count = int(np.asarray(last["opt_state"][0][0]))
+        if count != RESUMED_EPOCHS * steps:
+            raise AssertionError(f"experiment: optimizer count {count} after "
+                                 f"{RESUMED_EPOCHS} epochs of {steps} steps")
+        if (f"Epoch {RESUMED_EPOCHS}: loss" not in resume_out
+                or "Epoch 1: loss" in resume_out):
+            raise AssertionError("experiment: the resumed run's log is not "
+                                 f"epoch {RESUMED_EPOCHS}'s alone:\n"
+                                 + resume_out[-2000:])
+        r3, _ = _epoch_losses(last)
+        print(f"experiment: CLI in a fresh directory: export {export_sec:.2f} "
+              f"s ({n['train']} train + {n['val']} val utterances, (N, 47, "
+              f"39) and (N, 7681)), stats {stats_sec:.2f} s, {EXPERIMENT} "
+              f"{EXPERIMENT_EPOCHS} epochs {train_sec:.2f} s, resumed to "
+              f"epoch {RESUMED_EPOCHS} {resume_sec:.2f} s (wall clock of "
+              f"each process, start-up included); checkpoints 1-3, "
+              f"optimizer count {count} = {RESUMED_EPOCHS} x {steps}; mean "
+              f"reconstruction loss by epoch {recon[0].mean():.4f}, "
+              f"{recon[1].mean():.4f}, {r3.mean():.4f}; mean loss "
+              f"{total[0].mean():.4f}, {total[1].mean():.4f} [{gpu}]")
+        print("  " + [line for line in train_out.splitlines()
+                      if "Epoch 1: loss" in line][0].strip())
+
+        # export in process: utterances/s without the process start
+        corpus = VCTK(os.path.join("data", "vctk"),
+                      ratio=base["train_val_split"])
+        t0 = time.perf_counter()
+        export_to_features(corpus, "exported_again", base, device="cuda")
+        export_rate = len(corpus.audios) / (time.perf_counter() - t0)
+
+        # the loop in process: a fresh run of one epoch on the same store
+        exp = Experiment(EXPERIMENT, "in_process", "results", base,
+                         dict(spec["experiments"][EXPERIMENT], num_epochs=1),
+                         spec["seed"], device="cuda")
+        # the trainer, not this script, sets the f32 numerics the CLI runs
+        torch.backends.cudnn.allow_tf32 = True
+        trainer = exp.build_trainer(device="cuda")
+        if torch.backends.cudnn.allow_tf32:
+            raise AssertionError("experiment: the trainer left cuDNN's TF32 "
+                                 "on")
+        torch.cuda.synchronize()
+        _kernels.vq_search_cuda.launches = 0
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        epoch_sec = time.perf_counter() - t0
+        launches = _kernels.vq_search_cuda.launches
+        t0 = time.perf_counter()
+        trainer.save(0)          # the epoch's checkpoint once more, timed
+        save_sec = time.perf_counter() - t0
+        if launches != steps:
+            raise AssertionError(f"experiment: {launches} vq_search launches "
+                                 f"in an epoch of {steps} steps")
+
+        loader_a, loader_b = exp._build_loader(), exp._build_loader()
+        busy = torch.randn(1024, 1024, device="cuda")
+        n_batches = 0
+        for got, want in zip(prefetch_to_device(iter(loader_a),
+                                                device="cuda"),
+                             iter(loader_b)):
+            for _ in range(2):      # the consumer's stream stays busy
+                busy = torch.tanh(busy @ busy * 1e-3)
+            for key, value in want.items():
+                if not torch.equal(got[key].cpu(), torch.from_numpy(value)):
+                    raise AssertionError(f"experiment: prefetched batch "
+                                         f"{n_batches} {key} differs from "
+                                         "the loader's")
+            n_batches += 1
+        if n_batches != steps:
+            raise AssertionError(f"experiment: {n_batches} prefetched batches")
+
+        profiled = exp.build_trainer(device="cuda")
+        profiled.save = lambda *args, **kwargs: None   # the loop alone
+
+        def epoch():
+            _kernels.vq_search_cuda.launches = 0
+            profiled.train()
+
+        def check(events):
+            return sum(e.count for e in events if "vq_" in e.key) == \
+                _kernels.vq_search_cuda.launches == steps
+
+        window, events = device_events(epoch, check=check)
+        busy_us = sum(e.us for e in events)
+        batch = next(prefetch_to_device(iter(loader_a), device="cuda"))
+        state, step = trainer.state, trainer._step
+        for _ in range(5):
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXPERIMENT_BARE_STEPS):
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t0) / EXPERIMENT_BARE_STEPS * 1e3
+        print(f"experiment: in process, {EXPERIMENT} epoch of {steps} steps "
+              f"at batch 2 through Experiment.build_trainer(device='cuda'): "
+              f"{epoch_sec:.3f} s with its checkpoint ({save_sec:.3f} s to "
+              f"write alone), {steps / epoch_sec:.1f} steps/s; without the "
+              f"checkpoint {(epoch_sec - save_sec) / steps * 1e3:.3f} ms a "
+              f"step (loader, prefetch, step, one metrics copy); one vq_search "
+              f"launch a step ({launches}); {n_batches} prefetched batches "
+              f"bit-equal to the loader's under a busy stream; the bare step "
+              f"on one prefetched batch {bare_ms:.3f} ms (batch 2, mean of "
+              f"{EXPERIMENT_BARE_STEPS} steps ending in a sync); export in "
+              f"process {export_rate:.1f} utterances/s [{gpu}]")
+        print(f"experiment profile (one epoch without its checkpoint write, "
+              f"torch.profiler CUDA activity): "
+              f"window {window:.3f} s, device busy {busy_us / 1e6:.3f} s, "
+              f"idle share {1 - busy_us / 1e6 / window:.3f}, vq_search "
+              f"{sum(e.us for e in events if 'vq_' in e.key) / steps:.2f} "
+              f"us a step [{gpu}]")
+        for e in sorted(events, key=lambda e: -e.us)[:6]:
+            print(f"  {e.us / steps / 1e3:10.4f} ms a step  {e.key[:100]}")
+
+        # the trained checkpoint serves: the val split through the encode
+        # server, codes against the plain search on its own latents
+        server = BucketedEncodeServer(
+            last["params"], last["model_state"], load_configuration(frozen),
+            wave_buckets=(7681,), max_batch=SERVE_MAX_BATCH,
+            normalizer=normalizer, device="cuda")
+        waves = list(np.asarray(store.open("val")["preprocessed_audio"]))
+        before = _kernels.vq_search_cuda.launches
+        results = server.encode(waves)
+        serve_launches = _kernels.vq_search_cuda.launches - before
+        if serve_launches != -(-len(waves) // SERVE_MAX_BATCH):
+            raise AssertionError(f"experiment: {serve_launches} vq_search "
+                                 f"launches serving {len(waves)} waves")
+        codebook = server.model.vq.codebook.detach()
+        D = codebook.shape[1]
+        n_diff = 0
+        feature_err = 0.0
+        val_features = torch.from_numpy(np.array(
+            store.open("val")["input_features"])).cuda()
+        mean = torch.from_numpy(normalizer["train_mean"]).float().cuda()
+        std = torch.from_numpy(normalizer["train_std"]).float().cuda()
+        for at in range(0, len(waves), SERVE_MAX_BATCH):
+            rows = list(range(at, min(at + SERVE_MAX_BATCH, len(waves))))
+            with torch.inference_mode():
+                feats = server.features(server.padded_batch(
+                    [waves[i] for i in rows], 7681))[:len(rows)]
+                z = server.model.latents(feats)
+            want_feats = (val_features[rows] - mean) / std
+            feature_err = max(feature_err,
+                              (feats - want_feats).abs().max().item())
+            flat = z.contiguous().view(-1, D)
+            served = torch.from_numpy(np.concatenate(
+                [results[i].codes for i in rows])).cuda()
+            n_diff += _near_ties(flat, codebook, served,
+                                 vq_search_torch(flat, codebook).indices,
+                                 NEAR_TIE_SAME_INPUT)
+        if not feature_err <= SERVE_FEATURE_TOL:
+            raise AssertionError(f"experiment: the server's features are "
+                                 f"{feature_err:.3e} from the store's")
+        codes = np.concatenate([r.codes for r in results])
+        if codes.shape != (len(waves) * 24,):
+            raise AssertionError(f"experiment: codes of shape {codes.shape}")
+        print(f"experiment: the epoch-{RESUMED_EPOCHS} checkpoint and the "
+              f"normalizer in BucketedEncodeServer: {len(waves)} val "
+              f"utterances -> {codes.size} codes in {serve_launches} "
+              f"launches, near-tie rows vs the plain search on the server's "
+              f"latents {n_diff}, {len(np.unique(codes))} of "
+              f"{codebook.shape[0]} codes used; the server's normalized "
+              f"features within {feature_err:.2e} of the store's (limit "
+              f"{SERVE_FEATURE_TOL})")
+        return (launches + serve_launches,
+                (epoch_sec - save_sec) / steps * 1e3, bare_ms)
+    finally:
+        os.chdir(here)
+        shutil.rmtree(work)
 
 
 def _device_kernel_counts(fn):
@@ -1596,8 +1928,8 @@ def vocoder_phase(gpu):
     return launches
 
 
-PHASES = ("kernel", "slice", "train", "step_kernel", "synthesis",
-          "chain_kernel", "vocoder")
+PHASES = ("kernel", "slice", "train", "experiment", "step_kernel",
+          "synthesis", "chain_kernel", "vocoder")
 
 
 def main():
@@ -1650,6 +1982,7 @@ def main():
         for name, fn, args in (
                 ("kernel", kernel_phase, ()), ("slice", slice_phase, (gpu,)),
                 ("train", train_phase, (gpu,)),
+                ("experiment", experiment_phase, (gpu,)),
                 ("step_kernel", step_kernel_phase, (gpu,)),
                 ("synthesis", synthesis_phase, (gpu,)),
                 ("chain_kernel", chain_kernel_phase, (gpu,)),
@@ -1661,7 +1994,11 @@ def main():
 
     vq_err, (vq_ms, vq_plain_ms) = phase(kernel_phase)
     encode_vq_launches = phase(slice_phase, gpu)
-    train_vq_launches, vq_device_ms = phase(train_phase, gpu)
+    train_vq_launches, vq_device_ms, train_ms = phase(train_phase, gpu)
+    experiment_vq_launches, loop_ms, bare_ms = phase(experiment_phase, gpu)
+    print(f"experiment vs train: the loop {loop_ms:.3f} ms a step at batch 2 "
+          f"(no checkpoint), the bare step {bare_ms:.3f} ms at batch 2 and "
+          f"{train_ms:.3f} ms at batch 64 (train phase, gradient VQ) [{gpu}]")
     step_err, (step_ms, step_plain_ms) = phase(step_kernel_phase, gpu)
     step_launches, synth_vq_launches = phase(synthesis_phase, gpu)
     chains = phase(chain_kernel_phase, gpu)
@@ -1690,7 +2027,8 @@ def main():
         wcfg.gate_channels, wcfg.skip_out_channels)
     print(json.dumps({"kernels": [
         line("vq_search", "vq_search.cu", "vqvae_speech_tpu/ops/vq.py:91",
-             encode_vq_launches + train_vq_launches + synth_vq_launches,
+             encode_vq_launches + train_vq_launches + experiment_vq_launches
+             + synth_vq_launches,
              dict(max_abs_err=vq_err, ms=vq_ms, plain_ms=vq_plain_ms,
                   bound_ms=vq_bound[0], bound_by=vq_bound[1]),
              # ms is by CUDA events, which at this size time the host's

@@ -1,8 +1,9 @@
 """PyTorch port: checkpoint writing, and training across the two packages.
 
 A checkpoint written by the port loads with the JAX package's plain
-``load_checkpoint`` (optax's state is rebuilt here from the port's plain
-tuples with ``tree_unflatten`` over ``optimizer.init(params)``'s structure),
+``load_checkpoint``, its ``opt_state`` as optax's own NamedTuples (the port
+pickles its stand-ins under optax's names) with the leaves, structure and
+dtypes of ``optimizer.init(params)``,
 a JAX checkpoint loads in the port, and one more step from either agrees
 with one more step of the side that wrote it: metrics rtol 2e-4, parameters
 within the train-step test's tolerances (tests/test_torch_train_step.py).
@@ -87,6 +88,8 @@ def test_port_checkpoint_continues_in_jax(tmp_path, variant):
     template = joptimizer.init(jstate.params)
     leaves = jax.tree_util.tree_leaves(ckpt["opt_state"])
     assert len(leaves) == len(jax.tree_util.tree_leaves(template))
+    assert ([type(s) for s in ckpt["opt_state"]]
+            == [type(s) for s in template])
     opt_state = jax.tree_util.tree_unflatten(
         jax.tree_util.tree_structure(template),
         [jnp.asarray(a) for a in leaves])

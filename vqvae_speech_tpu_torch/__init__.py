@@ -14,7 +14,13 @@ with the same module names:
                student) and ``flowavenet`` (reverse pass), as plain
                functions over tensor trees.
 - ``convert``— JAX param trees (numpy) -> the port's modules and trees.
-- ``train``  — the JAX-free checkpoint reader.
+- ``data``   — VCTK ingest, the columnar feature store and its loader, the
+               feature export, a synthetic store, and the prefetcher that
+               stages batches on the GPU.
+- ``train``  — the train step, the epoch loop (``ConvolutionalTrainer``),
+               the experiments driver, the YAML-subset config reader and
+               JAX-format checkpoints.
+- ``main``   — the CLI: export, dataset stats, train with auto-resume.
 - ``serve``  — BucketedEncodeServer, BucketedSynthesisServer and
                BucketedParallelSynthesisServer.
 

@@ -209,11 +209,17 @@ def _moment_index(model: ConvVQVAE) -> dict:
 
 
 def export_jax_opt_state(model: ConvVQVAE, opt_state):
-    """The optimizer's state as ``optax.amsgrad`` lays it out, in plain
-    tuples of numpy arrays: ``((count, mu, nu, nu_max), ())``, each moment a
-    tree shaped like ``params`` with every leaf transposed as its weight is.
-    (The port imports no optax, so it writes no optax NamedTuples; the
-    leaves flatten in the same order.)"""
+    """The optimizer's state as ``optax.amsgrad`` lays it out, as numpy
+    arrays: ``(ScaleByAmsgradState(count, mu, nu, nu_max), EmptyState())``,
+    each moment a tree shaped like ``params`` with every leaf transposed as
+    its weight is. The two classes are ``train/checkpoint.py``'s stand-ins
+    for optax's, which ``save_checkpoint`` pickles under optax's names (the
+    port imports no optax)."""
+    from vqvae_speech_tpu_torch.train.checkpoint import (
+        EmptyState,
+        ScaleByAmsgradState,
+    )
+
     at = _moment_index(model)
     leaves = jax_param_leaves(model)
 
@@ -224,8 +230,9 @@ def export_jax_opt_state(model: ConvVQVAE, opt_state):
         out.setdefault("vq", {})
         return out
 
-    return ((np.asarray(opt_state.count, np.int32), tree(opt_state.mu),
-             tree(opt_state.nu), tree(opt_state.nu_max)), ())
+    return (ScaleByAmsgradState(np.asarray(opt_state.count, np.int32),
+                                tree(opt_state.mu), tree(opt_state.nu),
+                                tree(opt_state.nu_max)), EmptyState())
 
 
 def load_jax_opt_state(model: ConvVQVAE, opt_state, into) -> None:

@@ -4,13 +4,13 @@ Counterpart of ``vqvae_speech_tpu/data/audio.py`` (numpy and scipy only), so
 that the port and its GPU smoke run need nothing of the JAX package:
 ``scipy.io.wavfile`` read, polyphase resampling, an RMS-envelope trim
 ``top_db`` below the peak with librosa's framing (2048 / 512), then peak
-normalization (reference src/dataset/vctk_dataset.py:141-152).
+normalization (reference src/dataset/vctk_dataset.py:141-152), and the
+pad-or-random-crop of a preprocessed utterance.
 """
 import math
 
 import numpy as np
 from scipy.io import wavfile
-from scipy.signal import resample_poly
 
 
 def load_wav(path: str, target_rate: int = 16000) -> np.ndarray:
@@ -23,6 +23,10 @@ def load_wav(path: str, target_rate: int = 16000) -> np.ndarray:
     else:
         data = data.astype(np.float32)
     if rate != target_rate:
+        # imported here: scipy.signal takes seconds to import, and a CLI
+        # process that reads no wav of another rate needs none of it
+        from scipy.signal import resample_poly
+
         g = math.gcd(int(rate), int(target_rate))
         data = resample_poly(data, target_rate // g, rate // g).astype(np.float32)
     return data
@@ -54,14 +58,33 @@ def trim_silence(y: np.ndarray, top_db: float = 20.0,
 
 
 def load_and_preprocess(path: str, sampling_rate: int = 16000,
-                        top_db: float = 20.0):
-    """Load, silence-trim and peak-normalize one utterance. The scale is the
-    f32 reciprocal of the peak, as the JAX package's native ingest applies it.
+                        top_db: float = 20.0, trimming_duration=None):
+    """Load, silence-trim (or cut a known leading-silence duration, in
+    seconds) and peak-normalize one utterance. The scale is the f32
+    reciprocal of the peak, as the JAX package's native ingest applies it.
 
     Returns (audio float32 peak-normalized, trimming_time seconds).
     """
-    trimmed, (start, _) = trim_silence(load_wav(path, sampling_rate), top_db)
+    raw = load_wav(path, sampling_rate)
+    if trimming_duration is None:
+        trimmed, (start, _) = trim_silence(raw, top_db)
+        trimming_time = start / sampling_rate
+    else:
+        trimmed = raw[int(trimming_duration * sampling_rate):]
+        trimming_time = trimming_duration
     peak = np.abs(trimmed).max() if len(trimmed) else np.float32(0)
     if peak > 0:
         trimmed = trimmed * (np.float32(1) / peak)
-    return trimmed.astype(np.float32), start / sampling_rate
+    return trimmed.astype(np.float32), trimming_time
+
+
+def pad_or_random_crop(audio: np.ndarray, length: int, rng=None):
+    """Zero-pad to ``length`` or random-crop a ``length`` window
+    (reference vctk_dataset.py:51-66).  Returns (audio, start or None)."""
+    if len(audio) <= length:
+        return (np.concatenate([audio,
+                                np.zeros(length - len(audio), np.float32)]),
+                None)
+    rng = rng or np.random.default_rng()
+    start = int(rng.integers(0, len(audio) - length))
+    return audio[start:start + length], start

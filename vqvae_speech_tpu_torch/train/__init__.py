@@ -6,10 +6,19 @@ from vqvae_speech_tpu_torch.train.checkpoint import (
     prune_checkpoints,
     save_checkpoint,
 )
+from vqvae_speech_tpu_torch.train.config import (
+    freeze_configuration,
+    frozen_configuration_path,
+    load_configuration,
+    merge_experiment_configuration,
+    update_configuration_from_experiments,
+)
+from vqvae_speech_tpu_torch.train.experiment import Experiment, Experiments
 from vqvae_speech_tpu_torch.train.revival import apply_revival, revival_settings
 from vqvae_speech_tpu_torch.train.trainer import (
     Amsgrad,
     AmsgradState,
+    ConvolutionalTrainer,
     TrainState,
     create_train_state,
     make_grad_stats_fn,
@@ -19,6 +28,10 @@ from vqvae_speech_tpu_torch.train.trainer import (
 
 __all__ = ["find_checkpoints", "latest_checkpoint_epoch", "load_checkpoint",
            "merge_checkpoint_losses", "prune_checkpoints", "save_checkpoint",
-           "apply_revival", "revival_settings", "Amsgrad", "AmsgradState",
-           "TrainState", "create_train_state", "make_grad_stats_fn",
-           "make_optimizer", "make_train_step"]
+           "freeze_configuration", "frozen_configuration_path",
+           "load_configuration", "merge_experiment_configuration",
+           "update_configuration_from_experiments", "Experiment",
+           "Experiments", "apply_revival", "revival_settings", "Amsgrad",
+           "AmsgradState", "ConvolutionalTrainer", "TrainState",
+           "create_train_state", "make_grad_stats_fn", "make_optimizer",
+           "make_train_step"]

@@ -9,9 +9,13 @@ and are merged across epochs for plotting.
 
 **Writing.** ``save_checkpoint`` takes host trees in the JAX layout, as
 ``convert.export_jax_params`` and ``convert.export_jax_opt_state`` make
-them: ``params`` and ``model_state`` load with the JAX package's plain
-``load_checkpoint``; ``opt_state`` is optax's state in plain nested tuples
-``((count, mu, nu, nu_max), ())``, whose leaves flatten in optax's order.
+them: ``params`` and ``model_state`` are nested dicts of numpy arrays;
+``opt_state`` is optax's amsgrad state ``(ScaleByAmsgradState(count, mu, nu,
+nu_max), EmptyState())`` built from the stand-ins below, which the pickle
+names as optax's own classes (``optax._src.transform.ScaleByAmsgradState``,
+``optax._src.base.EmptyState``). So the file is a JAX checkpoint: the JAX
+package's plain ``load_checkpoint`` gives back optax's NamedTuples and its
+trainer resumes from it.
 
 **Reading.** ``params`` and ``model_state`` of a JAX-written checkpoint are
 plain dicts of numpy arrays, but its ``opt_state`` holds optax NamedTuples,
@@ -27,6 +31,7 @@ wrote.
 import os
 import pickle
 import re
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -35,10 +40,44 @@ _CKPT_RE = re.compile(r"^(?P<name>.+)_(?P<epoch>\d+)_checkpoint\.pkl$")
 _TRUSTED_MODULES = ("builtins", "collections", "copyreg", "numpy")
 
 
+class ScaleByAmsgradState(NamedTuple):
+    """Stands in for optax's class of this name (the same fields); pickled
+    under optax's module and name."""
+    count: Any
+    mu: Any
+    nu: Any
+    nu_max: Any
+    pickled_as = ("optax._src.transform", "ScaleByAmsgradState")
+
+
+class EmptyState(NamedTuple):
+    """Stands in for ``optax._src.base.EmptyState`` (the learning-rate
+    scale's state); pickled under optax's name."""
+    pickled_as = ("optax._src.base", "EmptyState")
+
+
+class _OptaxNamingPickler(pickle._Pickler):
+    """The standard pickler, except that a class with a ``pickled_as``
+    (module, name) is written as that global: the port imports no optax,
+    and the reader of the file finds optax's class there."""
+
+    def save_global(self, obj, name=None):
+        pickled_as = getattr(obj, "pickled_as", None)
+        if not isinstance(obj, type) or pickled_as is None:
+            return super().save_global(obj, name)
+        module, qualname = pickled_as
+        self.save(module)
+        self.save(qualname)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
 def _to_host(tree):
     """Tensors (and arrays) of a nested dict / tuple / list as numpy."""
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_host(v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(_to_host(v) for v in tree)
     if isinstance(tree, torch.Tensor):
@@ -64,7 +103,8 @@ def save_checkpoint(experiments_path: str, experiment_name: str, epoch: int,
                         f"{experiment_name}_{epoch + 1}_checkpoint.pkl")
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        pickle.dump(payload, f)
+        # protocol 4, the JAX package's (pickle's default before 3.14)
+        _OptaxNamingPickler(f, protocol=4).dump(payload)
     os.replace(tmp, path)  # atomic publish: no torn checkpoints on crash
     return path
 

@@ -1,9 +1,11 @@
-"""The convolutional VQ-VAE's train step.
+"""The convolutional VQ-VAE's train step and epoch loop.
 
 Counterpart of ``vqvae_speech_tpu/train/trainer.py``'s ``make_optimizer``,
-``create_train_state``, ``make_train_step`` and ``make_grad_stats_fn``: one
-step is forward, MSE + VQ loss, backward, an Adam-amsgrad update and the EMA
-codebook state update. The model is an ``nn.Module`` (``models.ConvVQVAE``)
+``create_train_state``, ``make_train_step``, ``make_grad_stats_fn`` and
+``ConvolutionalTrainer``: one step is forward, MSE + VQ loss, backward, an
+Adam-amsgrad update and the EMA codebook state update; the trainer runs
+epochs of steps over a prefetched loader, with per-epoch checkpoints and the
+codebook- and gradient-statistics hooks. The model is an ``nn.Module`` (``models.ConvVQVAE``)
 that carries its parameters and its EMA and revival state as buffers; the step
 updates it in place.
 
@@ -16,19 +18,32 @@ from the second step whenever |g1| > |g2|. Its state is optax's
 (``convert.export_jax_opt_state`` / ``load_jax_opt_state``).
 
 Not ported here: ``compute_dtype`` (bf16 forward and backward with f32 master
-weights) and ``mesh`` (data parallelism); both raise. The epoch loop
-(``ConvolutionalTrainer``) is a later slice.
+weights) and ``mesh`` (data parallelism); both raise.
 """
 import dataclasses
+import os
+import pickle
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from vqvae_speech_tpu_torch.convert import nest_by_path, jax_param_leaves
+from vqvae_speech_tpu_torch.convert import (
+    export_jax_opt_state,
+    export_jax_params,
+    jax_param_leaves,
+    load_jax_opt_state,
+    load_jax_params,
+    nest_by_path,
+)
+from vqvae_speech_tpu_torch.data.prefetch import prefetch_to_device
+from vqvae_speech_tpu_torch.models.conv_vqvae import ConvVQVAE
 from vqvae_speech_tpu_torch.ops.vq import reference_flatten
+from vqvae_speech_tpu_torch.train.checkpoint import save_checkpoint
 from vqvae_speech_tpu_torch.train.revival import apply_revival, revival_settings
 from vqvae_speech_tpu_torch.utils import resolve_device
+from vqvae_speech_tpu_torch.utils.logger import ConsoleLogger
+from vqvae_speech_tpu_torch.utils.profiling import StepTimer
 
 # optax.amsgrad's defaults, the only values the trainer uses (its eps_root
 # is 0 and drops out of the formula)
@@ -235,3 +250,158 @@ def _named_grad_entries(means, maxs):
     return {"layers": [name for name, _ in flat_means],
             "avg_grads": [float(v) for _, v in flat_means],
             "max_grads": [float(v) for _, v in flat_maxs]}
+
+
+class ConvolutionalTrainer:
+    """Epoch loop + recording + per-epoch checkpointing.
+
+    Takes the model as the JAX package's trainer does: ``params`` and
+    ``model_state`` trees in the JAX layout (``convert.numpy_params``, or a
+    checkpoint's) and, to resume, the checkpoint's ``opt_state`` and
+    ``start_epoch``; ``device`` ("cuda", or "cpu" when the caller asks for
+    it) is where it trains; on a GPU it turns TF32 off for cuDNN and
+    matmuls, so the model trains in the configuration's f32. The loop keeps
+    each step's metrics on the device and copies them to the host once an
+    epoch, before the epoch's log line and checkpoint."""
+
+    def __init__(self, config: dict, params, model_state, training_loader,
+                 experiments_path: str, experiment_name: str,
+                 seed: int = 1234, mesh=None, start_epoch: int = 0,
+                 opt_state=None, iterations_to_record: int = 10, *, device):
+        self._config = config
+        self._loader = training_loader
+        self._experiments_path = experiments_path
+        self._experiment_name = experiment_name
+        self._start_epoch = start_epoch
+        self._iterations_to_record = iterations_to_record
+        self._device = resolve_device(device)
+        if self._device.type == "cuda":
+            # the configuration's f32 (compute_dtype null): PyTorch's default
+            # would let cuDNN run the convolutions in TF32
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+        optimizer = make_optimizer(config["learning_rate"])
+        self._step = make_train_step(config, optimizer, mesh)
+        self._grad_stats = make_grad_stats_fn(config)
+        model = load_jax_params(ConvVQVAE.from_config(config), params,
+                                model_state)
+        self._state = create_train_state(model, optimizer,
+                                         device=self._device, seed=seed)
+        if opt_state is not None:
+            load_jax_opt_state(model, opt_state, self._state.opt_state)
+
+    @property
+    def state(self) -> TrainState:
+        return self._state
+
+    def train(self):
+        cfg = self._config
+        ConsoleLogger.status(f"start epoch: {self._start_epoch}")
+        ConsoleLogger.status(f"num epoch: {cfg['num_epochs']}")
+        timer = StepTimer() if cfg.get("profile_steps") else None
+
+        for epoch in range(self._start_epoch, cfg["num_epochs"]):
+            n_iter = len(self._loader)
+            step_rec = max(int(n_iter / self._iterations_to_record) - 1, 1)
+            record_iters = set(range(0, n_iter, step_rec))
+            batches = prefetch_to_device(iter(self._loader),
+                                         device=self._device)
+            device_metrics = []
+            for iteration, batch in enumerate(batches):
+                if (cfg.get("record_gradient_stats")
+                        and iteration in record_iters):
+                    self._record_gradient_stats(batch, epoch, iteration)
+                if timer is not None:
+                    with timer.step():
+                        self._state, metrics = self._step(self._state, batch)
+                        timer.block_on(metrics)
+                else:
+                    self._state, metrics = self._step(self._state, batch)
+                # keep metrics on the device: fetching per step would make
+                # the host wait for every step
+                device_metrics.append(metrics)
+                if (cfg.get("record_codebook_stats")
+                        and iteration in record_iters):
+                    self._record_codebook_stats(batch, epoch, iteration)
+            losses_list, perplexity_list = self._fetch(device_metrics)
+            ConsoleLogger.status(
+                "Epoch {}: loss {:.4f} perplexity {:.3f}".format(
+                    epoch + 1, losses_list[-1]["loss"], perplexity_list[-1]))
+            if timer is not None and timer.num_steps:
+                s = timer.summary()
+                ConsoleLogger.status(
+                    "  steps/sec {:.2f} (p50 {:.1f} ms, p95 {:.1f} ms)".format(
+                        s["steps_per_sec"], s["p50_s"] * 1e3,
+                        s["p95_s"] * 1e3))
+            self.save(epoch, losses_list, perplexity_list)
+        return self._state
+
+    @staticmethod
+    def _fetch(device_metrics):
+        """Every step's metrics in ONE device-to-host copy -> the checkpoint's
+        loss dicts (perplexity apart) and perplexity list."""
+        if not device_metrics:
+            raise ValueError("the training loader yielded no batch: fewer "
+                             "examples than batch_size")
+        keys = sorted(device_metrics[0])
+        host = torch.stack([m[k] for m in device_metrics for k in keys]
+                           ).cpu().numpy().reshape(len(device_metrics),
+                                                   len(keys))
+        losses_list, perplexity_list = [], []
+        for row in host:
+            metrics = {k: float(v) for k, v in zip(keys, row)}
+            perplexity_list.append(metrics.pop("perplexity"))
+            losses_list.append(metrics)
+        return losses_list, perplexity_list
+
+    def save(self, epoch, losses_list=None, perplexity_list=None):
+        model = self._state.model
+        params, model_state = export_jax_params(model)
+        return save_checkpoint(
+            self._experiments_path, self._experiment_name, epoch, params,
+            model_state, export_jax_opt_state(model, self._state.opt_state),
+            train_res_recon_error=losses_list,
+            train_res_perplexity=perplexity_list)
+
+    # ---------------- recording hooks ----------------
+
+    def _record_codebook_stats(self, batch, epoch, iteration):
+        model = self._state.model
+        model.eval()
+        with torch.no_grad():
+            out = model.encode(batch["input_features"])
+        model.train()
+        embedding = model.vq.codebook.detach().cpu().numpy()
+        idx = out.indices.cpu().numpy()
+        entry = {
+            "concatenated_quantized": embedding[idx[:, 0]],
+            "embedding": embedding,
+            "n_embedding": embedding.shape[0],
+            "encoding_indices": idx,
+            "speaker_ids": batch["speaker_id"].cpu().numpy(),
+            "batch_size": int(batch["input_features"].shape[0]),
+        }
+        path = os.path.join(
+            self._experiments_path,
+            f"{self._experiment_name}_{epoch + 1}_{iteration}_codebook-stats.pickle")
+        with open(path, "wb") as f:
+            pickle.dump(entry, f)
+
+    def _record_gradient_stats(self, batch, epoch, iteration):
+        vq = self._state.model.vq
+        # the JAX hook leaves the state as it is; the port's training forward
+        # replaces an EMA quantizer's buffers, so they are put back
+        kept = dict(vq.ema_state()) if vq.ema else {}
+        means, maxs = self._grad_stats(self._state, batch)
+        for name, tensor in kept.items():
+            setattr(vq, name, tensor)
+        entry = {"model": _named_grad_entries(means, maxs)}
+        for part in ("encoder", "vq", "decoder"):
+            if means.get(part):
+                entry[part] = _named_grad_entries(means[part], maxs[part])
+        path = os.path.join(
+            self._experiments_path,
+            f"{self._experiment_name}_{epoch + 1}_{iteration}_gradient-stats.pickle")
+        with open(path, "wb") as f:
+            pickle.dump(entry, f)

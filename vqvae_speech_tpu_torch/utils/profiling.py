@@ -1,8 +1,13 @@
 """Device time and kernel counts of a call, from torch.profiler's CUDA
-activity, guarded against the device events the profiler loses."""
+activity, guarded against the device events the profiler loses; and
+``StepTimer``, the trainer's per-step timing (counterpart of the JAX
+package's ``utils/profiling.py:StepTimer``)."""
+import contextlib
 import time
+from collections import deque
 from typing import Callable, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 # Sentinel kernels mark a window: launches of torch.erfinv_ before the
@@ -90,3 +95,50 @@ def device_events(fn: Callable[[], object],
         f"torch.profiler lost device events in {WINDOWS} windows running: "
         f"(lead sentinels seen, launched, last sentinel of 1, other device "
         f"events, whether they added up) {seen}")
+
+
+class StepTimer:
+    """Honest per-step timing: waits for the step's device work before
+    stamping.
+
+    Usage:
+        timer = StepTimer()
+        for batch in loader:
+            with timer.step():
+                state, metrics = train_step(state, batch)
+                timer.block_on(metrics)
+        print(timer.summary())
+    """
+
+    def __init__(self, window: int = 200):
+        self._times = deque(maxlen=window)
+
+    @contextlib.contextmanager
+    def step(self):
+        t0 = time.perf_counter()
+        yield
+        self._times.append(time.perf_counter() - t0)
+
+    def block_on(self, metrics: dict):
+        """``torch.cuda.synchronize`` on the device of the metrics' tensors
+        (nothing to wait for on the CPU)."""
+        for value in metrics.values():
+            if value.device.type == "cuda":
+                torch.cuda.synchronize(value.device)
+            return
+
+    @property
+    def num_steps(self):
+        return len(self._times)
+
+    def summary(self) -> dict:
+        if not self._times:
+            return {}
+        arr = np.asarray(self._times)
+        return {
+            "steps": len(arr),
+            "mean_s": float(arr.mean()),
+            "p50_s": float(np.percentile(arr, 50)),
+            "p95_s": float(np.percentile(arr, 95)),
+            "steps_per_sec": float(1.0 / arr.mean()),
+        }
