@@ -46,6 +46,22 @@
    torch.profiler; then the epoch-3 checkpoint and the normalizer in
    BucketedEncodeServer encode the val split, codes against the plain
    search on the server's own latents.
+   Evaluate phase (right after it, on the experiment phase's directory and
+   its epoch-3 checkpoint): the port's CLI evaluates the val split
+   (--evaluate with the alignments in both pairings, the clustering
+   metrics, the many-to-one mapping and the average phoneme count,
+   --no_figures); checks every file under the JAX package's name, 80
+   empirical alignments of 24 codes in each pairing, the groundtruth
+   alignments of the val utterances with TextGrids, ARI/AMI/NMI finite in
+   [-1, 1]. In process, Evaluator(device="cuda", figures=False) runs the
+   same options with the speaker and entropy pass, then the single-batch
+   capture: one VQ kernel launch an encode batch, the model bit-equal
+   after, the capture's encodings, distances and pairwise distances
+   against their recomputations; the VQ kernel's codes on this path against
+   the plain search on the same batches (every differing row a near-tie;
+   with none, the plain codes' scores equal the CLI's); the empirical
+   sweep's utterances/s and, from torch.profiler, its device idle share
+   and the kernel's share of device time.
 4. Decode-step kernel phase: holds glu_stack_step against its plain
    PyTorch chain at the vctk_wavenet width (20 layers, k=3, C=G=768,
    S=256) for batch 1, 8 and 32 with and without the legacy skip scaling,
@@ -98,13 +114,18 @@ Imports nothing of JAX.
 
     python3 chip_smoke.py --phases step_kernel,synthesis
 
-runs only the named phases (kernel, slice, train, experiment, step_kernel,
-synthesis, chain_kernel, vocoder), for work on one kernel or slice; such a
-run prints neither of the two JSON lines.
+runs only the named phases (kernel, slice, train, experiment, evaluate,
+step_kernel, synthesis, chain_kernel, vocoder), for work on one kernel or
+slice; such a run prints neither of the two JSON lines. The evaluate phase
+run without the experiment phase first trains jitter12 for one epoch
+through the CLI. A run fails if it imported JAX, the JAX package,
+scikit-learn or matplotlib.
 """
 import concurrent.futures
 import json
 import os
+import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -392,8 +413,6 @@ def _tensor_core_instructions(_kernels):
     """A line saying how many warpgroup matrix instructions (HGMMA in SASS)
     the built chain library holds, by the toolkit's cuobjdump; raises if it
     holds none."""
-    import shutil
-
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     lib = os.path.join(_kernels.BUILD_DIR, "libfused_resblock.so")
@@ -888,14 +907,14 @@ def _epoch_losses(ckpt):
     return np.asarray(recon), np.asarray(total)
 
 
-def _experiment_workdir(work):
+def _experiment_workdir(work, epochs=EXPERIMENT_EPOCHS):
     """configurations/ (the base YAML linked, the experiments JSON with
     jitter12 alone and num_epochs cut) and data/vctk/raw linked to the
     tracked corpus, as the CLI expects them under its working directory."""
     with open(os.path.join(REPO_ROOT, EXPERIMENTS_SPEC)) as f:
         spec = json.load(f)
     spec["experiments"] = {EXPERIMENT: dict(spec["experiments"][EXPERIMENT],
-                                            num_epochs=EXPERIMENT_EPOCHS)}
+                                            num_epochs=epochs)}
     os.makedirs(os.path.join(work, "configurations"))
     os.symlink(os.path.join(REPO_ROOT, "configurations", "vctk_features.yaml"),
                os.path.join(work, "configurations", "vctk_features.yaml"))
@@ -906,14 +925,12 @@ def _experiment_workdir(work):
     return spec
 
 
-def experiment_phase(gpu):
-    """The flagship's training loop through the port's CLI, resumed, then
-    the loop in process and the trained checkpoint served; returns (the VQ
-    kernel's launches on that path, the loop's ms a step without the
-    checkpoint, the bare step's at batch 2)."""
-    import shutil
-    import tempfile
-
+def experiment_phase(gpu, work):
+    """The flagship's training loop through the port's CLI in ``work``,
+    resumed, then the loop in process and the trained checkpoint served;
+    returns (the VQ kernel's launches on that path, the loop's ms a step
+    without the checkpoint, the bare step's at batch 2). ``work`` keeps the
+    trained experiment for the evaluate phase."""
     import torch
     from vqvae_speech_tpu_torch.data import FeatureStore, load_normalizer
     from vqvae_speech_tpu_torch.data.export import export_to_features
@@ -931,7 +948,6 @@ def experiment_phase(gpu):
     )
     from vqvae_speech_tpu_torch.utils.profiling import device_events
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_experiment_")
     here = os.getcwd()
     try:
         spec = _experiment_workdir(work)
@@ -1158,7 +1174,304 @@ def experiment_phase(gpu):
                 (epoch_sec - save_sec) / steps * 1e3, bare_ms)
     finally:
         os.chdir(here)
-        shutil.rmtree(work)
+
+
+# the CLI evaluation of the trained jitter12 checkpoint on the val split:
+# every option that writes numbers, no figures (no matplotlib on the card's
+# machine); in process, the same options with the speaker and entropy pass
+EVALUATE_FLAGS = ("--evaluate", "--compute_alignments", "--per_frame_alignments",
+                  "--compute_clustering_metrics", "--compute_many_to_one_mapping",
+                  "--compute_groundtruth_average_phonemes_number",
+                  "--no_figures")
+EVALUATE_OPTIONS = dict(
+    {flag[2:]: True for flag in EVALUATE_FLAGS[1:-1]},
+    alignment_subset="val", compute_speaker_dependency_stats=True,
+    compute_entropy_distributions=True)
+CLUSTERING_METRICS = ("adjusted_rand_score", "adjusted_mutual_info_score",
+                      "normalized_mutual_info_score")
+# the single-batch capture's distances against vq_distances on the same rows,
+# and its pairwise distances against a float64 numpy recomputation
+CAPTURE_DISTANCE_RTOL = 1e-5
+PAIRWISE_RTOL = 1e-4
+
+
+def _train_one_epoch(work):
+    """For an evaluate phase run without the experiment phase: the export,
+    the stats and one epoch of jitter12 through the CLI in ``work``."""
+    _experiment_workdir(work, epochs=1)
+    for args in (("--export_to_features",), ("--compute_dataset_stats",), ()):
+        _cli(work, *args)
+
+
+def _evaluated_files():
+    """The number files the CLI evaluation writes, under the JAX
+    package's names."""
+    names = {"vctk_val_groundtruth_alignments.pickle",
+             "vctk_val_groundtruth_bigrams_wo_diag_20ms.npy",
+             f"{EXPERIMENT}_vctk_val_empirical_alignments.pickle",
+             f"{EXPERIMENT}_vctk_val_empirical_alignments_per_frame.pickle",
+             f"{EXPERIMENT}_vctk_val_empirical_bigrams_wo_diag_10ms.npy",
+             f"{EXPERIMENT}_phonemes_mapping.pickle",
+             f"{EXPERIMENT}_tokens_mapping.pickle"}
+    for metric in CLUSTERING_METRICS:
+        names |= {f"{EXPERIMENT}_{metric}.npy",
+                  f"{EXPERIMENT}_per_frame_{metric}.npy"}
+    return names
+
+
+def _load_pickle(path):
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def evaluate_phase(gpu, work):
+    """The trained experiment in ``work`` evaluated through the port's CLI
+    (--evaluate ... --no_figures), then in process: the launch count, the
+    model unchanged, the single-batch capture, K1 against the plain search
+    on this path, the sweep's rate and device profile. Returns the VQ
+    kernel's launches on the in-process evaluation."""
+    import math
+
+    import torch
+    from vqvae_speech_tpu_torch.data import FeatureStore
+    from vqvae_speech_tpu_torch.eval import Evaluator, alignment_stats
+    from vqvae_speech_tpu_torch.ops import (
+        _kernels,
+        reference_flatten,
+        vq_distances,
+        vq_search_torch,
+    )
+    from vqvae_speech_tpu_torch.train import (
+        Experiment,
+        latest_checkpoint_epoch,
+        load_configuration,
+        update_configuration_from_experiments,
+    )
+    from vqvae_speech_tpu_torch.utils.profiling import device_events
+
+    cli_sec, _ = _cli(work, *EVALUATE_FLAGS)
+    here = os.getcwd()
+    try:
+        os.chdir(work)
+        with open(EXPERIMENTS_SPEC) as f:
+            spec = json.load(f)
+        exp_dir, results = spec["experiments_path"], spec["results_path"]
+        epoch, _ = latest_checkpoint_epoch(exp_dir, EXPERIMENT)
+        base = update_configuration_from_experiments(
+            EXPERIMENTS_SPEC, load_configuration(os.path.join(
+                "configurations", "vctk_features.yaml")))
+        exp = Experiment(EXPERIMENT, exp_dir, "results_in_process", base,
+                         spec["experiments"][EXPERIMENT], spec["seed"],
+                         device="cuda")
+        cfg = exp.configuration
+        store = FeatureStore(os.path.join(cfg["data_root"],
+                                          cfg["features_path"]))
+        meta = store.metadata("val")
+        n_val = store.num_examples("val")
+        phonemes = os.path.join(cfg["data_root"], "raw", "VCTK-Corpus",
+                                "phonemes")
+        with_textgrid = {alignment_stats.utterance_key(w)
+                         for w in meta["wav_filenames"]
+                         if os.path.isfile(alignment_stats.textgrid_path(
+                             phonemes, w))}
+
+        # 1. the CLI's files
+        got_files = set(os.listdir(results))
+        if got_files != _evaluated_files():
+            raise AssertionError(f"evaluate: the CLI wrote {sorted(got_files)}")
+        gt = _load_pickle(os.path.join(
+            results, "vctk_val_groundtruth_alignments.pickle"))
+        gt_keys = [k for k, _ in gt["extended_alignment_dataset"]]
+        if (not gt_keys or not set(gt_keys) <= with_textgrid
+                or {len(a) for _, a in gt["extended_alignment_dataset"]}
+                != {24}):
+            raise AssertionError(
+                f"evaluate: {len(gt_keys)} groundtruth alignments of "
+                f"lengths {sorted({len(a) for _, a in gt['extended_alignment_dataset']})} "
+                f"for {len(with_textgrid)} val utterances with TextGrids")
+        emp = {}
+        for suffix in ("", "_per_frame"):
+            dic = _load_pickle(os.path.join(
+                results,
+                f"{EXPERIMENT}_vctk_val_empirical_alignments{suffix}.pickle"))
+            seqs = [s for _, s in dic["all_alignments"]]
+            if (len(seqs) != n_val or {s.shape for s in seqs} != {(24,)}
+                    or {s.dtype for s in seqs} != {np.dtype(np.int32)}):
+                raise AssertionError(f"evaluate: empirical alignments{suffix}"
+                                     f" of {len(seqs)} utterances")
+            emp[suffix] = dic
+        scores = {}
+        for suffix in ("", "_per_frame"):
+            for metric in CLUSTERING_METRICS:
+                v = float(np.load(os.path.join(
+                    results, f"{EXPERIMENT}{suffix}_{metric}.npy")))
+                if not (np.isfinite(v) and -1.0 <= v <= 1.0):
+                    raise AssertionError(f"evaluate: {suffix} {metric} {v}")
+                scores[suffix + metric] = v
+        print(f"evaluate: CLI `main {' '.join(EVALUATE_FLAGS)}` on the "
+              f"epoch-{epoch} checkpoint: {cli_sec:.2f} s wall clock "
+              f"(process start included); {len(got_files)} files under the "
+              f"JAX package's names; {n_val} empirical alignments of 24 codes "
+              f"in each pairing; {len(gt_keys)} groundtruth alignments of "
+              f"{len(with_textgrid)} val utterances with TextGrids [{gpu}]")
+        print("evaluate scores (reference pairing / per-frame): " + ", ".join(
+            f"{m} {scores[m]:.5f} / {scores['_per_frame' + m]:.5f}"
+            for m in CLUSTERING_METRICS))
+
+        # 2. in process: the launch count, the model unchanged; the
+        # evaluator, not this script, sets the f32 numerics the CLI runs
+        torch.backends.cudnn.allow_tf32 = True
+        ev = Evaluator(exp, device="cuda", figures=False)
+        if torch.backends.cudnn.allow_tf32:
+            raise AssertionError("evaluate: the evaluator left cuDNN's TF32 "
+                                 "on")
+        model = ev._load_model()
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        _kernels.vq_search_cuda.launches = 0
+        t0 = time.perf_counter()
+        ev.evaluate(EVALUATE_OPTIONS)
+        entry = ev._evaluate_once()
+        torch.cuda.synchronize()
+        in_process_sec = time.perf_counter() - t0
+        launches = _kernels.vq_search_cuda.launches
+        # alignments in both pairings and the mapping at batch 32, the
+        # speaker and entropy pass at 16, the capture's one utterance
+        want_launches = 3 * math.ceil(n_val / 32) + math.ceil(n_val / 16) + 1
+        if launches != want_launches:
+            raise AssertionError(f"evaluate: {launches} vq_search launches, "
+                                 f"{want_launches} encode batches")
+        after = model.state_dict()
+        if before.keys() != after.keys() or not all(
+                torch.equal(v, after[k]) for k, v in before.items()):
+            raise AssertionError("evaluate: the evaluation changed the model")
+        for suffix, dic in emp.items():
+            again = _load_pickle(os.path.join(
+                "results_in_process",
+                f"{EXPERIMENT}_vctk_val_empirical_alignments{suffix}.pickle"))
+            if not all(np.array_equal(a, b) for (_, a), (_, b) in zip(
+                    again["all_alignments"], dic["all_alignments"])):
+                raise AssertionError(f"evaluate: in process, the empirical "
+                                     f"alignments{suffix} differ from the "
+                                     "CLI's")
+
+        # the single-batch capture
+        K = cfg["num_embeddings"]
+        idx = entry["encoding_indices"][:, 0]
+        if not np.array_equal(entry["encodings"].argmax(-1).reshape(-1), idx):
+            raise AssertionError("evaluate: encodings.argmax != indices")
+        codebook = model.vq.codebook.detach()
+        x = torch.from_numpy(entry["valid_originals"]).cuda()
+        with torch.inference_mode():
+            flat = reference_flatten(model.latents(x), codebook.shape[1])
+            d = vq_distances(flat, codebook).cpu().numpy()
+        d_err = np.abs(entry["distances"].reshape(-1, K) - d).max() / np.abs(
+            d).max()
+        flat64 = flat.double().cpu().numpy()
+        cb64 = codebook.double().cpu().numpy()
+        want_c = np.sqrt(((flat64[:, None] - cb64[None]) ** 2).sum(-1))
+        want_p = np.sqrt(((flat64[:, None] - flat64[None]) ** 2).sum(-1))[
+            np.triu_indices(len(flat64), 1)]
+        want_e = np.sqrt(((cb64[:, None] - cb64[None]) ** 2).sum(-1))[
+            np.triu_indices(K, 1)]
+        pair_err = max(
+            np.abs(entry["frames_vs_embedding_distances"].reshape(-1, K)
+                   - want_c).max() / want_c.max(),
+            np.abs(entry["encoding_distances"][0] - want_p).max()
+            / want_p.max(),
+            np.abs(entry["embedding_distances"] - want_e).max() / want_e.max())
+        if not (d_err <= CAPTURE_DISTANCE_RTOL and pair_err <= PAIRWISE_RTOL):
+            raise AssertionError(f"evaluate: capture distances {d_err:.2e}, "
+                                 f"pairwise {pair_err:.2e}")
+
+        # 3. K1 against the plain search on this path's batches
+        feats = alignment_stats.normalized_features(store.open("val"), cfg)
+        D = codebook.shape[1]
+        near_ties, plain = {}, {}
+        for suffix, dic in emp.items():
+            cli_codes = np.stack([s for _, s in dic["all_alignments"]])
+            n_diff, rows = 0, []
+            for at in range(0, n_val, 32):
+                xb = torch.from_numpy(feats[at:at + 32]).cuda()
+                with torch.inference_mode():
+                    z = model.latents(xb)
+                    fb = (z.transpose(1, 2).reshape(-1, D) if suffix
+                          else reference_flatten(z, D))
+                    want = vq_search_torch(fb, codebook).indices
+                got = torch.from_numpy(cli_codes[at:at + 32].reshape(-1)).cuda()
+                n_diff += _near_ties(fb, codebook, got, want,
+                                     NEAR_TIE_SAME_INPUT)
+                rows.append(want.view(xb.shape[0], -1).cpu().numpy())
+            near_ties[suffix] = n_diff
+            plain[suffix] = dict(dic, all_alignments=[
+                (k, s) for (k, _), s in zip(dic["all_alignments"],
+                                            np.concatenate(rows))])
+        scores_match = "not compared (near-tie rows differ)"
+        if not any(near_ties.values()):
+            os.makedirs("results_plain")
+            shutil.copy(os.path.join(
+                results, "vctk_val_groundtruth_alignments.pickle"),
+                "results_plain")
+            for suffix, dic in plain.items():
+                with open(os.path.join(
+                        "results_plain",
+                        f"{EXPERIMENT}_vctk_val_empirical_alignments"
+                        f"{suffix}.pickle"), "wb") as f:
+                    pickle.dump(dic, f)
+                got_scores = alignment_stats.compute_clustering_metrics(
+                    "results_plain", EXPERIMENT, "val", cfg,
+                    per_frame=bool(suffix))
+                for metric, value in got_scores.items():
+                    if value != scores[suffix + metric]:
+                        raise AssertionError(
+                            f"evaluate: {suffix} {metric} from the plain "
+                            f"search's alignments {value} vs the CLI's "
+                            f"{scores[suffix + metric]}")
+            scores_match = "equal to the CLI's"
+        print(f"evaluate: in process through Evaluator(device='cuda', "
+              f"figures=False), the same options with the speaker and "
+              f"entropy pass, then the single-batch capture: "
+              f"{in_process_sec:.3f} s, {launches} vq_search launches = the "
+              f"encode batches ({math.ceil(n_val / 32)} x 3 at batch 32, "
+              f"{math.ceil(n_val / 16)} at 16, 1 at 1); the model's "
+              f"parameters and buffers bit-equal after; empirical alignments "
+              f"equal to the CLI's; capture distances within {d_err:.1e} of "
+              f"vq_distances, pairwise within {pair_err:.1e} of float64 "
+              f"numpy; K1 against vq_search_torch on this path's batches: "
+              f"near-tie rows {near_ties['']} (reference pairing), "
+              f"{near_ties['_per_frame']} (per-frame), scores from the plain "
+              f"search's alignments {scores_match}")
+
+        # 4. the empirical sweep's rate and device profile
+        def sweep():
+            alignment_stats.compute_empirical_alignments(
+                model, store, "val", cfg, "results_sweep", EXPERIMENT)
+            torch.cuda.synchronize()
+
+        sweep_launches = math.ceil(n_val / 32)
+        sweep()
+        sweep_sec = _median_seconds(sweep, repeats=5)
+
+        def check(events):
+            return sum(e.count for e in events if "vq_" in e.key) == \
+                sweep_launches
+
+        window, events = device_events(sweep, check=check)
+        busy_us = sum(e.us for e in events)
+        k1_us = sum(e.us for e in events if "vq_" in e.key)
+        print(f"evaluate sweep (compute_empirical_alignments, {n_val} val "
+              f"utterances at batch 32, {sweep_launches} K1 launches): "
+              f"{n_val / sweep_sec:.1f} utterances/s ({sweep_sec * 1e3:.2f} "
+              f"ms, median of 5, host clock); torch.profiler window "
+              f"{window * 1e3:.2f} ms, device busy {busy_us / 1e3:.3f} ms, "
+              f"idle share {1 - busy_us / 1e6 / window:.3f}, K1 "
+              f"{k1_us:.1f} us = {k1_us / busy_us:.4f} of device time "
+              f"[{gpu}]")
+        for e in sorted(events, key=lambda e: -e.us)[:5]:
+            print(f"  {e.us:10.1f} us  {e.count:4d}x  {e.key[:90]}")
+        return launches
+    finally:
+        os.chdir(here)
 
 
 def _device_kernel_counts(fn):
@@ -1928,12 +2241,23 @@ def vocoder_phase(gpu):
     return launches
 
 
-PHASES = ("kernel", "slice", "train", "experiment", "step_kernel",
+PHASES = ("kernel", "slice", "train", "experiment", "evaluate", "step_kernel",
           "synthesis", "chain_kernel", "vocoder")
+# what a run may not import: the card's machine has none of them, and the
+# port needs none
+FORBIDDEN_IMPORTS = ("jax", "vqvae_speech_tpu", "sklearn", "matplotlib")
+
+
+def _check_imports():
+    imported = sorted(m for m in sys.modules
+                      if m.split(".")[0] in FORBIDDEN_IMPORTS)
+    if imported:
+        raise AssertionError(f"the run imported {imported}")
 
 
 def main():
     import argparse
+    import tempfile
 
     import torch
 
@@ -1978,35 +2302,45 @@ def main():
         print(f"phase {fn.__name__}: {time.perf_counter() - t:.2f} s")
         return out
 
-    if set(only) != set(PHASES):
-        for name, fn, args in (
-                ("kernel", kernel_phase, ()), ("slice", slice_phase, (gpu,)),
-                ("train", train_phase, (gpu,)),
-                ("experiment", experiment_phase, (gpu,)),
-                ("step_kernel", step_kernel_phase, (gpu,)),
-                ("synthesis", synthesis_phase, (gpu,)),
-                ("chain_kernel", chain_kernel_phase, (gpu,)),
-                ("vocoder", vocoder_phase, (gpu,))):
-            if name in only:
-                phase(fn, *args)
-        print(f"chip_smoke: partial run of {only}; no result line")
-        return
+    # the experiment phase trains jitter12 here, the evaluate phase scores it
+    work = tempfile.mkdtemp(prefix="chip_smoke_experiment_")
+    try:
+        if set(only) != set(PHASES):
+            if "evaluate" in only and "experiment" not in only:
+                phase(_train_one_epoch, work)
+            for name, fn, args in (
+                    ("kernel", kernel_phase, ()),
+                    ("slice", slice_phase, (gpu,)),
+                    ("train", train_phase, (gpu,)),
+                    ("experiment", experiment_phase, (gpu, work)),
+                    ("evaluate", evaluate_phase, (gpu, work)),
+                    ("step_kernel", step_kernel_phase, (gpu,)),
+                    ("synthesis", synthesis_phase, (gpu,)),
+                    ("chain_kernel", chain_kernel_phase, (gpu,)),
+                    ("vocoder", vocoder_phase, (gpu,))):
+                if name in only:
+                    phase(fn, *args)
+            _check_imports()
+            print(f"chip_smoke: partial run of {only}; no result line")
+            return
 
-    vq_err, (vq_ms, vq_plain_ms) = phase(kernel_phase)
-    encode_vq_launches = phase(slice_phase, gpu)
-    train_vq_launches, vq_device_ms, train_ms = phase(train_phase, gpu)
-    experiment_vq_launches, loop_ms, bare_ms = phase(experiment_phase, gpu)
-    print(f"experiment vs train: the loop {loop_ms:.3f} ms a step at batch 2 "
-          f"(no checkpoint), the bare step {bare_ms:.3f} ms at batch 2 and "
-          f"{train_ms:.3f} ms at batch 64 (train phase, gradient VQ) [{gpu}]")
+        vq_err, (vq_ms, vq_plain_ms) = phase(kernel_phase)
+        encode_vq_launches = phase(slice_phase, gpu)
+        train_vq_launches, vq_device_ms, train_ms = phase(train_phase, gpu)
+        experiment_vq_launches, loop_ms, bare_ms = phase(experiment_phase, gpu,
+                                                         work)
+        print(f"experiment vs train: the loop {loop_ms:.3f} ms a step at "
+              f"batch 2 (no checkpoint), the bare step {bare_ms:.3f} ms at "
+              f"batch 2 and {train_ms:.3f} ms at batch 64 (train phase, "
+              f"gradient VQ) [{gpu}]")
+        evaluate_vq_launches = phase(evaluate_phase, gpu, work)
+    finally:
+        shutil.rmtree(work)
     step_err, (step_ms, step_plain_ms) = phase(step_kernel_phase, gpu)
     step_launches, synth_vq_launches = phase(synthesis_phase, gpu)
     chains = phase(chain_kernel_phase, gpu)
     chain_launches = phase(vocoder_phase, gpu)
-    jax_side = sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("jax", "vqvae_speech_tpu"))
-    if jax_side:
-        raise AssertionError(f"the run imported JAX-side modules {jax_side}")
+    _check_imports()
 
     # no single PyTorch call computes any of these fused functions (a search
     # with its statistics, a whole layer stack, a whole resblock chain)
@@ -2028,7 +2362,7 @@ def main():
     print(json.dumps({"kernels": [
         line("vq_search", "vq_search.cu", "vqvae_speech_tpu/ops/vq.py:91",
              encode_vq_launches + train_vq_launches + experiment_vq_launches
-             + synth_vq_launches,
+             + evaluate_vq_launches + synth_vq_launches,
              dict(max_abs_err=vq_err, ms=vq_ms, plain_ms=vq_plain_ms,
                   bound_ms=vq_bound[0], bound_by=vq_bound[1]),
              # ms is by CUDA events, which at this size time the host's

@@ -5,7 +5,9 @@ plus ``--device`` (default "cuda": the entry point runs on the card unless
 asked for the CPU), ``--summary`` prints what the JAX CLI prints line for
 line, the default mode trains with ``--device cpu`` on a synthetic store,
 the export and stats modes write their files from a VCTK tree, and
-``--evaluate`` / ``--plot_experiments_losses`` raise naming ROADMAP item 9.
+``--evaluate`` / ``--plot_experiments_losses`` run, and refuse what only
+draws a figure under ``--no_figures`` (the port's second flag beside
+``--device``).
 """
 import argparse
 import json
@@ -22,7 +24,7 @@ import yaml
 from test_training import TINY_CFG, _setup
 from vqvae_speech_tpu import main as jmain
 from vqvae_speech_tpu_torch import main as tmain
-from vqvae_speech_tpu_torch.train import find_checkpoints
+from vqvae_speech_tpu_torch.train import Experiments, find_checkpoints
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(REPO_ROOT, "quality_parity", "raw", "VCTK-Corpus")
@@ -37,8 +39,10 @@ def _actions(parser):
 def test_parser_is_the_jax_parser_plus_device():
     got, want = _actions(tmain.build_parser()), _actions(jmain.build_parser())
     device = got.pop("device")
+    no_figures = got.pop("no_figures")
     assert got == want
     assert device[0] == ("--device",) and device[1] == "cuda"
+    assert no_figures[0] == ("--no_figures",) and no_figures[1] is False
     args = tmain.build_parser().parse_args(["--device", "cpu",
                                             "--alignment_subset", "train"])
     assert args.device == "cpu" and args.alignment_subset == "train"
@@ -120,8 +124,31 @@ def test_export_and_stats_modes_write_their_files(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", ["--evaluate", "--plot_experiments_losses"])
-def test_evaluation_modes_raise_naming_item_9(tmp_path, flag):
+def test_evaluation_modes_raise_naming_item_9(tmp_path, monkeypatch, flag):
+    """ROADMAP item 9 is ported: under --no_figures a mode or option that
+    only draws a figure raises naming the flag; otherwise the mode runs on
+    the CPU (an evaluation with no checkpoint takes a fresh init)."""
     root, spec_path, _ = _setup(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        tmain.main([flag, "--experiments_configuration_path", spec_path,
-                    "--device", "cpu"])
+    monkeypatch.chdir(root)       # the config's data_root is "."
+    args = [flag, "--experiments_configuration_path", spec_path,
+            "--device", "cpu"]
+    figure_only = ["--plot_distances_histogram"] if flag == "--evaluate" \
+        else []
+    with pytest.raises(ValueError, match="--no_figures"):
+        tmain.main(args + figure_only + ["--no_figures"])
+    results = os.path.join(root, "results")
+    if flag == "--evaluate":
+        assert tmain.main(args + ["--compute_alignments", "--no_figures"]) == 0
+        with open(os.path.join(
+                results, "tiny_vctk_val_empirical_alignments.pickle"),
+                "rb") as f:
+            emp = pickle.load(f)
+        assert [len(s) for _, s in emp["all_alignments"]] == [24] * 4
+        assert not [f for f in os.listdir(results) if f.endswith(".png")]
+    else:
+        Experiments.load(spec_path, data_root=os.path.join(root, "features"),
+                         device="cpu").train()
+        assert tmain.main(args + ["--experiments_path",
+                                  os.path.join(root, "experiments")]) == 0
+        assert os.path.isfile(os.path.join(
+            results, "tiny_losses-and-perplexities.png"))

@@ -125,12 +125,21 @@ def test_unported_options_raise(tmp_path, override, match):
 
 
 def test_evaluation_raises_and_the_device_is_named(tmp_path):
+    """Evaluation runs on the experiment's device; what only draws a
+    figure raises under figures=False, before any work."""
     root, spec_path, store_root = _setup(tmp_path)
     exps = Experiments.load(spec_path, data_root=store_root, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        exps.evaluate({})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        exps.experiments[0].evaluate({})
+    results = os.path.join(root, "results")
+    with pytest.raises(ValueError, match="plot_gradient_stats"):
+        exps.evaluate({"compute_alignments": True,
+                       "plot_gradient_stats": True}, figures=False)
+    with pytest.raises(ValueError, match="plot_comparaison_plot"):
+        exps.experiments[0].evaluate({"plot_comparaison_plot": True},
+                                     figures=False)
+    assert not os.listdir(results)
+    out = exps.evaluate({"compute_alignments": True}, figures=False)
+    assert set(out) == {"tiny"}
+    assert os.path.isfile(out["tiny"]["alignments"]["empirical"])
     with pytest.raises(TypeError, match="device"):
         Experiments.load(spec_path, data_root=store_root)
 

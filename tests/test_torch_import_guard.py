@@ -1,7 +1,9 @@
-"""PyTorch port: every module imports, and the CLI trains, with ``jax``,
-``optax``, ``yaml`` and the JAX package unimportable (the GPU machine has no
-JAX and no PyYAML). Run in a subprocess, where those names are set to None
-in ``sys.modules`` before anything is imported."""
+"""PyTorch port: every module imports, the CLI trains, and it evaluates
+with ``--no_figures``, with ``jax``, ``optax``, ``yaml``, ``sklearn``,
+``matplotlib``, ``umap`` and the JAX package unimportable (the GPU machine
+has no JAX, no PyYAML, no scikit-learn, no matplotlib and no UMAP). Run in a
+subprocess, where those names are set to None in ``sys.modules`` before
+anything is imported."""
 import os
 import subprocess
 import sys
@@ -11,7 +13,8 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 GUARD = textwrap.dedent("""
     import sys
-    for name in ("jax", "jaxlib", "optax", "yaml", "vqvae_speech_tpu"):
+    for name in ("jax", "jaxlib", "optax", "yaml", "vqvae_speech_tpu",
+                 "sklearn", "matplotlib", "umap"):
         sys.modules[name] = None
     sys.path.insert(0, {root!r})
 """)
@@ -37,8 +40,10 @@ def test_every_module_imports_without_jax_or_yaml(tmp_path):
             importlib.import_module(name)
         assert "vqvae_speech_tpu_torch.main" in names
         bad = sorted(m for m in sys.modules if m.split(".")[0] in
-                     ("jax", "jaxlib", "optax", "yaml", "vqvae_speech_tpu")
+                     ("jax", "jaxlib", "optax", "yaml", "vqvae_speech_tpu",
+                      "sklearn", "matplotlib", "umap")
                      and sys.modules[m] is not None)
+        assert "vqvae_speech_tpu_torch.eval.evaluator" in names
         print(len(names), "modules", bad)
     """, tmp_path)
     count, _, bad = out.split(maxsplit=2)
@@ -78,6 +83,73 @@ def test_the_cli_trains_without_jax_or_yaml(tmp_path):
         freeze_configuration(dict(frozen, num_epochs=3), "runs", "jitter12")
         assert main(args) == 0
         assert [e for e, _ in find_checkpoints("runs", "jitter12")] == [1, 2, 3]
+    """.replace("{base!r}", repr(os.path.join(REPO_ROOT, "configurations",
+                                             "vctk_features.yaml")))
+         , tmp_path)
+
+
+def test_the_cli_evaluates_without_sklearn_or_matplotlib(tmp_path):
+    """The port's synthetic phoneme corpus (TextGrids included), its export
+    and stats, one epoch of the default mode, then ``--evaluate`` with every
+    option that writes numbers and ``--no_figures``: the files are written
+    and no figure. With figures on, the same call raises ImportError naming
+    matplotlib and --no_figures before any work."""
+    _run("""
+        import json, os
+        import numpy as np
+        from vqvae_speech_tpu_torch.data import FeatureStore, compute_dataset_stats
+        from vqvae_speech_tpu_torch.data.export import export_to_features
+        from vqvae_speech_tpu_torch.data.synthetic_phonemes import (
+            build_phoneme_corpus)
+        from vqvae_speech_tpu_torch.data.vctk import VCTK
+        from vqvae_speech_tpu_torch.main import main
+        from vqvae_speech_tpu_torch.train.config import (
+            freeze_configuration, load_configuration)
+
+        build_phoneme_corpus("corpus", num_speakers=2, utts_per_speaker=5)
+        cfg = load_configuration({base!r})
+        cfg.update(num_hiddens=16, residual_channels=16, embedding_dim=8,
+                   data_root="corpus", normalizer_path="stats.pickle")
+        export_to_features(VCTK("corpus", ratio=0.8, shuffle_seed=0),
+                           "corpus/features", cfg, device="cpu")
+        compute_dataset_stats(FeatureStore("corpus/features"), "stats.pickle")
+        freeze_configuration(cfg, ".", "base")
+        spec = dict(experiments_path="runs", results_path="results",
+                    configuration_path="base_configuration.yaml", seed=3,
+                    experiments=dict(jitter12=dict(
+                        num_epochs=1, batch_size=2, num_embeddings=44,
+                        normalize=True, use_jitter=True,
+                        jitter_probability=0.12)))
+        with open("spec.json", "w") as f:
+            json.dump(spec, f)
+        args = ["--experiments_configuration_path", "spec.json",
+                "--device", "cpu"]
+        assert main(args) == 0
+        evaluate = args + [
+            "--evaluate", "--compute_alignments", "--per_frame_alignments",
+            "--compute_clustering_metrics", "--compute_many_to_one_mapping",
+            "--compute_groundtruth_average_phonemes_number"]
+        try:
+            main(evaluate)
+            raise AssertionError("figures on without matplotlib ran")
+        except ImportError as e:
+            assert "matplotlib" in str(e) and "--no_figures" in str(e), e
+        assert not os.path.exists("results/jitter12_tokens_mapping.pickle")
+        assert main(evaluate + ["--no_figures"]) == 0
+        files = sorted(os.listdir("results"))
+        for name in ("vctk_val_groundtruth_alignments.pickle",
+                     "jitter12_vctk_val_empirical_alignments.pickle",
+                     "jitter12_vctk_val_empirical_alignments_per_frame.pickle",
+                     "jitter12_tokens_mapping.pickle",
+                     "jitter12_phonemes_mapping.pickle",
+                     "jitter12_adjusted_rand_score.npy",
+                     "jitter12_per_frame_normalized_mutual_info_score.npy",
+                     "vctk_val_groundtruth_bigrams_wo_diag_20ms.npy",
+                     "jitter12_vctk_val_empirical_bigrams_wo_diag_10ms.npy"):
+            assert name in files, (name, files)
+        assert not [f for f in files if f.endswith(".png")]
+        ari = float(np.load("results/jitter12_adjusted_rand_score.npy"))
+        assert -1 <= ari <= 1
     """.replace("{base!r}", repr(os.path.join(REPO_ROOT, "configurations",
                                              "vctk_features.yaml")))
          , tmp_path)

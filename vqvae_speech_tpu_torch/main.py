@@ -1,19 +1,24 @@
-"""CLI: train / export features / dataset stats, on the GPU by default.
+"""CLI: train / export features / dataset stats / evaluate / plots, on the
+GPU by default.
 
 Counterpart of ``vqvae_speech_tpu/main.py`` (flag parity with reference
 src/main.py:68-146), with the same flags plus ``--device`` ("cuda" unless
-the caller asks for "cpu"). The configuration's ``use_cuda`` and
-``use_device`` keys stay ignored, as in the JAX package. Modes:
+the caller asks for "cpu") and ``--no_figures`` (write the evaluation's
+number files and draw nothing: the GPU machine has no matplotlib; an
+option that only draws a figure then raises). The configuration's
+``use_cuda`` and ``use_device`` keys stay ignored, as in the JAX package.
+Modes:
 
     python -m vqvae_speech_tpu_torch.main --export_to_features
     python -m vqvae_speech_tpu_torch.main --compute_dataset_stats
     python -m vqvae_speech_tpu_torch.main              # train, auto-resume
+    python -m vqvae_speech_tpu_torch.main --evaluate --compute_alignments \
+        --compute_clustering_metrics --no_figures
+    python -m vqvae_speech_tpu_torch.main --plot_experiments_losses
     python -m vqvae_speech_tpu_torch.main --summary configurations/vctk_features.yaml
 
 Paths are the JAX CLI's: ``configurations/vctk_features.yaml``, the
 experiments JSON and ``--dataset_path`` relative to the working directory.
-``--evaluate`` and ``--plot_experiments_losses`` raise: evaluation and the
-plots are ROADMAP item 9's.
 """
 import argparse
 import os
@@ -72,7 +77,12 @@ def build_parser():
     p.add_argument("--plot_gradient_stats", action="store_true")
     p.add_argument("--device", default="cuda", type=str,
                    help="Where the features are computed and the model "
-                        "trains: cuda (a GPU), or cpu when asked for")
+                        "trains and is evaluated: cuda (a GPU), or cpu "
+                        "when asked for")
+    p.add_argument("--no_figures", action="store_true",
+                   help="write the evaluation's number files and draw no "
+                        "figure (no matplotlib needed); an option that only "
+                        "draws a figure raises")
     return p
 
 
@@ -89,7 +99,18 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     from vqvae_speech_tpu_torch.train import Experiments, load_configuration
-    from vqvae_speech_tpu_torch.train.experiment import EVALUATION_NOT_PORTED
+
+    evaluation_options = {
+        k: getattr(args, k) for k in (
+            "plot_comparaison_plot", "plot_quantized_embedding_spaces",
+            "compute_quantized_embedding_spaces_animation",
+            "plot_distances_histogram", "compute_many_to_one_mapping",
+            "compute_alignments", "alignment_subset",
+            "compute_clustering_metrics", "per_frame_alignments",
+            "compute_groundtruth_average_phonemes_number",
+            "plot_clustering_metrics_evolution",
+            "check_clustering_metrics_stability_over_seeds",
+            "plot_gradient_stats")}
 
     if args.summary:
         from vqvae_speech_tpu_torch.convert import jax_param_leaves
@@ -108,8 +129,16 @@ def main(argv=None):
             print(f"  {name}: {shape}")
         return 0
 
-    if args.plot_experiments_losses or args.evaluate:
-        raise NotImplementedError(EVALUATION_NOT_PORTED)
+    if args.plot_experiments_losses:
+        from vqvae_speech_tpu_torch.eval.evaluator import check_figures
+        from vqvae_speech_tpu_torch.eval.losses_plotter import (
+            plot_training_losses)
+
+        check_figures({"plot_experiments_losses": True}, not args.no_figures)
+        exps = Experiments.load(args.experiments_configuration_path,
+                                device=args.device)
+        plot_training_losses(exps.experiments, args.experiments_path)
+        return 0
 
     if args.export_to_features:
         from vqvae_speech_tpu_torch.data.export import export_to_features
@@ -133,6 +162,13 @@ def main(argv=None):
         compute_dataset_stats(FeatureStore(features_root),
                               configuration["normalizer_path"])
         ConsoleLogger.success("Dataset stats computed")
+        return 0
+
+    if args.evaluate:
+        Experiments.load(args.experiments_configuration_path,
+                         device=args.device).evaluate(
+            evaluation_options, figures=not args.no_figures)
+        ConsoleLogger.success("All evaluating experiments done")
         return 0
 
     Experiments.load(args.experiments_configuration_path,

@@ -19,9 +19,14 @@ the init distributions of the JAX package's ``conv_vqvae_init``, drawn from
 numpy (``jax.random``'s stream cannot be reproduced, PARITY #3). The loader's
 shuffle is numpy's, seeded alike, so both packages see the same batches.
 
+``evaluate`` runs ``eval.Evaluator`` on the experiment's device, with the
+cross-experiment evolution and stability plots in ``Experiments.evaluate``;
+``figures=False`` writes the number files alone (the GPU machine has no
+matplotlib).
+
 Not ported: ``decoder_type: wavenet`` (the WaveNet trainer, ROADMAP item
-10), data parallelism (``use_data_parallel``, item 14) and evaluation (item
-9) raise here; ``compute_dtype`` (items 11.4 and 12.6) raises in the step.
+10) and data parallelism (``use_data_parallel``, item 14) raise here;
+``compute_dtype`` (items 11.4 and 12.6) raises in the step.
 """
 import json
 import os
@@ -44,11 +49,6 @@ from vqvae_speech_tpu_torch.train.config import (
 )
 from vqvae_speech_tpu_torch.train.trainer import ConvolutionalTrainer
 from vqvae_speech_tpu_torch.utils.logger import ConsoleLogger
-
-EVALUATION_NOT_PORTED = (
-    "evaluation and the plots are not ported yet (ROADMAP item 9: the "
-    "evaluator and its plotting modules)")
-
 
 class Experiment:
     def __init__(self, name, experiments_path, results_path,
@@ -137,8 +137,14 @@ class Experiment:
         ConsoleLogger.success(f"Experiment '{self.name}' done")
         return state
 
-    def evaluate(self, evaluation_options, data_root=None):
-        raise NotImplementedError(EVALUATION_NOT_PORTED)
+    def evaluate(self, evaluation_options, data_root=None, *,
+                 figures: bool = True):
+        from vqvae_speech_tpu_torch.eval.evaluator import Evaluator
+
+        ConsoleLogger.status(f"Evaluating the experiment called '{self.name}'")
+        ev = Evaluator(self, data_root=data_root or self._data_root,
+                       device=self.device, figures=figures)
+        return ev.evaluate(evaluation_options)
 
 
 class Experiments:
@@ -149,8 +155,33 @@ class Experiments:
         for experiment in self.experiments:
             experiment.train()
 
-    def evaluate(self, evaluation_options):
-        raise NotImplementedError(EVALUATION_NOT_PORTED)
+    def evaluate(self, evaluation_options, *, figures: bool = True):
+        from vqvae_speech_tpu_torch.eval.evaluator import check_figures
+
+        check_figures(evaluation_options, figures)
+        results = {}
+        for experiment in self.experiments:
+            results[experiment.name] = experiment.evaluate(
+                evaluation_options, figures=figures)
+        # cross-experiment aggregations (reference experiments.py:69-116)
+        if self.experiments:
+            names = [e.name for e in self.experiments]
+            result_path = self.experiments[0].results_path
+            if evaluation_options.get("plot_clustering_metrics_evolution"):
+                from vqvae_speech_tpu_torch.eval.alignment_stats import (
+                    compute_clustering_metrics_evolution)
+
+                results["clustering_metrics_evolution"] = \
+                    compute_clustering_metrics_evolution(names, result_path)
+            if evaluation_options.get(
+                    "check_clustering_metrics_stability_over_seeds"):
+                from vqvae_speech_tpu_torch.eval.alignment_stats import (
+                    check_clustering_metrics_stability_over_seeds)
+
+                results["clustering_metrics_stability"] = \
+                    check_clustering_metrics_stability_over_seeds(
+                        names, result_path)
+        return results
 
     @staticmethod
     def load(experiments_path: str, data_root=None, *,
