@@ -6,7 +6,8 @@
 1. Builds the three hand-written kernel sources, one nvcc each, in
    parallel: the fused VQ codebook search (csrc/vq_search.cu), the fused
    WaveNet decode-step layer stack (csrc/wavenet_step.cu) and the fused
-   gated-resblock chains (csrc/fused_resblock.cu).
+   gated-resblock chains in f32 and bf16 (csrc/fused_resblock.cu), and
+   checks that the chains' binary holds TF32 and bf16 wgmma instructions.
 2. VQ kernel phase: holds vq_search against its plain PyTorch version on
    the same CUDA tensors at the serving, training and benchmark shapes, runs
    each twice and requires bit-equal outputs, counts the device kernels one
@@ -94,7 +95,15 @@
    of its two decompositions) and the plain chain, states the card's f32
    bound and the tensor cores' bound for each, what one TF32 product a f32
    product would have cost in error, and what cuBLAS takes for the
-   student chain's products alone in f32 and in one-pass TF32.
+   student chain's products alone in f32, in one-pass TF32 and in bf16.
+   Then the three bf16 entry points (x, c_up and weights bf16, one bf16
+   wgmma product a product) at the same shapes but the ragged and deep ones:
+   bit-equal over two runs, held to the plain bf16 chain within
+   BF16_SPREAD_MULTIPLE times the spread between two summation orders of
+   that chain (bf16_chain_check), their prepared bf16 weights against the
+   plain layout, one bare bf16 product of the main loop against
+   torch.matmul; timed beside the plain bf16 chain and the f32 kernel, with
+   the bound at the bf16 tensor rate.
 7. Vocoder slice phase: the one-pass vocoders at paper width
    (numpy_student_params / numpy_flowavenet_params, seed 0) behind
    BucketedParallelSynthesisServer: eight VCTK requests -> normalized
@@ -106,10 +115,17 @@
    against (c) request by request, and one short request a kind against
    the JAX package's wave (tests/data/torch_port_vocoder_golden.npz);
    drives the whole-T chain entry point on the student's own weights;
-   reports samples/s and ms a request.
+   reports samples/s and ms a request. Then the bf16 serving configuration
+   (compute_dtype=bfloat16) of each kind: the same 8 requests through a
+   fused server at max_batch 1 (every chain one call of the bf16 chain
+   kernel, counted) and a plain one at max_batch 8, fused held against
+   plain, the golden request against the JAX package's bf16 server's wave
+   (tests/data/torch_port_vocoder_golden_bf16.npz), times, and the bf16
+   whole-T entry point on the student's first chain loaded at bf16.
 
 Exits non-zero on any failure, and without a CUDA device. The last two lines
-of output are a JSON object of per-kernel results and the JSON status line.
+of output are a JSON object of per-kernel results (the five f32 entry
+points and the three bf16 ones) and the JSON status line.
 Imports nothing of JAX.
 
     python3 chip_smoke.py --phases step_kernel,synthesis
@@ -264,6 +280,10 @@ VOCODER_BUCKETS = (8, 20, 40, 80)   # 8 holds the golden request alone
 VOCODER_FRAMES = (20, 17, 40, 33, 80, 64, 80, 51)   # p300_000..007
 VOCODER_GOLDEN = os.path.join(REPO_ROOT, "tests", "data",
                               "torch_port_vocoder_golden.npz")
+# the same request through the JAX package's bf16 server (compute_dtype
+# bf16, plain, one jitted program)
+VOCODER_BF16_GOLDEN = os.path.join(REPO_ROOT, "tests", "data",
+                                   "torch_port_vocoder_golden_bf16.npz")
 GOLDEN_FRAMES = 8
 # the fused chains against their plain versions on unit-scale inputs: sums
 # of up to 1408 f32 terms a layer in another order, through up to 6 layers
@@ -285,15 +305,87 @@ CHAIN_SHAPES = (
     ("flow block 7, ragged T", "nc", 2, 3, (1, 2), 81, 256, 256, 256, 10240),
     ("deep dilations", "nc", 4, 3, (1, 2, 4, 8), 160, 16, 32, 16, 8),
 )
+# the bf16 entry points at the f32 rows' shapes (K3 at T=20480 and 5119,
+# K5 at 4096, K4 at the eight flow blocks); ragged shapes and both paths
+# are the card tests' (tests/test_torch_fused_resblock_kernel.py)
+BF16_CHAIN_SHAPES = tuple(
+    shape for shape in CHAIN_SHAPES
+    if shape[0] not in ("flow block 7, ragged T", "deep dilations"))
+# The bf16 chains: the kernel and its plain bf16 chain round x to bf16 after
+# every layer from f32 sums taken in different orders, so some elements land
+# on the other side of a rounding and the flip propagates (through a 6-layer
+# chain to a third of x). The yardstick is the spread between two legitimate
+# orders of the plain chain: its f32 sums as cuBLAS takes them, and the same
+# sums correctly rounded (fused_block_chain_bf16_torch(exact=True),
+# float64 products and sums). The kernel's max abs error against the plain
+# chain, on x and skip, is held to BF16_SPREAD_MULTIPLE times that spread
+# (or one bf16 ulp of the largest |x|, where a small shape shows none); the
+# share of x elements in which the kernel differs from the exact chain, to
+# the multiple of the share in which the plain chain does, or of
+# BF16_SHARE_FLOOR: at a few thousand rows one early flip that cascades
+# through the next layer's taps moves the share by a few tenths of a percent
+# (flow block 7's shape at T=81: the kernel 0 and 0.58% off the exact chain
+# on two seeds, the plain chain 0.024% and 0.039%), while a systematic
+# defect moves tens of percent (a bf16 sigmoid rounded once where JAX rounds
+# each step moved a third of its outputs). Measured on an H100
+# (scripts/bf16_chain_accumulation_cuda.py): a bare product of the bf16 loop
+# is as close to float64 as cuBLAS's f32 one at K = 464-10240 (mean 1.5e-7
+# against 1.6e-7 at K=10240; without the accumulator's promotion 9e-6), and
+# the chains' shares 0-1.8 times the plain chain's.
+BF16_SHARE_FLOOR = 2.5e-3
+BF16_SPREAD_MULTIPLE = 4
 # a fused server's wave against the plain server's and against the JAX
 # package's golden wave (f32 conv stacks of up to ~150 layers in another
 # summation order, through exp() of the flows' log-scales)
 VOCODER_TOL = 1e-3
+# bf16 servers, (max abs, mean abs) over a wave. Against the bf16 golden
+# wave: about twice the JAX package's own spread on that request between
+# its jitted server and its eager ops (max 0.031 / 0.109, mean 0.0042 /
+# 0.0083 for the student / the flow; the port follows JAX's eager ops).
+# Fused (max_batch 1) against plain (max_batch 8): twice the largest
+# difference over the smoke's 8 requests on the CPU (max 0.078 / 0.281, mean
+# 0.0039 / 0.0089): the fused chain keeps its gate and skip sums in f32
+# where the plain resblocks round every op to bf16, a difference the size
+# of bf16's own error (the plain bf16 server is 0.061 / 0.53 off the f32
+# one).
+VOCODER_BF16_GOLDEN_TOL = {"iaf_student": (0.0625, 0.0084),
+                           "flowavenet": (0.25, 0.0166)}
+VOCODER_BF16_FUSED_TOL = {"iaf_student": (0.156, 0.0078),
+                          "flowavenet": (0.5625, 0.0178)}
 # NVIDIA's published peaks for the H100 SXM: f32 outside the tensor cores,
-# dense TF32 on them, and device memory
+# dense TF32 and dense bf16 on them, and device memory
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+
+
+def bf16_chain_check(name, got, want, exact):
+    """Hold a bf16 chain kernel's (x, skip) to its plain bf16 chain ``want``
+    within BF16_SPREAD_MULTIPLE times the spread between ``want`` and
+    ``exact``, the plain chain with its sums correctly rounded (see
+    BF16_SPREAD_MULTIPLE); raises, else returns (max abs error, spread, the
+    kernel's share of x off the exact chain, the plain chain's share)."""
+    import math
+
+    def diff(a, b):
+        return max((u.float() - v.float()).abs().max().item()
+                   for u, v in zip(a, b))
+
+    err, spread = diff(got, want), diff(exact, want)
+    flips = (got[0] != exact[0]).float().mean().item()
+    spread_flips = (want[0] != exact[0]).float().mean().item()
+    peak = want[0].float().abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(peak)) - 7) if peak > 0 else 0.0
+    limit = BF16_SPREAD_MULTIPLE * max(spread, ulp)
+    flip_limit = BF16_SPREAD_MULTIPLE * max(spread_flips, BF16_SHARE_FLOOR)
+    if not (err <= limit and flips <= flip_limit):
+        raise AssertionError(
+            f"{name}: bf16 kernel off its plain chain by {err:.3e} (limit "
+            f"{limit:.3e}, spread {spread:.3e}); {flips:.2e} of x off the "
+            f"exact chain (limit {flip_limit:.2e}, the plain chain "
+            f"{spread_flips:.2e})")
+    return err, spread, flips, spread_flips
 
 
 def smoke_requests():
@@ -412,7 +504,7 @@ def _nvidia_smi():
 def _tensor_core_instructions(_kernels):
     """A line saying how many warpgroup matrix instructions (HGMMA in SASS)
     the built chain library holds, by the toolkit's cuobjdump; raises if it
-    holds none."""
+    holds none, or no bf16 one."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     lib = os.path.join(_kernels.BUILD_DIR, "libfused_resblock.so")
@@ -424,6 +516,9 @@ def _tensor_core_instructions(_kernels):
            if w.startswith("HGMMA")]
     if not ops:
         raise AssertionError("no HGMMA instruction in the chain kernels' SASS")
+    if not any("BF16" in op for op in ops):
+        raise AssertionError("no bf16 HGMMA instruction in the chain kernels' "
+                             f"SASS: {sorted(set(ops))}")
     return (f"SASS of csrc/fused_resblock.cu (cuobjdump -sass): {len(ops)} "
             f"warpgroup matrix instructions, {sorted(set(ops))}")
 
@@ -1895,6 +1990,29 @@ def chain_bound(L, k, T, C, G, S, cin):
     return (*_bound(flops, nbytes), tensor_ms)
 
 
+def chain_bound_bf16(L, k, T, C, G, S, cin):
+    """One bf16 chain: the same operations, on bf16 x, c_up and weights
+    (f32 biases), x written in bf16 and skip in f32. Returns (bound_ms,
+    bound_by, bytes_ms, tensor_ms): the bytes over the memory rate, the
+    operations over the tensor cores' dense bf16 peak, and the larger."""
+    flops = T * L * (2 * (k * C + cin) * 2 * G + 2 * G * (C + S))
+    weights = L * (2 * k * C * G + 2 * cin * G + G * (C + S))
+    nbytes = (2 * (T * (C + cin) + weights + T * C)
+              + 4 * (L * (2 * G + C + S) + T * S))
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return (*bound, bytes_ms, ops_ms)
+
+
+def _bf16_chain(x, c, stacked):
+    """The chain's inputs as the bf16 configuration gives them: x, c_up and
+    the weights rounded to bf16, the biases f32."""
+    return x.bfloat16(), c.bfloat16(), {
+        n: w if n in ("bf", "bg", "bres", "bskip") else w.bfloat16()
+        for n, w in stacked.items()}
+
+
 def _random_chain(rng, L, k, T, C, G, S, cin):
     """Unit-scale x (T, C) and c_up (T, cin) and stacked chain weights scaled
     by 1/sqrt(fan-in), as a weight-normed init gives them, on the card."""
@@ -1944,12 +2062,28 @@ def _main_loop_check(rng):
           f"{errs[2]:.3e}); within rtol 1e-5, atol 2e-5 of torch.matmul; "
           f"{ms:.4f} ms, {3 * 2 * M * N * K / ms / 1e9:.0f} TFLOP/s of TF32 "
           f"work")
+    # the bf16 form: one bf16 product of the same bf16 values, exact
+    # products summed in f32
+    a16, b16 = a.bfloat16(), b.t().contiguous().bfloat16()
+    got = _kernels.bf16_matmul_cuda(a16, b16)
+    want = a16.float() @ b16.float().t()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+    exact = a16.double() @ b16.double().t()
+    errs = [(t.double() - exact).abs().max().item() for t in (got, want)]
+    ms = _median_ms(lambda: _kernels.bf16_matmul_cuda(a16, b16), iters=20)
+    print(f"kernel fused_block_chain_bf16 main loop: the same product of bf16 "
+          f"values by wgmma m64n128k16 bf16: max abs err against float64 "
+          f"{errs[0]:.3e} (torch.matmul of the values in f32 {errs[1]:.3e}); "
+          f"within rtol 1e-5, atol 2e-5 of it; {ms:.4f} ms, "
+          f"{2 * M * N * K / ms / 1e9:.0f} TFLOP/s of bf16 work")
 
 
 def _gemm_yardstick(gpu, L=6, T=20480):
     """What cuBLAS takes for the student chain's products alone, (T, 464) @
-    (464, 512) and (T, 256) @ (256, 256) L times, in f32 and in one-pass
-    TF32. The port never calls it; allow_tf32 is restored."""
+    (464, 512) and (T, 256) @ (256, 256) L times, in f32, in one-pass TF32
+    and in bf16 (bf16 operands and output, f32 sums). The port never calls
+    it; allow_tf32 is restored. Returns the bf16 ms."""
     import torch
 
     rng = np.random.default_rng(SEED)
@@ -1969,12 +2103,15 @@ def _gemm_yardstick(gpu, L=6, T=20480):
             times[tf32] = _median_ms(products, iters=20, warmup=3)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = old
+    mats = [m.bfloat16() for m in mats]
+    bf16_ms = _median_ms(products, iters=20, warmup=3)
     print(f"yardstick: the student chain's products alone at T={T}, {L} x "
           f"[({T}, 464) @ (464, 512) + ({T}, 256) @ (256, 256)] by "
           f"torch.matmul: {times[False]:.4f} ms in f32, {times[True]:.4f} ms "
           f"with allow_tf32 (one TF32 product a f32 product; 3 x that is "
-          f"{3 * times[True]:.4f} ms); no bias, activation or epilogue "
-          f"[{gpu}]")
+          f"{3 * times[True]:.4f} ms), {bf16_ms:.4f} ms in bf16; no bias, "
+          f"activation or epilogue [{gpu}]")
+    return bf16_ms
 
 
 def chain_kernel_phase(gpu):
@@ -1986,12 +2123,18 @@ def chain_kernel_phase(gpu):
     shape on prepared weights, as the shapes route it and forced onto the
     row-tiled and the split decomposition (the shapes choose one; the other
     shows where the switch lies), holding both against the plain chain.
-    Returns {wrapper: its kernels-line numbers at the first shape listed
-    for it}."""
+    Then the three bf16 entry points at BF16_CHAIN_SHAPES: bit-equal over
+    two runs, held to the plain bf16 chain by bf16_chain_check, their
+    prepared bf16 weights against the plain layout, timed beside the plain
+    bf16 chain and the f32 kernel at the same shape. Returns {wrapper, and
+    wrapper + "_bf16": its kernels-line numbers at the first shape listed
+    for it} and cuBLAS's bf16 time for the student chain's products alone
+    under "yardstick_bf16_ms"."""
     import torch
     from vqvae_speech_tpu_torch.ops import _kernels
     from vqvae_speech_tpu_torch.ops import fused_resblock as fused
 
+    f32_ms = {}
     calls = {
         "tiled": (fused.fused_block_chain_tiled,
                   fused.fused_block_chain_tiled_torch,
@@ -2053,6 +2196,7 @@ def chain_kernel_phase(gpu):
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, tensor_bound_ms=tensor_ms))
             row["max_abs_err"] = max(row["max_abs_err"], err)
+            f32_ms[name] = ms
             coarse = ""
             if T == 20480:
                 # what one TF32 product a f32 product would have cost
@@ -2075,7 +2219,68 @@ def chain_kernel_phase(gpu):
                   f"({tensor_ms / ms:.3f}; median of 20, CUDA events); "
                   f"forced row-tiled {forced['rows']:.4f} ms, forced split "
                   f"{forced['split']:.4f} ms (median of 10) [{gpu}]")
-    _gemm_yardstick(gpu)
+    with torch.inference_mode():
+        for name, which, L, k, dil, T, C, G, S, cin in BF16_CHAIN_SHAPES:
+            x, c, stacked = _bf16_chain(
+                *_random_chain(rng, L, k, T, C, G, S, cin))
+            kernel = calls[which][0]
+            extra = () if dil is None else (dil,)
+            causal = dil is None
+            got = kernel(x, c, stacked, L, k, *extra)
+            split = _kernels._fused_chain_launch.last_split
+            again = kernel(x, c, stacked, L, k, *extra)
+            want, exact = (fused.fused_block_chain_bf16_torch(
+                x, c, stacked, L, k, dil, causal=causal, exact=e)
+                for e in (False, True))
+            torch.cuda.synchronize()
+            for g, g2 in zip(got, again):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"bf16 {name}: two runs on the same "
+                                         "inputs differ")
+            err, spread, flips, spread_flips = bf16_chain_check(
+                f"bf16 {name}", got, want, exact)
+            prepared = fused.prepare_block_chain(stacked)
+            layout = fused.prepared_chain_weights_torch(stacked)
+            torch.cuda.synchronize()
+            if not (torch.equal(prepared.wgate, layout["wgate"])
+                    and torch.equal(prepared.wproj, layout["wproj"])):
+                raise AssertionError(f"bf16 {name}: the prepared weights "
+                                     "differ from the plain layout")
+            del layout
+            for g, p in zip(got, kernel(x, c, prepared, L, k, *extra)):
+                if not torch.equal(g, p):
+                    raise AssertionError(f"bf16 {name}: the prepared chain "
+                                         "and the bare call differ")
+            ms = _median_ms(lambda: kernel(x, c, prepared, L, k, *extra),
+                            iters=20, warmup=3)
+            plain_ms = _median_ms(
+                lambda: fused.fused_block_chain_bf16_torch(
+                    x, c, stacked, L, k, dil, causal=causal),
+                iters=20, warmup=3)
+            bound_ms, bound_by, bytes_ms, tensor_ms = chain_bound_bf16(
+                L, k, T, C, G, S, cin)
+            row = out.setdefault(f"{which}_bf16", dict(
+                max_abs_err=0.0, spread=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                tensor_bound_ms=tensor_ms))
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["spread"] = max(row["spread"], spread)
+            print(f"kernel fused_block_chain_bf16[{which}] {name}: L={L} k={k} "
+                  f"dilations={dil or 'k**l'} T={T} C={C} G={G} S={S} "
+                  f"cin={cin}: max_abs_err {err:.3e} against the plain bf16 "
+                  f"chain, whose spread to the same chain with exact sums is "
+                  f"{spread:.3e}; {flips:.2e} of x off the exact chain "
+                  f"against the plain chain's {spread_flips:.2e} (limits "
+                  f"{BF16_SPREAD_MULTIPLE} x), two runs bit-equal, "
+                  f"prepared bf16 weights ({prepared.nbytes / 1e6:.1f} MB) "
+                  f"equal the plain layout; kernel {ms:.4f} ms on the "
+                  f"{'split' if split else 'row-tiled'} path (f32 kernel "
+                  f"{f32_ms[name]:.4f} ms), plain bf16 chain {plain_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms by {bound_by} (bytes at bf16 "
+                  f"{bytes_ms:.4f} ms, tensor bound at the dense bf16 peak "
+                  f"{tensor_ms:.4f} ms; {bound_ms / ms:.3f} of the kernel's "
+                  f"time; median of 20, CUDA events) [{gpu}]")
+    out["yardstick_bf16_ms"] = _gemm_yardstick(gpu)
     return out
 
 
@@ -2094,22 +2299,26 @@ def _prepared_bytes(tree):
 
 
 def vocoder_phase(gpu):
-    """One-pass vocoder serving at paper width; returns the chain kernels'
-    launch counts on the main path, {wrapper: count}."""
+    """One-pass vocoder serving at paper width, each kind in f32 and in
+    bf16 (_serve_kind), then the whole-T entry point at both dtypes; returns
+    the chain kernels' launch counts on the main path, {wrapper: count}."""
     import torch
     from vqvae_speech_tpu_torch.convert import load_student_params
     from vqvae_speech_tpu_torch.ops import _kernels
     from vqvae_speech_tpu_torch.ops import fused_resblock as fused
-    from vqvae_speech_tpu_torch.serve import BucketedParallelSynthesisServer
 
     t0 = time.perf_counter()
     models = vocoder_models()
     mels = vocoder_requests("cuda")
-    golden = np.load(VOCODER_GOLDEN)
+    golden_f32 = np.load(VOCODER_GOLDEN)
+    golden_bf16 = np.load(VOCODER_BF16_GOLDEN)
     golden_mel, golden_z = vocoder_golden_inputs()
     wrappers = {"tiled": _kernels.fused_block_chain_tiled_cuda,
                 "chain": _kernels.fused_block_chain_cuda,
-                "nc": _kernels.fused_block_chain_nc_cuda}
+                "nc": _kernels.fused_block_chain_nc_cuda,
+                "tiled_bf16": _kernels.fused_block_chain_tiled_bf16_cuda,
+                "chain_bf16": _kernels.fused_block_chain_bf16_cuda,
+                "nc_bf16": _kernels.fused_block_chain_nc_bf16_cuda}
     n_samples = sum(m.shape[0] for m in mels) * VOCODER_HOP
     print(f"vocoder: set-up {time.perf_counter() - t0:.2f} s (random "
           f"paper-width weights, {len(mels)} requests of "
@@ -2122,97 +2331,13 @@ def vocoder_phase(gpu):
                          else ("nc", cfg.n_block * cfg.n_flow))
         common = dict(frame_buckets=VOCODER_BUCKETS, temp=VOCODER_TEMP,
                       device="cuda", **kw)
-        fused_server = BucketedParallelSynthesisServer(
-            kind, params, cfg, max_batch=1, use_fused_chain=True, **common)
-        plain_server = BucketedParallelSynthesisServer(
-            kind, params, cfg, max_batch=8, **common)
-
-        # the main path: mel requests -> buckets -> one-pass synthesis, every
-        # resblock chain one call of the chain kernel
-        for w in wrappers.values():
-            w.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        results = fused_server.synthesize(mels, seed=SEED)
-        main_sec = time.perf_counter() - t0
-        counts = {n: w.launches for n, w in wrappers.items()}
-        want_counts = {n: chains * len(mels) if n == which else 0
-                       for n in wrappers}
-        if counts != want_counts:
-            raise AssertionError(f"{kind}: chain kernel launches {counts}, "
-                                 f"expected {want_counts}")
-        launches[which] = counts[which]
-        if sorted({r.bucket for r in results}) != [20, 40, 80]:
-            raise AssertionError(f"{kind}: requests filled buckets "
-                                 f"{sorted({r.bucket for r in results})}")
-        for mel, r in zip(mels, results):
-            if r.wave.shape != (mel.shape[0] * VOCODER_HOP,):
-                raise AssertionError(f"{kind}: wave {r.wave.shape} for "
-                                     f"{mel.shape[0]} frames")
-            if not (np.isfinite(r.wave).all() and r.wave.std() > 1e-3):
-                raise AssertionError(f"{kind}: wave not finite or constant")
-        print(f"vocoder {kind}: {len(mels)} requests through buckets "
-              f"[20, 40, 80], {fused_server.stats['launches']} launches, "
-              f"{chains} chains a request; kernel launches {counts}; main "
-              f"path {main_sec:.3f} s (first calls included); the chains' "
-              f"prepared weights hold "
-              f"{_prepared_bytes(fused_server._params) / 1e6:.1f} MB")
-
-        # (a)/(b) against (c): the plain path at max_batch 8, the same noise
-        reference = plain_server.synthesize(mels, seed=SEED)
-        diffs = [float(np.abs(r.wave - p.wave).max())
-                 for r, p in zip(results, reference)]
-        if not max(diffs) <= VOCODER_TOL:
-            raise AssertionError(f"{kind}: fused vs plain server waves differ "
-                                 f"by up to {max(diffs):.3e} > {VOCODER_TOL}")
-        (got,) = fused_server.synthesize([golden_mel], noises=[golden_z])
-        golden_err = float(np.abs(got.wave - golden[kind]).max())
-        if not golden_err <= VOCODER_TOL:
-            raise AssertionError(f"{kind}: golden request differs from the JAX "
-                                 f"wave by {golden_err:.3e} > {VOCODER_TOL}")
-        rms = float(np.sqrt(np.mean(np.concatenate(
-            [r.wave for r in results]) ** 2)))
-        print(f"vocoder {kind}: fused (max_batch 1) vs plain (max_batch 8) "
-              f"waves, max abs diff per request "
-              f"{[f'{d:.1e}' for d in diffs]} (limit {VOCODER_TOL}, wave rms "
-              f"{rms:.3f}); golden request vs JAX: max abs diff "
-              f"{golden_err:.3e} (limit {VOCODER_TOL})")
-
-        single_server = BucketedParallelSynthesisServer(
-            kind, params, cfg, max_batch=1, **common)
-        for name, server in (("fused chains, max_batch 1", fused_server),
-                             ("plain, max_batch 1", single_server),
-                             ("plain, max_batch 8", plain_server)):
-            sec = _median_seconds(lambda: server.synthesize(mels, seed=SEED))
-            print(f"vocoder {kind} [{name}]: {len(mels)} requests in "
-                  f"{sec * 1e3:.2f} ms (median of 3): "
-                  f"{n_samples / sec:.0f} samples/s delivered, "
-                  f"{sec / len(mels) * 1e3:.3f} ms a request [{gpu}]")
-        for bucket in (20, 40, 80):
-            mel = next(m for m in mels if m.shape[0] == bucket)
-            sec = _median_seconds(lambda: fused_server.synthesize([mel]))
-            print(f"vocoder {kind} [fused chains] bucket {bucket} "
-                  f"({bucket * VOCODER_HOP} samples): {sec * 1e3:.3f} ms a "
-                  f"request, {bucket * VOCODER_HOP / sec:.0f} samples/s, "
-                  f"real-time factor "
-                  f"{sec / (bucket * VOCODER_HOP / VOCODER_RATE):.4f} at "
-                  f"{VOCODER_RATE} Hz [{gpu}]")
-
-        mel = next(m for m in mels if m.shape[0] == 80)
-        window, busy_us = _device_profile(
-            lambda: fused_server.synthesize([mel]))
-        total_us = sum(busy_us.values())
-        chain_us = sum(v for k, v in busy_us.items() if any(
-            n in k for n in ("gemm_kernel", "glu_kernel")))
-        print(f"vocoder {kind} profile (one fused bucket-80 request, "
-              f"torch.profiler CUDA activity): window {window * 1e3:.2f} "
-              f"ms, device busy {total_us / 1e3:.2f} ms, idle share "
-              f"{1 - total_us / 1e6 / window:.3f}; chain kernels "
-              f"{chain_us / total_us:.3f} of device time [{gpu}]")
-        for key, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"  {us / 1e3:10.3f} ms  {key[:100]}")
-        del fused_server, single_server, plain_server
-        torch.cuda.empty_cache()
+        for dtype, golden in ((None, golden_f32), (torch.bfloat16, golden_bf16)):
+            key = which if dtype is None else f"{which}_bf16"
+            launches[key] = _serve_kind(
+                gpu, kind, params, cfg, dict(common, compute_dtype=dtype),
+                mels, key, chains, wrappers, golden[kind], golden_mel,
+                golden_z, n_samples)
+            torch.cuda.empty_cache()
 
     # the whole-T entry point's own path: the student's first chain at the
     # shape of the JAX package's chain benchmark (T=4096), as that script
@@ -2238,7 +2363,142 @@ def vocoder_phase(gpu):
     print("vocoder: fused_block_chain on the student's first chain at "
           f"T=4096: {launches['chain']} kernel launch, within CHAIN_TOL of "
           "its plain chain")
+    # the same at bf16, on the student's first chain loaded at bf16
+    stacked = load_student_params(params, cfg, "cuda",
+                                  compute_dtype=torch.bfloat16
+                                  )["iafs"][0]["chains"][0]
+    x, c = x.bfloat16(), c.bfloat16()
+    wrappers["chain_bf16"].launches = 0
+    got = fused.fused_block_chain(x, c, stacked, cfg.num_layers,
+                                  cfg.kernel_size)
+    torch.cuda.synchronize()
+    launches["chain_bf16"] = wrappers["chain_bf16"].launches
+    if launches["chain_bf16"] != 1:
+        raise AssertionError("fused_block_chain did not launch its bf16 kernel")
+    want, exact = (fused.fused_block_chain_bf16_torch(
+        x, c, stacked, cfg.num_layers, cfg.kernel_size, exact=e)
+        for e in (False, True))
+    err = bf16_chain_check("bf16 whole-T chain on the student's weights",
+                           got, want, exact)[0]
+    print("vocoder: fused_block_chain at bf16 on the student's first chain "
+          f"(loaded at bf16) at T=4096: {launches['chain_bf16']} kernel launch,"
+          f" max_abs_err {err:.3e}, within the spread check of its plain "
+          "bf16 chain")
     return launches
+
+
+def _serve_kind(gpu, kind, params, cfg, common, mels, key, chains, wrappers,
+                golden, golden_mel, golden_z, n_samples):
+    """One kind at one compute dtype (``common["compute_dtype"]``, None for
+    f32): the main path through the fused server at max_batch 1 (mel
+    requests -> buckets -> one-pass synthesis, every resblock chain one call
+    of the wrapper ``key`` of the chain kernel, counted), held against the
+    plain server at max_batch 8 on the same noise and, on the golden
+    request, both against the JAX package's wave at that dtype; timed, with
+    the plain server at max_batch 1, per bucket and under torch.profiler.
+    Returns the wrapper's launches on the main path."""
+    import torch
+    from vqvae_speech_tpu_torch.serve import BucketedParallelSynthesisServer
+
+    bf16 = common["compute_dtype"] == torch.bfloat16
+    tag = f"{kind}{' bf16' if bf16 else ''}"
+    # (max abs, mean abs or None) of a wave: fused vs plain, and vs golden
+    fused_tol = VOCODER_BF16_FUSED_TOL[kind] if bf16 else (VOCODER_TOL, None)
+    golden_tol = (VOCODER_BF16_GOLDEN_TOL[kind] if bf16
+                  else (VOCODER_TOL, None))
+
+    def within(err, tol):
+        return err.max() <= tol[0] and (tol[1] is None or err.mean() <= tol[1])
+
+    fused_server = BucketedParallelSynthesisServer(
+        kind, params, cfg, max_batch=1, use_fused_chain=True, **common)
+    plain_server = BucketedParallelSynthesisServer(
+        kind, params, cfg, max_batch=8, **common)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = fused_server.synthesize(mels, seed=SEED)
+    main_sec = time.perf_counter() - t0
+    counts = {n: w.launches for n, w in wrappers.items()}
+    want_counts = {n: chains * len(mels) if n == key else 0 for n in wrappers}
+    if counts != want_counts:
+        raise AssertionError(f"{tag}: chain kernel launches {counts}, "
+                             f"expected {want_counts}")
+    if sorted({r.bucket for r in results}) != [20, 40, 80]:
+        raise AssertionError(f"{tag}: requests filled buckets "
+                             f"{sorted({r.bucket for r in results})}")
+    for mel, r in zip(mels, results):
+        if (r.wave.shape != (mel.shape[0] * VOCODER_HOP,)
+                or r.wave.dtype != np.float32):
+            raise AssertionError(f"{tag}: wave {r.wave.shape} {r.wave.dtype} "
+                                 f"for {mel.shape[0]} frames")
+        if not (np.isfinite(r.wave).all() and r.wave.std() > 1e-3):
+            raise AssertionError(f"{tag}: wave not finite or constant")
+    print(f"vocoder {tag}: {len(mels)} requests through buckets [20, 40, "
+          f"80], {fused_server.stats['launches']} launches, {chains} chains a "
+          f"request; kernel launches {counts}; main path {main_sec:.3f} s "
+          f"(first calls included); the chains' prepared weights hold "
+          f"{_prepared_bytes(fused_server._params) / 1e6:.1f} MB")
+
+    reference = plain_server.synthesize(mels, seed=SEED)
+    diffs = [np.abs(r.wave - p.wave) for r, p in zip(results, reference)]
+    if not all(within(d, fused_tol) for d in diffs):
+        raise AssertionError(
+            f"{tag}: fused vs plain server waves differ by up to "
+            f"{max(d.max() for d in diffs):.3e} (mean "
+            f"{max(d.mean() for d in diffs):.3e}), limits {fused_tol}")
+    errs = {}
+    for name, server in (("fused", fused_server), ("plain", plain_server)):
+        (got,) = server.synthesize([golden_mel], noises=[golden_z])
+        errs[name] = np.abs(got.wave - golden)
+        if not within(errs[name], golden_tol):
+            raise AssertionError(
+                f"{tag} {name}: golden request off the JAX wave by "
+                f"{errs[name].max():.3e} (mean {errs[name].mean():.3e}), "
+                f"limits {golden_tol}")
+    rms = float(np.sqrt(np.mean(np.concatenate(
+        [r.wave for r in results]) ** 2)))
+    print(f"vocoder {tag}: fused (max_batch 1) vs plain (max_batch 8) waves, "
+          f"max abs diff per request {[f'{d.max():.1e}' for d in diffs]}, "
+          f"mean {[f'{d.mean():.1e}' for d in diffs]} (limits {fused_tol}, "
+          f"wave rms {rms:.3f}); golden request vs JAX: fused max "
+          f"{errs['fused'].max():.3e} mean {errs['fused'].mean():.3e}, plain "
+          f"max {errs['plain'].max():.3e} mean {errs['plain'].mean():.3e} "
+          f"(limits {golden_tol})")
+
+    single_server = BucketedParallelSynthesisServer(
+        kind, params, cfg, max_batch=1, **common)
+    for name, server in (("fused chains, max_batch 1", fused_server),
+                         ("plain, max_batch 1", single_server),
+                         ("plain, max_batch 8", plain_server)):
+        sec = _median_seconds(lambda: server.synthesize(mels, seed=SEED))
+        print(f"vocoder {tag} [{name}]: {len(mels)} requests in "
+              f"{sec * 1e3:.2f} ms (median of 3): "
+              f"{n_samples / sec:.0f} samples/s delivered, "
+              f"{sec / len(mels) * 1e3:.3f} ms a request [{gpu}]")
+    for bucket in (20, 40, 80):
+        mel = next(m for m in mels if m.shape[0] == bucket)
+        sec = _median_seconds(lambda: fused_server.synthesize([mel]))
+        print(f"vocoder {tag} [fused chains] bucket {bucket} "
+              f"({bucket * VOCODER_HOP} samples): {sec * 1e3:.3f} ms a "
+              f"request, {bucket * VOCODER_HOP / sec:.0f} samples/s, "
+              f"real-time factor "
+              f"{sec / (bucket * VOCODER_HOP / VOCODER_RATE):.4f} at "
+              f"{VOCODER_RATE} Hz [{gpu}]")
+    mel = next(m for m in mels if m.shape[0] == 80)
+    window, busy_us = _device_profile(lambda: fused_server.synthesize([mel]))
+    total_us = sum(busy_us.values())
+    chain_us = sum(v for k, v in busy_us.items() if any(
+        n in k for n in ("gemm_kernel", "glu_kernel")))
+    print(f"vocoder {tag} profile (one fused bucket-80 request, "
+          f"torch.profiler CUDA activity): window {window * 1e3:.2f} ms, "
+          f"device busy {total_us / 1e3:.2f} ms, idle share "
+          f"{1 - total_us / 1e6 / window:.3f}; chain kernels "
+          f"{chain_us / total_us:.3f} of device time [{gpu}]")
+    for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {us / 1e3:10.3f} ms  {name[:100]}")
+    return counts[key]
 
 
 PHASES = ("kernel", "slice", "train", "experiment", "evaluate", "step_kernel",
@@ -2253,6 +2513,13 @@ def _check_imports():
                       if m.split(".")[0] in FORBIDDEN_IMPORTS)
     if imported:
         raise AssertionError(f"the run imported {imported}")
+
+
+def _print_retaken():
+    from vqvae_speech_tpu_torch.utils.profiling import RETAKEN
+    print(f"profiler windows retaken (lead sentinels seen, launched, tail "
+          f"sentinels seen, launched, other device events, whether they "
+          f"added up): {len(RETAKEN)} {RETAKEN}")
 
 
 def main():
@@ -2321,6 +2588,7 @@ def main():
                 if name in only:
                     phase(fn, *args)
             _check_imports()
+            _print_retaken()
             print(f"chip_smoke: partial run of {only}; no result line")
             return
 
@@ -2341,6 +2609,7 @@ def main():
     chains = phase(chain_kernel_phase, gpu)
     chain_launches = phase(vocoder_phase, gpu)
     _check_imports()
+    _print_retaken()
 
     # no single PyTorch call computes any of these fused functions (a search
     # with its statistics, a whole layer stack, a whole resblock chain)
@@ -2381,6 +2650,18 @@ def main():
         line("fused_block_chain", "fused_resblock.cu",
              "vqvae_speech_tpu/ops/fused_resblock.py:65",
              chain_launches["chain"], chains["chain"]),
+        # the bf16 forms of the same three TPU kernels (the JAX package runs
+        # them at bf16 in its serving configuration); spread: the plain bf16
+        # chain's own distance between two summation orders
+        line("fused_block_chain_tiled_bf16", "fused_resblock.cu",
+             "vqvae_speech_tpu/ops/fused_resblock.py:95",
+             chain_launches["tiled_bf16"], chains["tiled_bf16"]),
+        line("fused_block_chain_nc_bf16", "fused_resblock.cu",
+             "vqvae_speech_tpu/ops/fused_resblock.py:215",
+             chain_launches["nc_bf16"], chains["nc_bf16"]),
+        line("fused_block_chain_bf16", "fused_resblock.cu",
+             "vqvae_speech_tpu/ops/fused_resblock.py:65",
+             chain_launches["chain_bf16"], chains["chain_bf16"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

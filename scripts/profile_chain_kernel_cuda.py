@@ -139,7 +139,7 @@ def run_variant(flags):
           f"events), max abs err against the plain chain {err:.3e}; device "
           f"us a launch (torch.profiler; dependent launches "
           f"overlap, so spans include waiting): "
-          + ", ".join(f"{'gate' if '<0>' in key else 'projection'} {us:.1f}"
+          + ", ".join(f"{'gate' if 'gemm_kernel<0' in key else 'projection'} {us:.1f}"
                       for key, us in sorted(kernels.items())) + f" [{gpu}]")
 
     if "-DCHAIN_STAMPS" not in flags:

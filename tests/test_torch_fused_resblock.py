@@ -308,3 +308,163 @@ def test_prepare_block_chain_on_the_cpu_is_the_stacked_weights():
     for g, w in zip(fused.fused_block_chain_tiled(xt, ct, prepared, 3, 3),
                     fused.fused_block_chain_tiled_torch(xt, ct, stacked, 3, 3)):
         assert torch.equal(g, w)
+
+
+# ---- bf16: the vocoders' serving configuration ----
+#
+# The JAX package's models cast the parameter tree to bf16 before they
+# stack it (stack_block_weights(..., compute_dtype=bf16)): weights resolved
+# from the bf16 (v, g) pairs, each pair of conv biases summed in bf16, then
+# f32. The port loads its blocks the same way (convert._resolved_conv with
+# dtype=bf16). Tolerance, chains against the JAX kernels in interpret mode:
+# x (bf16) differs in at most 1% of its elements by at most 2^-6 (one ulp
+# at |x| in [2, 4)), skip (f32) within 2^-6 at most and 1e-5 on average;
+# measured: x bit-equal, skip within 4.8e-7 (the f32 sums' order). A bias
+# summed in f32, or weights resolved before the cast, moves most elements.
+
+BF16 = torch.bfloat16
+
+
+def bf16_chain(layers, k, T, seed, widths=(C, G, S, CIN)):
+    """(bf16 JAX stacked weights, the port's bf16 stack, x, c_up (bf16))."""
+    trees, _, x, c = chain(layers, k, T, seed, widths)
+    jtrees = jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a).astype(jnp.bfloat16), trees)
+    blocks = [{n: convert._resolved_conv(p[n], "cpu", BF16) for n in p}
+              for p in trees]
+    return (jax_fused.stack_block_weights(jtrees, compute_dtype=jnp.bfloat16),
+            fused.stack_block_weights(blocks, BF16),
+            torch.from_numpy(x).to(BF16), torch.from_numpy(c).to(BF16))
+
+
+def as_f32(a):
+    return (a.float().numpy() if isinstance(a, torch.Tensor)
+            else np.asarray(jnp.asarray(a).astype(jnp.float32)))
+
+
+def assert_bf16_close(got, want, share=0.01, mean=1e-5):
+    (gx, gs), (wx, ws) = [tuple(as_f32(a) for a in pair)
+                          for pair in (got, want)]
+    assert gx.shape == wx.shape and gs.shape == ws.shape
+    assert (gx != wx).mean() <= share, (gx != wx).mean()
+    assert np.abs(gx - wx).max() <= 2.0 ** -6
+    assert np.abs(gs - ws).max() <= 2.0 ** -6
+    assert np.abs(gs - ws).mean() <= mean
+
+
+@pytest.mark.parametrize("layers,k", [(3, 3), (2, 2)])
+def test_bf16_stacking_matches_jax_bit_for_bit(layers, k):
+    """Weights equal to JAX's bf16 stack in every element; the bias pairs
+    summed in bf16 (JAX sums the cast parameters), not in f32."""
+    want, got, _, _ = bf16_chain(layers, k, 8, seed=70 + k)
+    assert sorted(got) == sorted(want)
+    for name in want:
+        assert got[name].dtype == (torch.float32 if name.startswith("b")
+                                   else BF16), name
+        np.testing.assert_array_equal(as_f32(got[name]), as_f32(want[name]),
+                                      err_msg=name)
+    trees, _, _, _ = chain(layers, k, 8, seed=70 + k)
+    f32_sum = np.stack([p["filter_conv"]["b"] + p["filter_conv_c"]["b"]
+                        for p in trees])
+    bf16_sum = torch.stack([
+        torch.from_numpy(p["filter_conv"]["b"]).to(BF16)
+        + torch.from_numpy(p["filter_conv_c"]["b"]).to(BF16)
+        for p in trees]).float()
+    assert torch.equal(got["bf"], bf16_sum)
+    assert (got["bf"].numpy() != f32_sum).mean() > 0.5
+
+
+@pytest.mark.parametrize("which,layers,k,T,tile,widths", [
+    ("chain", 3, 3, 100, None, (C, G, S, CIN)),
+    ("chain", 3, 2, 81, None, RAGGED),
+    ("tiled", 4, 3, 176, 64, (C, G, S, CIN)),     # three tiles, one partial
+    ("tiled", 3, 3, 81, 32, RAGGED),              # odd T over three tiles
+    ("nc", 2, 3, 83, 32, (C, G, S, CIN)),
+    ("nc", 4, 3, 160, 48, (C, G, S, CIN)),        # dilations 1, 2, 4, 8
+    ("nc", 2, 3, 81, 32, RAGGED),
+])
+def test_bf16_chains_match_jax_kernels(which, layers, k, T, tile, widths):
+    """The port's plain bf16 chains (what the dispatching functions run on
+    CPU bf16 tensors) against the JAX package's three Pallas kernels at bf16
+    in interpret mode."""
+    js, stacked, x, c = bf16_chain(layers, k, T, seed=80 + layers + T,
+                                   widths=widths)
+    jx = jnp.asarray(as_f32(x)).astype(jnp.bfloat16)
+    jc = jnp.asarray(as_f32(c)).astype(jnp.bfloat16)
+    if which == "nc":
+        dil = tuple(2 ** i for i in range(layers))
+        want = jax_fused.fused_block_chain_nc(
+            jx, jc, js, layers=layers, kernel_size=k, dilations=dil,
+            tile=tile, interpret=True)
+        got = fused.fused_block_chain_nc(x, c, stacked, layers, k, dil)
+        plain = fused.fused_block_chain_nc_torch(x, c, stacked, layers, k, dil)
+    elif which == "tiled":
+        want = jax_fused.fused_block_chain_tiled(
+            jx, jc, js, layers=layers, kernel_size=k, tile=tile,
+            interpret=True)
+        got = fused.fused_block_chain_tiled(x, c, stacked, layers, k)
+        plain = fused.fused_block_chain_tiled_torch(x, c, stacked, layers, k)
+    else:
+        want = jax_fused.fused_block_chain(jx, jc, js, layers=layers,
+                                           kernel_size=k, interpret=True)
+        got = fused.fused_block_chain(x, c, stacked, layers, k)
+        plain = fused.fused_block_chain_torch(x, c, stacked, layers, k)
+    assert got[0].dtype == BF16 and got[1].dtype == torch.float32
+    assert_bf16_close(got, want)
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+
+
+def test_bf16_exact_sums_are_the_same_chain():
+    """fused_block_chain_bf16_torch: its f32 sums are the plain chain bit
+    for bit; every sum in float64 (exact=True) flips a few x elements by
+    an ulp, and the flips propagate (measured: 1.7% of x after 4 layers,
+    skip 3.6e-5 on average): held to 5% of x and 1e-4, with the JAX
+    tolerance's max abs errors (the spread the bf16 kernel is held to on
+    the card)."""
+    _, stacked, x, c = bf16_chain(4, 3, 200, seed=90)
+    plain = fused.fused_block_chain_torch(x, c, stacked, 4, 3)
+    again = fused.fused_block_chain_bf16_torch(x, c, stacked, 4, 3)
+    other = fused.fused_block_chain_bf16_torch(x, c, stacked, 4, 3,
+                                               exact=True)
+    for p, a in zip(plain, again):
+        assert torch.equal(p, a)
+    assert other[0].dtype == BF16 and other[1].dtype == torch.float32
+    assert_bf16_close(other, plain, share=0.05, mean=1e-4)
+    nc = fused.fused_block_chain_bf16_torch(x, c, stacked, 4, 3, (1, 2, 4, 8),
+                                            causal=False, exact=True)
+    assert_bf16_close(nc, fused.fused_block_chain_nc_torch(
+        x, c, stacked, 4, 3, (1, 2, 4, 8)), share=0.05, mean=1e-4)
+
+
+def test_bf16_refuses_dtype_mixes():
+    """x, c_up and the weights of one dtype, as the JAX kernels take them."""
+    _, stacked, x, c = bf16_chain(2, 3, 16, seed=91)
+    f32_weights = {n: w.float() for n, w in stacked.items()}
+    for args in ((x, c, f32_weights), (x, c.float(), stacked),
+                 (x.float(), c.float(), stacked)):
+        for fn in (fused.fused_block_chain, fused.fused_block_chain_tiled,
+                   fused.fused_block_chain_torch):
+            with pytest.raises(ValueError, match="one dtype"):
+                fn(*args, 2, 3)
+        with pytest.raises(ValueError, match="one dtype"):
+            fused.fused_block_chain_nc(*args, 2, 3, (1, 2))
+
+
+@pytest.mark.parametrize("layers,k,widths", [(3, 3, (C, G, S, CIN)),
+                                             (2, 2, RAGGED)])
+def test_bf16_prepared_layout_is_the_f32_layout_unsplit(layers, k, widths):
+    """bf16 weights keep the kernel's layout without the TF32 split: one
+    part, and the f32 layout of the same values has that part as hi and a
+    zero lo (a bf16 value is a TF32 value)."""
+    _, stacked, _, _ = bf16_chain(layers, k, 8, seed=92, widths=widths)
+    prepared = fused.prepared_chain_weights_torch(stacked)
+    wide = fused.prepared_chain_weights_torch(
+        {n: w.float() for n, w in stacked.items()})
+    for name in ("wgate", "wproj"):
+        assert prepared[name].dtype == BF16
+        assert prepared[name].shape == (1,) + wide[name].shape[1:]
+        assert prepared[name].is_contiguous()
+        assert torch.equal(prepared[name][0].float(), wide[name][0])
+        assert not bool(wide[name][1].any())
+    assert fused.prepare_block_chain(stacked) is stacked

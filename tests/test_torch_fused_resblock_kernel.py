@@ -14,8 +14,19 @@ them, through up to 6 layers. The kernels multiply on the tensor cores in
 error-compensated TF32 (three TF32 products a f32 product, the accumulator
 promoted to rounded f32 sums every two 32-float chunks), which measures
 within a few 1e-6 of the plain chains.
+
+The bf16 forms (x, c_up and weights bf16, biases and skip f32; one bf16
+wgmma product a product) are held to the plain bf16 chain within
+chip_smoke.BF16_SPREAD_MULTIPLE times the spread between two summation
+orders of that plain chain, its f32 sums and the same sums correctly
+rounded (chip_smoke.bf16_chain_check): x is rounded to bf16 after each
+layer, so a different order of f32 sums flips some elements by an ulp and
+the flips propagate, and no fixed tolerance separates that from a
+defect.
 """
 import math
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -23,6 +34,12 @@ import torch
 
 from vqvae_speech_tpu_torch.ops import _kernels
 from vqvae_speech_tpu_torch.ops import fused_resblock as fused
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO_ROOT not in sys.path:
+    sys.path.insert(0, REPO_ROOT)
+
+from chip_smoke import _bf16_chain, bf16_chain_check  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -364,3 +381,150 @@ def test_chains_run_on_a_side_stream(cuda):
         assert torch.equal(g, w)
     assert_matches(nc, fused.fused_block_chain_nc_torch(
         x, c, stacked, 6, 3, (1, 2, 4, 8, 1, 2)))
+
+
+# ---- the bf16 forms ----
+
+
+def bf16_inputs(L, k, T, C, G, S, cin, seed, device):
+    """chain_inputs with x, c_up and the weights rounded to bf16 (the
+    biases stay f32), as stack_block_weights(compute_dtype=bf16) gives
+    them."""
+    return _bf16_chain(*chain_inputs(L, k, T, C, G, S, cin, seed, device))
+
+
+def check_bf16(name, got, x, c, stacked, L, k, dilations=None):
+    """got against the plain bf16 chain within the spread of two orders."""
+    causal = dilations is None
+    want = fused.fused_block_chain_bf16_torch(x, c, stacked, L, k, dilations,
+                                              causal=causal)
+    other = fused.fused_block_chain_bf16_torch(x, c, stacked, L, k, dilations,
+                                               causal=causal, exact=True)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    bf16_chain_check(name, got, want, other)
+
+
+BF16_CASES = [
+    # L, k, T, C, G, S, cin, dilations (None: causal, k**l)
+    (6, 3, 20480, 128, 256, 128, 80, None),   # the student chain, row-tiled
+    (6, 3, 5119, 128, 256, 128, 80, None),    # odd T
+    (6, 3, 4096, 128, 256, 128, 80, None),
+    (2, 3, 10240, 256, 256, 256, 80, (1, 2)),     # flow block 0
+    (2, 3, 1280, 256, 256, 256, 640, (1, 2)),     # block 3, split path
+    (2, 3, 81, 256, 256, 256, 10240, (1, 2)),     # block 7, ragged T
+    (3, 2, 77, 16, 32, 16, 8, None),
+    (4, 3, 20, 16, 32, 16, 8, None),          # shorter than its reach
+    (3, 5, 300, 24, 72, 40, 19, None),        # k = 5, ragged widths
+    (4, 3, 160, 16, 32, 16, 8, (1, 2, 4, 8)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,k,T,C,G,S,cin,dilations", BF16_CASES)
+def test_bf16_kernels_match_plain_within_the_spread(cuda, L, k, T, C, G, S,
+                                                    cin, dilations):
+    x, c, stacked = bf16_inputs(L, k, T, C, G, S, cin, seed=T + k,
+                                device=cuda)
+    if dilations is None:
+        for run in (fused.fused_block_chain_tiled, fused.fused_block_chain):
+            check_bf16(f"{run.__name__} T={T}", run(x, c, stacked, L, k),
+                       x, c, stacked, L, k)
+    else:
+        check_bf16(f"nc T={T}", fused.fused_block_chain_nc(
+            x, c, stacked, L, k, dilations), x, c, stacked, L, k, dilations)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["rows", "split"])
+@pytest.mark.parametrize("T", [1, 63, 129, 5119])
+def test_bf16_kernels_at_ragged_shapes_on_both_paths(cuda, T, path):
+    """Rows off every tile; C=20 and G=136 rows not 16-byte multiples in
+    bf16 and cin=19 (their rows copied an element at a time); both
+    decompositions; bit-equal run to run."""
+    x, c, stacked = bf16_inputs(3, 3, T, seed=T, device=cuda, **RAGGED)
+    prepared = fused.prepare_block_chain(stacked)
+    runs = [_kernels.fused_block_chain_tiled_bf16_cuda(x, c, prepared,
+                                                       path=path)
+            for _ in range(2)]
+    assert _kernels._fused_chain_launch.last_split == (path == "split")
+    check_bf16(f"tiled {path} T={T}", runs[0], x, c, stacked, 3, 3)
+    torch.cuda.synchronize()
+    for u, v in zip(*runs):
+        assert torch.equal(u, v)
+    check_bf16(f"chain {path} T={T}",
+               _kernels.fused_block_chain_bf16_cuda(x, c, prepared, path=path),
+               x, c, stacked, 3, 3)
+    check_bf16(f"nc {path} T={T}",
+               _kernels.fused_block_chain_nc_bf16_cuda(x, c, prepared,
+                                                       (1, 2, 4), path=path),
+               x, c, stacked, 3, 3, (1, 2, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K", [(64, 128, 64), (200, 136, 104),
+                                   (4096, 512, 464), (1, 8, 8), (77, 12, 24)])
+def test_bf16_main_loop_matches_matmul(cuda, M, N, K):
+    """One bare bf16 product through the main loop against torch.matmul of
+    the same values in f32 (TF32 off): bf16 products are exact in f32, so
+    only the summation order differs."""
+    rng = np.random.default_rng(M + N + K)
+    a = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)
+                         ).to(cuda).bfloat16()
+    b = torch.from_numpy((rng.standard_normal((N, K)) / math.sqrt(K))
+                         .astype(np.float32)).to(cuda).bfloat16()
+    got = _kernels.bf16_matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, a.float() @ b.float().t(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,k,widths", [
+    (6, 3, dict(C=128, G=256, S=128, cin=80)), (3, 2, RAGGED),
+    (2, 3, dict(C=256, G=256, S=256, cin=640))])
+def test_bf16_prepared_weights_match_the_plain_layout(cuda, L, k, widths):
+    _, _, stacked = bf16_inputs(L, k, 8, widths["C"], widths["G"],
+                                widths["S"], widths["cin"], seed=L,
+                                device=cuda)
+    prepared = fused.prepare_block_chain(stacked)
+    want = fused.prepared_chain_weights_torch(stacked)
+    torch.cuda.synchronize()
+    assert prepared.dtype == torch.bfloat16
+    assert torch.equal(prepared.wgate, want["wgate"])
+    assert torch.equal(prepared.wproj, want["wproj"])
+    assert prepared.nbytes == 2 * (want["wgate"].numel()
+                                   + want["wproj"].numel())
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_count_launches_and_refuse_mixed_dtypes(cuda):
+    x, c, stacked = bf16_inputs(6, 3, 2049, 128, 256, 128, 80, seed=1,
+                                device=cuda)
+    bf16 = (_kernels.fused_block_chain_tiled_bf16_cuda,
+            _kernels.fused_block_chain_bf16_cuda,
+            _kernels.fused_block_chain_nc_bf16_cuda)
+    f32 = (_kernels.fused_block_chain_tiled_cuda,
+           _kernels.fused_block_chain_cuda,
+           _kernels.fused_block_chain_nc_cuda)
+    before = [w.launches for w in bf16 + f32]
+    a = fused.fused_block_chain_tiled(x, c, stacked)
+    b = fused.fused_block_chain_tiled(x, c, stacked)
+    fused.fused_block_chain(x, c, stacked)
+    fused.fused_block_chain_nc(x, c, stacked, 6, 3, (1, 2, 4, 8, 1, 2))
+    assert [w.launches for w in bf16 + f32] == [
+        before[0] + 2, before[1] + 1, before[2] + 1, *before[3:]]
+    torch.cuda.synchronize()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    f32_weights = {n: w.float() for n, w in stacked.items()}
+    with pytest.raises(ValueError, match="one dtype"):
+        fused.fused_block_chain_tiled(x, c, f32_weights)
+    with pytest.raises(ValueError, match="one dtype"):
+        fused.fused_block_chain_tiled(x, c.float(), stacked)
+    with pytest.raises(ValueError, match="bfloat16 weights"):
+        _kernels.fused_block_chain_tiled_bf16_cuda(x.float(), c.float(),
+                                                   f32_weights)
+    with pytest.raises(ValueError, match="float32 weights"):
+        _kernels.fused_block_chain_tiled_cuda(x, c, stacked)

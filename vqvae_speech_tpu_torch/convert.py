@@ -17,7 +17,12 @@ tensor trees, not modules: ``load_gaussian_wavenet_params``,
 ``load_student_params`` and ``load_flowavenet_params`` turn a JAX tree into
 the same tree of tensors on a device, with every conv's weight norm resolved
 to ``{"w": (Cout, Cin, K), "b"}`` and each resblock chain's weights stacked
-for the fused chain under ``"chains"``. ``numpy_gaussian_wavenet_params``,
+for the fused chain under ``"chains"``. With ``compute_dtype=torch.bfloat16``
+they load the tree as the JAX package's bf16 models see it: every leaf cast
+to bf16 FIRST, the weight norm then resolved in bf16 op by op (the square
+in bf16, its sum in f32, the norm rounded to bf16), which equals JAX's eager
+``conv_weight`` on the cast tree in every element; resolving in f32 and
+casting after differs in ~45% of them. ``numpy_gaussian_wavenet_params``,
 ``numpy_student_params`` and ``numpy_flowavenet_params`` build random trees
 in the JAX layout that both packages load.
 """
@@ -298,54 +303,71 @@ def load_wavenet_vqvae_params(model: WaveNetVQVAE, params: dict,
 # -------------------- one-pass vocoders: tensor trees --------------------
 
 
-def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, np.float32)).to(device)
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    t = torch.from_numpy(np.array(a, np.float32))
+    return t.to(device, dtype or torch.float32)
 
 
-def _resolved_conv(p: dict, device) -> dict:
+def _weight_norm(v: torch.Tensor, g: torch.Tensor, dims) -> torch.Tensor:
+    """g * v / ||v||, the norm over ``dims``, in v's dtype. Below f32 each
+    op rounds as JAX's do: v**2 in that dtype, summed in f32 (``jnp.sum``
+    upcasts), the sum rounded back before its square root."""
+    square = v.square()
+    if v.dtype == torch.float32:
+        norm = square.sum(dims, keepdim=True).sqrt()
+    else:
+        norm = square.float().sum(dims, keepdim=True).to(v.dtype).sqrt()
+    return g * v / norm
+
+
+def _resolved_conv(p: dict, device, dtype=None) -> dict:
     """A JAX conv ``{v, g, b}`` or ``{w, b}`` (kernel (K, Cin, Cout)) as
     ``{"w": (Cout, Cin, K), "b"}`` with ``w = g * v / ||v||``, the norm over
-    (K, Cin) (``nn/conv.py::conv_weight``)."""
+    (K, Cin) (``nn/conv.py::conv_weight``), every leaf cast to ``dtype``
+    (None: f32) before the norm is resolved."""
     if "v" in p:
-        v = _tensor(p["v"], "cpu")
-        w = _tensor(p["g"], "cpu") * v / v.square().sum(
-            (0, 1), keepdim=True).sqrt()
+        w = _weight_norm(_tensor(p["v"], "cpu", dtype),
+                         _tensor(p["g"], "cpu", dtype), (0, 1))
     else:
-        w = _tensor(p["w"], "cpu")
+        w = _tensor(p["w"], "cpu", dtype)
     return {"w": w.permute(2, 1, 0).contiguous().to(device),
-            "b": _tensor(p["b"], device)}
+            "b": _tensor(p["b"], device, dtype)}
 
 
 _RESBLOCK_CONVS = ("filter_conv", "gate_conv", "res_conv", "skip_conv",
                    "filter_conv_c", "gate_conv_c")
 
 
-def load_upsample_params(stages, device) -> list:
+def load_upsample_params(stages, device, compute_dtype=None) -> list:
     """ClariNet upsampling stages ``{v (3, 2s, 1, 1), g (1,), b (1,)}`` with
     the weight norm taken over the WHOLE kernel, as ConvTranspose2d weights
-    (1, 1, 3, 2s)."""
+    (1, 1, 3, 2s), in ``compute_dtype`` (None: f32; cast before the norm is
+    resolved, as JAX does)."""
     out = []
     for p in stages:
-        v = _tensor(p["v"], "cpu")
-        w = _tensor(p["g"], "cpu")[0] * v / v.square().sum().sqrt()
+        v = _tensor(p["v"], "cpu", compute_dtype)
+        w = _weight_norm(v, _tensor(p["g"], "cpu", compute_dtype)[0],
+                         tuple(range(v.dim())))
         out.append({"w": w[:, :, 0, 0][None, None].contiguous().to(device),
-                    "b": _tensor(p["b"], device)})
+                    "b": _tensor(p["b"], device, compute_dtype)})
     return out
 
 
 def _resolved_resblocks(tree, total_layers, num_layers, device,
-                        prepare_chains=False):
-    """(res_blocks, chains): every resblock's convs resolved, and each run
-    of ``num_layers`` blocks stacked for the fused chain and, with
+                        prepare_chains=False, compute_dtype=None):
+    """(res_blocks, chains): every resblock's convs resolved in
+    ``compute_dtype``, and each run of ``num_layers`` blocks stacked for the
+    fused chain (weights in ``compute_dtype``, biases f32) and, with
     ``prepare_chains``, bound to the chain kernel once
     (``ops.fused_resblock.prepare_block_chain``: on a CUDA device about
-    twice the chains' weights of device memory more; a no-op on the CPU)."""
+    twice the chains' weights of device memory more at f32, as much at bf16;
+    a no-op on the CPU)."""
     if len(tree) != total_layers:
         raise ValueError(f"{len(tree)} resblocks in the params, "
                          f"{total_layers} in the config")
-    blocks = [{n: _resolved_conv(p[n], device) for n in _RESBLOCK_CONVS}
-              for p in tree]
-    chains = [stack_block_weights(blocks[at:at + num_layers])
+    blocks = [{n: _resolved_conv(p[n], device, compute_dtype)
+               for n in _RESBLOCK_CONVS} for p in tree]
+    chains = [stack_block_weights(blocks[at:at + num_layers], compute_dtype)
               for at in range(0, total_layers, num_layers)]
     if prepare_chains:
         chains = [prepare_block_chain(c) for c in chains]
@@ -353,48 +375,60 @@ def _resolved_resblocks(tree, total_layers, num_layers, device,
 
 
 def load_gaussian_wavenet_params(tree: dict, cfg: GaussianWaveNetConfig,
-                                 device, prepare_chains=False) -> dict:
-    """A ``gaussian_wavenet_init``-shaped tree as tensors on ``device``;
-    ``prepare_chains`` as in ``_resolved_resblocks``, for the fused path."""
+                                 device, prepare_chains=False,
+                                 compute_dtype=None) -> dict:
+    """A ``gaussian_wavenet_init``-shaped tree as tensors on ``device`` in
+    ``compute_dtype`` (None: f32); ``prepare_chains`` as in
+    ``_resolved_resblocks``, for the fused path."""
     blocks, chains = _resolved_resblocks(tree["res_blocks"], cfg.total_layers,
                                          cfg.num_layers, device,
-                                         prepare_chains)
-    return {"front_conv": _resolved_conv(tree["front_conv"], device),
+                                         prepare_chains, compute_dtype)
+
+    def conv(name):
+        return _resolved_conv(tree[name], device, compute_dtype)
+
+    return {"front_conv": conv("front_conv"),
             "res_blocks": blocks, "chains": chains,
-            "final_conv_1": _resolved_conv(tree["final_conv_1"], device),
-            "final_conv_2": _resolved_conv(tree["final_conv_2"], device),
-            "upsample_conv": load_upsample_params(tree["upsample_conv"], device)}
+            "final_conv_1": conv("final_conv_1"),
+            "final_conv_2": conv("final_conv_2"),
+            "upsample_conv": load_upsample_params(tree["upsample_conv"], device,
+                                                  compute_dtype)}
 
 
 def load_student_params(tree: dict, cfg: StudentConfig, device,
-                        prepare_chains=False) -> dict:
-    """A ``wavenet_student_init``-shaped tree as tensors on ``device``;
-    ``prepare_chains`` binds every chain to the chain kernel at load."""
+                        prepare_chains=False, compute_dtype=None) -> dict:
+    """A ``wavenet_student_init``-shaped tree as tensors on ``device`` in
+    ``compute_dtype`` (None: f32); ``prepare_chains`` binds every chain to
+    the chain kernel at load."""
     if len(tree["iafs"]) != cfg.num_flow:
         raise ValueError(f"{len(tree['iafs'])} flows in the params, "
                          f"{cfg.num_flow} in the config")
     return {"iafs": [load_gaussian_wavenet_params(p, cfg.flow_config(i), device,
-                                                  prepare_chains)
+                                                  prepare_chains, compute_dtype)
                      for i, p in enumerate(tree["iafs"])]}
 
 
 def _load_coupling_net(tree: dict, cfg: CouplingNetConfig, device,
-                       prepare_chains=False) -> dict:
+                       prepare_chains=False, compute_dtype=None) -> dict:
     blocks, chains = _resolved_resblocks(tree["res_blocks"], cfg.total_layers,
                                          cfg.num_layers, device,
-                                         prepare_chains)
-    return {"front_conv": _resolved_conv(tree["front_conv"], device),
+                                         prepare_chains, compute_dtype)
+    return {"front_conv": _resolved_conv(tree["front_conv"], device,
+                                         compute_dtype),
             "res_blocks": blocks, "chains": chains,
-            "final_conv_1": _resolved_conv(tree["final_conv_1"], device),
-            "final_zero_conv": {n: _tensor(tree["final_zero_conv"][n], device)
+            "final_conv_1": _resolved_conv(tree["final_conv_1"], device,
+                                           compute_dtype),
+            "final_zero_conv": {n: _tensor(tree["final_zero_conv"][n], device,
+                                           compute_dtype)
                                 for n in ("w", "b", "scale")}}
 
 
 def load_flowavenet_params(tree: dict, cfg: FlowavenetConfig, device,
-                           prepare_chains=False) -> dict:
-    """A ``flowavenet_init``-shaped tree as tensors on ``device``;
-    ``prepare_chains`` binds every coupling chain to the chain kernel at
-    load (the priors' nets are not fused and stay as they are)."""
+                           prepare_chains=False, compute_dtype=None) -> dict:
+    """A ``flowavenet_init``-shaped tree as tensors on ``device`` in
+    ``compute_dtype`` (None: f32); ``prepare_chains`` binds every coupling
+    chain to the chain kernel at load (the priors' nets are not fused and
+    stay as they are)."""
     if len(tree["blocks"]) != cfg.n_block:
         raise ValueError(f"{len(tree['blocks'])} blocks in the params, "
                          f"{cfg.n_block} in the config")
@@ -408,17 +442,19 @@ def load_flowavenet_params(tree: dict, cfg: FlowavenetConfig, device,
                              "config")
         net_cfg = _flow_net_cfg(cfg, sq, sqc)
         block = {"flows": [
-            {"actnorm": {n: _tensor(f["actnorm"][n], device)
+            {"actnorm": {n: _tensor(f["actnorm"][n], device, compute_dtype)
                          for n in ("loc", "scale")},
              "coupling": _load_coupling_net(f["coupling"], net_cfg, device,
-                                            prepare_chains)}
+                                            prepare_chains, compute_dtype)}
             for f in src["flows"]]}
         if cfg.split_at(i):
             block["prior"] = _load_coupling_net(
-                src["prior"], _prior_net_cfg(sq, sqc), device)
+                src["prior"], _prior_net_cfg(sq, sqc), device,
+                compute_dtype=compute_dtype)
         blocks.append(block)
     return {"blocks": blocks,
-            "upsample_conv": load_upsample_params(tree["upsample_conv"], device)}
+            "upsample_conv": load_upsample_params(tree["upsample_conv"], device,
+                                                  compute_dtype)}
 
 
 # -------------------- random trees without JAX --------------------

@@ -1,10 +1,15 @@
 // Fused gated-resblock chains for one-pass vocoder synthesis at batch 1,
-// Hopper (sm_90a), f32 in and out, products on the tensor cores.
+// Hopper (sm_90a), products on the tensor cores, in two forms: f32 in and
+// out, and bf16 (x, c and the weights bf16, the biases and skip f32).
 //
-// Replaces the three TPU kernels of vqvae_speech_tpu/ops/fused_resblock.py:
-//   _chain_kernel_tiled (fused_block_chain_tiled)  -> fused_chain_tiled_f32
-//   _chain_kernel_nc    (fused_block_chain_nc)     -> fused_chain_nc_f32
-//   _chain_kernel       (fused_block_chain)        -> fused_chain_f32
+// Replaces the three TPU kernels of vqvae_speech_tpu/ops/fused_resblock.py,
+// each at the two dtypes the JAX package runs them at:
+//   _chain_kernel_tiled (fused_block_chain_tiled)  -> fused_chain_tiled_f32,
+//                                                     fused_chain_tiled_bf16
+//   _chain_kernel_nc    (fused_block_chain_nc)     -> fused_chain_nc_f32,
+//                                                     fused_chain_nc_bf16
+//   _chain_kernel       (fused_block_chain)        -> fused_chain_f32,
+//                                                     fused_chain_bf16
 // A chain is L gated resblocks over one stream x (T, C) with conditioning
 // c (T, cin). For every layer l in order and every row t:
 //
@@ -36,6 +41,16 @@
 // at a third of the TF32 rate (495 / 3 = 165 TFLOP/s of f32-equivalent
 // work, 2.5x the rate outside the tensor cores).
 //
+// The bf16 form. At bf16 the JAX kernels compute another function: bf16
+// operands with f32 sums (preferred_element_type=f32), the gated output
+// rounded to bf16 before the projections, x carried between layers in bf16,
+// skip in f32, the biases f32. A product of two bf16 values is exact in f32,
+// so here a product is ONE wgmma.mma_async.m64n128k16.f32.bf16.bf16 in
+// place of the three TF32 ones, on weights prepared once in bf16, half the
+// bytes of one TF32 part; a chunk is 64 bf16 (the same 128-byte rows), and
+// the gated buffer and the x ping-pong hold bf16. The rounding to bf16 is to
+// nearest even (__floats2bfloat162_rn), as torch's and XLA's casts.
+//
 // Operands. wgmma's TF32 form has no transposed operand: both must have the
 // reduction index contiguous. The activations are the A operand: a thread
 // reads its fragment from shared memory into registers and splits it
@@ -48,7 +63,15 @@
 //   wproj_hi, wproj_lo (L, C+S, G8)  rows [0, C) wres^T, [C, C+S) wskip^T
 // (x8 = x rounded up to 8, the padding zero), once a weight set: 2 x 7.3 MB
 // for a student chain (0.1 GB over the student's 7), 2 x 0.7 GB over
-// FloWaveNet's 48 chains (the last block 2 x 23 MB a layer).
+// FloWaveNet's 48 chains (the last block 2 x 23 MB a layer). The bf16 form
+// may take B transposed (reduction index strided), but keeps this layout,
+// reduction index contiguous, without the split (wgate, wproj in bf16, half
+// the bytes of one f32 part): the 128-byte-swizzled K-major tile is then the
+// same bytes whatever the element type, so the loader, the descriptor (32
+// bytes a k16 step, as a k8 step of TF32) and the prepared weights' indexing
+// are the f32 form's, and x, c and the gated output are read as they are
+// stored, rows of contiguous channels. A transposed B would need the weights
+// as (k*C + cin, 2G) rows: no fewer bytes, and another loader.
 //
 // One main loop (gemm_kernel). A block of two warpgroups owns a 128-row x
 // 128-column output tile; each warpgroup owns 64 of the rows and both read
@@ -115,6 +138,7 @@
 // (tanh and exp); a projection block 24 us, 11.5 its 8 chunks, 8 its
 // epilogue, whose reads of x and skip meet every other block's in the
 // same phase. A whole student chain runs at 170 TFLOP/s of TF32 work.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -123,7 +147,6 @@ namespace {
 constexpr int kThreads = 256;            // two warpgroups
 constexpr int kBM = 128;                 // rows a block owns, 64 a warpgroup
 constexpr int kBN = 128;                 // columns a block owns
-constexpr int kBK = 32;                  // reduction floats a chunk
 constexpr int kStages = 4;
 // The tensor cores add into their f32 accumulator by truncation, an error
 // that grows with the length of the chain of additions (measured on an
@@ -137,20 +160,41 @@ constexpr int kStages = 4;
 #ifndef CHAIN_PROMOTE
 #define CHAIN_PROMOTE 2
 #endif
+// The bf16 form promotes after the same number of chunks: 128 reduction
+// terms of one product, against 64 terms of three at f32.
 constexpr int kPromote = CHAIN_PROMOTE;
-constexpr int kAStride = kBK + 4;        // floats; keeps fragment reads off bank conflicts
-constexpr int kBBytes = kBN * kBK * 4;   // one of hi, lo
-constexpr int kABytes = kBM * kAStride * 4;
-constexpr int kStageBytes = 2 * kBBytes + kABytes;   // a multiple of 1024
-constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + alignment slack
+constexpr int kBBytes = kBN * 128;       // one B part: 128 rows of 128 bytes
+
+// The two element forms of the main loop. A chunk is one 128-byte row of
+// the swizzled B tile: 32 floats or 64 bf16. The A tile's rows are padded
+// (36 floats, 72 bf16) to keep the fragment reads off bank conflicts.
+struct F32Form {
+  using T = float;
+  static constexpr bool kBf16 = false;
+  static constexpr int kBK = 32;         // reduction elements a chunk
+  static constexpr int kParts = 2;       // B as hi and lo
+  static constexpr int kAStride = kBK + 4;
+};
+struct Bf16Form {
+  using T = __nv_bfloat16;
+  static constexpr bool kBf16 = true;
+  static constexpr int kBK = 64;
+  static constexpr int kParts = 1;
+  static constexpr int kAStride = kBK + 8;
+};
+template <class E>
+struct Ring {
+  static constexpr int kABytes = kBM * E::kAStride * sizeof(typename E::T);
+  static constexpr int kStageBytes = E::kParts * kBBytes + kABytes;  // a multiple of 1024
+  static constexpr int kSmemBytes = kStages * kStageBytes + 1024;    // + alignment slack
+  static_assert(kStageBytes % 1024 == 0, "swizzled tiles need 1024-byte alignment");
+  static_assert(kSmemBytes <= 232448, "the ring must fit one Hopper block");
+};
 constexpr int kMaxTaps = 8;
 constexpr int kMaxSegs = kMaxTaps + 1;
 constexpr int kGluThreads = 256;
 constexpr int kMaxDevices = 64;
 constexpr float kSqrtHalf = 0.70710678118654752f;
-
-static_assert(kStageBytes % 1024 == 0, "swizzled tiles need 1024-byte alignment");
-static_assert(kSmemBytes <= 232448, "the ring must fit one Hopper block");
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int round_up(int a, int b) { return ceil_div(a, b) * b; }
@@ -249,31 +293,69 @@ __device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(keep));
 }
 
+// d (64 x 128, f32) += a (64 x 16, bf16, this thread's register fragment) x
+// b (128 x 16 K-major, bf16, shared memory; tnspB 0); keep = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc, int keep = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63},"
+      "{%64,%65,%66,%67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(keep));
+}
+
+__device__ __forceinline__ void st_shared_u16(uint32_t addr, unsigned short v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+}
+
 // ---- the main loop ----
 
 // One segment of a product's reduction: rows src[t + off] (zero outside
-// [0, T)) of `width` floats against the `width` rounded up to 8 reduction
+// [0, T)) of `width` elements against the `width` rounded up to 8 reduction
 // columns of B that start at kbase.
 struct Seg {
-  const float* src;
+  const void* src;
   int width;
   int off;
   int kbase;
-  int vec;  // rows are 16-byte aligned: copy four floats at a time
+  int vec;  // rows are 16-byte aligned: copy 16 bytes at a time
 };
 
 enum Epilogue { kEpiGlu, kEpiPartial, kEpiProject, kEpiPlain };
 
 // out tile = A @ B^T over the block's chunks. blockIdx.x: 128-row tile;
-// blockIdx.y: column tile; blockIdx.z: layer * splits + split.
+// blockIdx.y: column tile; blockIdx.z: layer * splits + split. The element
+// type of A, B, the gated output and x is the form's (float or bf16); the
+// biases, the partial sums, skip and the plain product are f32.
 struct GemmArgs {
   Seg seg[kMaxSegs];
   int n_seg;
-  int n_chunks;           // 32-float chunks over all segments
+  int n_chunks;           // chunks over all segments
   int splits;             // the chunks are cut into this many runs ...
   int chunks_per_split;   // ... of this length
-  const float* bhi;       // (layers, b_rows, ldb), hi and lo parts
-  const float* blo;
+  const void* bhi;        // (layers, b_rows, ldb); f32: the hi and lo parts,
+  const void* blo;        // bf16: bhi alone
   int ldb;
   int b_rows;
   int T;
@@ -281,33 +363,37 @@ struct GemmArgs {
   // kEpiGlu: gated[t, g] = tanh(f + bf[g]) * sigmoid(h + bg[g])
   const float* bf;
   const float* bg;
-  float* gated;
+  void* gated;
   // kEpiPartial: part[z, t, :] = [f | h], raw sums
   float* part;
   // kEpiProject: columns [0, C) update x, [C, C + S) update skip
-  const float* x_in;
+  const void* x_in;
   const float* bres;
   const float* bskip;
-  float* x_out;
+  void* x_out;
   float* skip;
   int C, S, first;
   // kEpiPlain: out[t, n] = the product, n < b_rows
   float* out;
 };
 
-// Stage `stage` <- chunk (seg s, floats [k0, k0 + 32)) of A and of both
-// parts of B, as cp.async copies; a copy that is out of range reads zero
-// bytes and zero-fills.
-__device__ __forceinline__ void load_chunk(const GemmArgs& a, const float* bhi,
-                                           const float* blo, uint32_t stage,
+// Stage `stage` <- chunk (seg s, elements [k0, k0 + kBK)) of A and of B (both
+// parts at f32), as cp.async copies; a copy that is out of range reads zero
+// bytes and zero-fills. A bf16 segment whose rows are not 16-byte aligned (a
+// ragged width) is copied an element at a time by the threads themselves.
+template <class E>
+__device__ __forceinline__ void load_chunk(const GemmArgs& a, const void* bhi,
+                                           const void* blo, uint32_t stage,
                                            int s, int k0, int t0, int n0,
                                            int n1, int lim0, int lim1) {
+  using T = typename E::T;
+  constexpr int kPiece = 16 / sizeof(T);  // elements a 16-byte piece
   const int tid = threadIdx.x;
   const int piece = tid % 8;
   const Seg seg = a.seg[s];
   const int width8 = round_up(seg.width, 8);
-  const int kp = k0 + piece * 4;
-  // B: 128 rows x 8 pieces of 16 bytes, hi and lo; piece p of row n lands
+  const int kp = k0 + piece * kPiece;
+  // B: 128 rows x 8 pieces of 16 bytes (each part); piece p of row n lands
   // at chunk p ^ (n % 8) of the row (the 128-byte swizzle)
 #pragma unroll
   for (int i = 0; i < kBN / 32; ++i) {
@@ -316,64 +402,101 @@ __device__ __forceinline__ void load_chunk(const GemmArgs& a, const float* bhi,
     const bool ok = row < (nrow < 64 ? lim0 : lim1) && kp < width8;
     const size_t at = ok ? static_cast<size_t>(row) * a.ldb + seg.kbase + kp : 0;
     const uint32_t dst = stage + nrow * 128 + ((piece ^ (nrow & 7)) << 4);
-    cp_async_16(dst, bhi + at, ok);
-    cp_async_16(dst + kBBytes, blo + at, ok);
+    cp_async_16(dst, static_cast<const T*>(bhi) + at, ok);
+    if (E::kParts == 2)
+      cp_async_16(dst + kBBytes, static_cast<const T*>(blo) + at, ok);
   }
   // A: 128 rows x 8 pieces
-  const uint32_t a_s = stage + 2 * kBBytes;
+  const uint32_t a_s = stage + E::kParts * kBBytes;
 #pragma unroll
   for (int i = 0; i < kBM / 32; ++i) {
     const int row = tid / 8 + 32 * i;
     const int t = t0 + row;
     const int ts = t + seg.off;
     const bool row_ok = t < a.T && ts >= 0 && ts < a.T;
-    const float* src = seg.src + (row_ok ? static_cast<size_t>(ts) * seg.width : 0);
-    const uint32_t dst = a_s + (row * kAStride + piece * 4) * 4;
+    const T* src = static_cast<const T*>(seg.src) +
+                   (row_ok ? static_cast<size_t>(ts) * seg.width : 0);
+    const uint32_t dst = a_s + (row * E::kAStride + piece * kPiece) * sizeof(T);
     if (seg.vec) {
       const bool ok = row_ok && kp < seg.width;
       cp_async_16(dst, src + (ok ? kp : 0), ok);
-    } else {
+    } else if constexpr (!E::kBf16) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok = row_ok && kp + e < seg.width;
         cp_async_4(dst + 4 * e, src + (ok ? kp + e : 0), ok);
       }
+    } else {
+      const unsigned short* raw = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+      for (int e = 0; e < kPiece; ++e) {
+        const bool ok = row_ok && kp + e < seg.width;
+        st_shared_u16(dst + 2 * e, ok ? __ldg(raw + kp + e) : 0);
+      }
     }
   }
 }
 
-// The products of one staged chunk for this warpgroup's 64 rows: four k8
-// steps, each A_hi B_lo, A_lo B_hi, A_hi B_hi into acc, committed as one
-// wgmma group. The fragment registers are this call's own, so that the
-// caller can leave one group in flight.
+// The products of one staged chunk for this warpgroup's 64 rows, committed
+// as one wgmma group. f32: four k8 steps, each A_hi B_lo, A_lo B_hi, A_hi
+// B_hi into acc; bf16: four k16 steps of one product. The fragment
+// registers are this call's own, so that the caller can leave one group in
+// flight.
+template <class E>
 __device__ __forceinline__ void mma_chunk(float (&acc)[64], uint32_t stage,
-                                          const float* a_s, bool fresh) {
+                                          const unsigned char* a_ptr, bool fresh) {
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int wg = threadIdx.x / 128;
   const int r = wg * 64 + warp * 16 + lane / 4, c = lane % 4;
-  uint32_t hi[kBK / 8][4], lo[kBK / 8][4];
+  if constexpr (E::kBf16) {
+    // the m64k16 fragment: rows r and r + 8, reduction columns 2c, 2c + 1
+    // and 2c + 8, 2c + 9, two bf16 a register (the lower index low)
+    const unsigned short* a_s = reinterpret_cast<const unsigned short*>(a_ptr);
+    uint32_t fr[E::kBK / 16][4];
 #pragma unroll
-  for (int s = 0; s < kBK / 8; ++s) {
-    // the m64k8 fragment: rows r and r + 8, reduction columns c and c + 4
-    split_tf32(a_s[r * kAStride + 8 * s + c], hi[s][0], lo[s][0]);
-    split_tf32(a_s[(r + 8) * kAStride + 8 * s + c], hi[s][1], lo[s][1]);
-    split_tf32(a_s[r * kAStride + 8 * s + c + 4], hi[s][2], lo[s][2]);
-    split_tf32(a_s[(r + 8) * kAStride + 8 * s + c + 4], hi[s][3], lo[s][3]);
-  }
-  wgmma_fence();
+    for (int s = 0; s < E::kBK / 16; ++s) {
+      const int k = 16 * s + 2 * c;
+      fr[s][0] = *reinterpret_cast<const uint32_t*>(a_s + r * E::kAStride + k);
+      fr[s][1] = *reinterpret_cast<const uint32_t*>(a_s + (r + 8) * E::kAStride + k);
+      fr[s][2] = *reinterpret_cast<const uint32_t*>(a_s + r * E::kAStride + k + 8);
+      fr[s][3] = *reinterpret_cast<const uint32_t*>(a_s + (r + 8) * E::kAStride + k + 8);
+    }
+    wgmma_fence();
 #pragma unroll
-  for (int s = 0; s < kBK / 8; ++s) {
-    const uint64_t d_hi = b_descriptor(stage + 32 * s);
-    const uint64_t d_lo = b_descriptor(stage + kBBytes + 32 * s);
+    for (int s = 0; s < E::kBK / 16; ++s) {
 #ifndef CHAIN_NO_PRODUCTS
-    wgmma_m64n128k8(acc, hi[s], d_lo, (s > 0 || !fresh) ? 1 : 0);
-    wgmma_m64n128k8(acc, lo[s], d_hi);
-    wgmma_m64n128k8(acc, hi[s], d_hi);
-#else   // keep the fragment loads and splits alive
-    acc[s] += __uint_as_float(hi[s][0] ^ hi[s][1] ^ hi[s][2] ^ hi[s][3] ^
-                              lo[s][0] ^ lo[s][1] ^ lo[s][2] ^ lo[s][3]) +
-              static_cast<float>(d_hi ^ d_lo);
+      wgmma_m64n128k16_bf16(acc, fr[s], b_descriptor(stage + 32 * s),
+                            (s > 0 || !fresh) ? 1 : 0);
+#else   // keep the fragment loads alive
+      acc[s] += __uint_as_float(fr[s][0] ^ fr[s][1] ^ fr[s][2] ^ fr[s][3]);
 #endif
+    }
+  } else {
+    const float* a_s = reinterpret_cast<const float*>(a_ptr);
+    uint32_t hi[E::kBK / 8][4], lo[E::kBK / 8][4];
+#pragma unroll
+    for (int s = 0; s < E::kBK / 8; ++s) {
+      // the m64k8 fragment: rows r and r + 8, reduction columns c and c + 4
+      split_tf32(a_s[r * E::kAStride + 8 * s + c], hi[s][0], lo[s][0]);
+      split_tf32(a_s[(r + 8) * E::kAStride + 8 * s + c], hi[s][1], lo[s][1]);
+      split_tf32(a_s[r * E::kAStride + 8 * s + c + 4], hi[s][2], lo[s][2]);
+      split_tf32(a_s[(r + 8) * E::kAStride + 8 * s + c + 4], hi[s][3], lo[s][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < E::kBK / 8; ++s) {
+      const uint64_t d_hi = b_descriptor(stage + 32 * s);
+      const uint64_t d_lo = b_descriptor(stage + kBBytes + 32 * s);
+#ifndef CHAIN_NO_PRODUCTS
+      wgmma_m64n128k8(acc, hi[s], d_lo, (s > 0 || !fresh) ? 1 : 0);
+      wgmma_m64n128k8(acc, lo[s], d_hi);
+      wgmma_m64n128k8(acc, hi[s], d_hi);
+#else   // keep the fragment loads and splits alive
+      acc[s] += __uint_as_float(hi[s][0] ^ hi[s][1] ^ hi[s][2] ^ hi[s][3] ^
+                                lo[s][0] ^ lo[s][1] ^ lo[s][2] ^ lo[s][3]) +
+                static_cast<float>(d_hi ^ d_lo);
+#endif
+    }
   }
   wgmma_commit();
 }
@@ -402,17 +525,39 @@ __device__ unsigned long long g_stamps[4 * kStampBlocks * kStampFields];
 
 // The loader's position in the reduction: the segment and the offset in it
 // of the next chunk to load.
+template <class E>
 struct ChunkCursor {
   int seg, k0;
   __device__ __forceinline__ void advance(const GemmArgs& a) {
-    k0 += kBK;
+    k0 += E::kBK;
     if (k0 >= round_up(a.seg[seg].width, 8)) { ++seg; k0 = 0; }
   }
 };
 
-template <int EPI>
+// A pair of adjacent elements of a (T, width) row-major array of the form's
+// type, as floats / from floats (bf16: rounded to nearest even).
+template <class E>
+__device__ __forceinline__ float2 load_pair(const void* base, size_t at) {
+  if constexpr (E::kBf16)
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(base) + at));
+  else
+    return *reinterpret_cast<const float2*>(static_cast<const float*>(base) + at);
+}
+
+template <class E>
+__device__ __forceinline__ void store_pair(void* base, size_t at, float x, float y) {
+  if constexpr (E::kBf16)
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(base) + at) =
+        __floats2bfloat162_rn(x, y);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(base) + at) = make_float2(x, y);
+}
+
+template <int EPI, class E>
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_kernel(const __grid_constant__ GemmArgs a) {
+  constexpr int kStageBytes = Ring<E>::kStageBytes;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t ring = (raw + 1023) & ~1023u;   // shared-window address
@@ -429,13 +574,14 @@ gemm_kernel(const __grid_constant__ GemmArgs a) {
   const int n1 = kGate ? a.G + n0 : n0 + 64;
   const int lim0 = kGate ? a.G : a.b_rows;
   const int lim1 = kGate ? 2 * a.G : a.b_rows;
+  using T = typename E::T;
   const size_t b_layer = static_cast<size_t>(layer) * a.b_rows * a.ldb;
-  const float* bhi = a.bhi + b_layer;
-  const float* blo = a.blo + b_layer;
+  const T* bhi = static_cast<const T*>(a.bhi) + b_layer;
+  const T* blo = E::kParts == 2 ? static_cast<const T*>(a.blo) + b_layer : nullptr;
 
   const int c_begin = split * a.chunks_per_split;
   const int n = max(min(a.n_chunks, c_begin + a.chunks_per_split) - c_begin, 0);
-  ChunkCursor cur = {0, 0};
+  ChunkCursor<E> cur = {0, 0};
   for (int i = 0; i < c_begin; ++i) cur.advance(a);
   // Programmatic dependent launch: the next launch on the stream may be
   // scheduled onto SMs that this one's tail leaves idle, and this block
@@ -445,7 +591,7 @@ gemm_kernel(const __grid_constant__ GemmArgs a) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 
   // acc is the tensor cores' accumulator, sum the running total: see
-  // kPromote. 226-234 registers a thread, no spills.
+  // kPromote. 226-234 registers a thread at f32, no spills.
   float acc[64], sum[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.f;
@@ -457,8 +603,8 @@ gemm_kernel(const __grid_constant__ GemmArgs a) {
   // a group still in flight are not the ones being refilled.
   for (int p = 0; p < 2; ++p) {
     if (p < n) {
-      load_chunk(a, bhi, blo, ring + p * kStageBytes, cur.seg, cur.k0, t0, n0,
-                 n1, lim0, lim1);
+      load_chunk<E>(a, bhi, blo, ring + p * kStageBytes, cur.seg, cur.k0, t0, n0,
+                    n1, lim0, lim1);
       cur.advance(a);
     }
     cp_async_commit();
@@ -475,16 +621,15 @@ gemm_kernel(const __grid_constant__ GemmArgs a) {
         __syncthreads();
         if (i == 0) { CHAIN_STAMP(EPI, 2) }
         const int slot = i % kStages;
-        mma_chunk(acc, ring + slot * kStageBytes,
-                  reinterpret_cast<const float*>(ring_ptr + slot * kStageBytes +
-                                                 2 * kBBytes),
-                  i % kPromote == 0);
+        mma_chunk<E>(acc, ring + slot * kStageBytes,
+                     ring_ptr + slot * kStageBytes + E::kParts * kBBytes,
+                     i % kPromote == 0);
         // the products are queued before the next loads' address arithmetic
         // (measured 5% faster than loads first)
 #ifndef CHAIN_NO_LOADS
         if (i + 2 < n) {
-          load_chunk(a, bhi, blo, ring + ((i + 2) % kStages) * kStageBytes,
-                     cur.seg, cur.k0, t0, n0, n1, lim0, lim1);
+          load_chunk<E>(a, bhi, blo, ring + ((i + 2) % kStages) * kStageBytes,
+                        cur.seg, cur.k0, t0, n0, n1, lim0, lim1);
           cur.advance(a);
         }
 #endif
@@ -524,9 +669,9 @@ gemm_kernel(const __grid_constant__ GemmArgs a) {
         const float f0 = sum[4 * j + 2 * h], f1 = sum[4 * j + 2 * h + 1];
         const float g0 = sum[32 + 4 * j + 2 * h], g1 = sum[32 + 4 * j + 2 * h + 1];
         if (EPI == kEpiGlu) {
-          *reinterpret_cast<float2*>(a.gated + static_cast<size_t>(t) * a.G + col) =
-              make_float2(tanhf(f0 + bf.x) * sigmoidf_(g0 + bg.x),
-                          tanhf(f1 + bf.y) * sigmoidf_(g1 + bg.y));
+          store_pair<E>(a.gated, static_cast<size_t>(t) * a.G + col,
+                        tanhf(f0 + bf.x) * sigmoidf_(g0 + bg.x),
+                        tanhf(f1 + bf.y) * sigmoidf_(g1 + bg.y));
         } else {
           float* row = part + static_cast<size_t>(t) * 2 * a.G + col;
           *reinterpret_cast<float2*>(row) = make_float2(f0, f1);
@@ -563,8 +708,7 @@ gemm_kernel(const __grid_constant__ GemmArgs a) {
         old[2 * j + h] = make_float2(0.f, 0.f);
         if (col >= a.b_rows || t >= a.T) continue;
         if (col < a.C)
-          old[2 * j + h] = *reinterpret_cast<const float2*>(
-              a.x_in + static_cast<size_t>(t) * a.C + col);
+          old[2 * j + h] = load_pair<E>(a.x_in, static_cast<size_t>(t) * a.C + col);
         else if (!a.first)
           old[2 * j + h] = *reinterpret_cast<const float2*>(
               a.skip + static_cast<size_t>(t) * a.S + col - a.C);
@@ -585,9 +729,8 @@ gemm_kernel(const __grid_constant__ GemmArgs a) {
         const float vx = sum[4 * j + 2 * h] + b.x;
         const float vy = sum[4 * j + 2 * h + 1] + b.y;
         if (res)
-          *reinterpret_cast<float2*>(a.x_out + static_cast<size_t>(t) * a.C +
-                                     col) =
-              make_float2((o.x + vx) * kSqrtHalf, (o.y + vy) * kSqrtHalf);
+          store_pair<E>(a.x_out, static_cast<size_t>(t) * a.C + col,
+                        (o.x + vx) * kSqrtHalf, (o.y + vy) * kSqrtHalf);
         else
           *reinterpret_cast<float2*>(a.skip + static_cast<size_t>(t) * a.S +
                                      col - a.C) =
@@ -599,10 +742,12 @@ gemm_kernel(const __grid_constant__ GemmArgs a) {
 }
 
 // out[t, g] = tanh(hf) * sigmoid(hg), hf/hg = bias + the conditioning's
-// partial sums + the taps' partial sums, each in slice order.
+// partial sums + the taps' partial sums, each in slice order; out in the
+// form's type.
+template <class E>
 __global__ void __launch_bounds__(kGluThreads)
 glu_kernel(const float* cpart, int c_splits, const float* gpart, int g_splits,
-           const float* bf, const float* bg, float* out, int T, int G) {
+           const float* bf, const float* bg, void* out, int T, int G) {
   const int g4 = G / 4;
   const int idx = blockIdx.x * kGluThreads + threadIdx.x;
   if (idx >= T * g4) return;
@@ -622,21 +767,35 @@ glu_kernel(const float* cpart, int c_splits, const float* gpart, int g_splits,
     add(f, __ldg(reinterpret_cast<const float4*>(gpart + s * step + at)));
     add(h, __ldg(reinterpret_cast<const float4*>(gpart + s * step + at + G)));
   }
-  *reinterpret_cast<float4*>(out + static_cast<size_t>(t) * G + g) =
-      make_float4(tanhf(f.x) * sigmoidf_(h.x), tanhf(f.y) * sigmoidf_(h.y),
-                  tanhf(f.z) * sigmoidf_(h.z), tanhf(f.w) * sigmoidf_(h.w));
+  const size_t o = static_cast<size_t>(t) * G + g;
+  store_pair<E>(out, o, tanhf(f.x) * sigmoidf_(h.x), tanhf(f.y) * sigmoidf_(h.y));
+  store_pair<E>(out, o + 2, tanhf(f.z) * sigmoidf_(h.z), tanhf(f.w) * sigmoidf_(h.w));
 }
 
 // ---- the weights' prepared form ----
+
+// The prepared value of one weight element: f32 splits into TF32 hi and lo
+// parts, bf16 (moved as its 16-bit pattern) is copied as it is.
+__device__ __forceinline__ void put_weight(float v, float* hi, float* lo, size_t at) {
+  uint32_t h, w;
+  split_tf32(v, h, w);
+  hi[at] = __uint_as_float(h);
+  lo[at] = __uint_as_float(w);
+}
+
+__device__ __forceinline__ void put_weight(unsigned short v, unsigned short* hi,
+                                           unsigned short*, size_t at) {
+  hi[at] = v;
+}
 
 // hi/lo[l, n, kk] of the gate matrix: row n < G is filter column n, row
 // G + n gate column n; kk walks tap j's C channels at j * C8, then the
 // conditioning's cin at k * C8; the padding is zero. Threads run along n,
 // the sources' contiguous index.
+template <typename S>
 __global__ void __launch_bounds__(256)
-prepare_gate_kernel(const float* wf, const float* wg, const float* wfc,
-                    const float* wgc, float* hi, float* lo, int L, int k, int C,
-                    int G, int cin) {
+prepare_gate_kernel(const S* wf, const S* wg, const S* wfc, const S* wgc, S* hi,
+                    S* lo, int L, int k, int C, int G, int cin) {
   const int C8 = round_up(C, 8), Kg = k * C8 + round_up(cin, 8);
   const size_t total = static_cast<size_t>(L) * Kg * 2 * G;
   const size_t idx = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
@@ -646,7 +805,7 @@ prepare_gate_kernel(const float* wf, const float* wg, const float* wfc,
   const int l = idx / (static_cast<size_t>(2 * G) * Kg);
   const bool gate = n >= G;
   const int col = gate ? n - G : n;
-  float v = 0.f;
+  S v = S(0);
   if (kk < k * C8) {
     const int j = kk / C8, ch = kk % C8;
     if (ch < C)
@@ -654,45 +813,41 @@ prepare_gate_kernel(const float* wf, const float* wg, const float* wfc,
   } else if (kk - k * C8 < cin) {
     v = (gate ? wgc : wfc)[(static_cast<size_t>(l) * cin + kk - k * C8) * G + col];
   }
-  uint32_t h, w;
-  split_tf32(v, h, w);
-  const size_t at = (static_cast<size_t>(l) * 2 * G + n) * Kg + kk;
-  hi[at] = __uint_as_float(h);
-  lo[at] = __uint_as_float(w);
+  put_weight(v, hi, lo, (static_cast<size_t>(l) * 2 * G + n) * Kg + kk);
 }
 
 // hi/lo[l, n, g] of the projection matrix: row n < C is wres[l, :, n], row
 // C + n is wskip[l, :, n]; g >= G is zero.
+template <typename S>
 __global__ void __launch_bounds__(256)
-prepare_proj_kernel(const float* wres, const float* wskip, float* hi, float* lo,
-                    int L, int C, int G, int S) {
-  const int G8 = round_up(G, 8), N = C + S;
+prepare_proj_kernel(const S* wres, const S* wskip, S* hi, S* lo, int L, int C,
+                    int G, int S_) {
+  const int G8 = round_up(G, 8), N = C + S_;
   const size_t total = static_cast<size_t>(L) * G8 * N;
   const size_t idx = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
   if (idx >= total) return;
   const int n = idx % N;
   const int g = (idx / N) % G8;
   const int l = idx / (static_cast<size_t>(N) * G8);
-  float v = 0.f;
+  S v = S(0);
   if (g < G)
     v = n < C ? wres[(static_cast<size_t>(l) * G + g) * C + n]
-              : wskip[(static_cast<size_t>(l) * G + g) * S + n - C];
-  uint32_t h, w;
-  split_tf32(v, h, w);
-  const size_t at = (static_cast<size_t>(l) * N + n) * G8 + g;
-  hi[at] = __uint_as_float(h);
-  lo[at] = __uint_as_float(w);
+              : wskip[(static_cast<size_t>(l) * G + g) * S_ + n - C];
+  put_weight(v, hi, lo, (static_cast<size_t>(l) * N + n) * G8 + g);
 }
 
 // ---- host side ----
 
-int chunks_of(int width) { return ceil_div(round_up(width, 8), kBK); }
+template <class E>
+int chunks_of(int width) { return ceil_div(round_up(width, 8), E::kBK); }
 
-bool rows_aligned(const float* p, int width) {
-  return width % 4 == 0 && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+template <class E>
+bool rows_aligned(const void* p, int width) {
+  return (width * sizeof(typename E::T)) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <int EPI>
+template <int EPI, class E>
 cudaError_t launch_gemm(const GemmArgs& a, dim3 grid, cudaStream_t s) {
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   // the shared-memory opt-in is per kernel and device: asked for once each
@@ -701,38 +856,41 @@ cudaError_t launch_gemm(const GemmArgs& a, dim3 grid, cudaStream_t s) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices || !allowed[dev]) {
-    err = cudaFuncSetAttribute(gemm_kernel<EPI>,
+    err = cudaFuncSetAttribute(gemm_kernel<EPI, E>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemBytes);
+                               Ring<E>::kSmemBytes);
     if (err != cudaSuccess) return err;
     if (dev >= 0 && dev < kMaxDevices) allowed[dev] = true;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.dynamicSmemBytes = Ring<E>::kSmemBytes;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, gemm_kernel<EPI>, a);
+  return cudaLaunchKernelEx(&cfg, gemm_kernel<EPI, E>, a);
 }
 
+// x, c, x_out and the weights are of the form's element type; the f32 form
+// has the weights' hi and lo parts, the bf16 form the weights alone (lo
+// null). The scratch is laid out in floats alike in both forms.
 struct ChainArgs {
-  const float* x;
-  const float* c;
-  const float* wgate_hi;  // the prepared form, see prepare_chain_weights
-  const float* wgate_lo;
-  const float* wproj_hi;
-  const float* wproj_lo;
+  const void* x;
+  const void* c;
+  const void* wgate_hi;  // the prepared form, see prepare_chain_weights
+  const void* wgate_lo;
+  const void* wproj_hi;
+  const void* wproj_lo;
   const float* bf;
   const float* bg;
   const float* bres;
   const float* bskip;
   int T, C, G, S, cin, L, k;
-  float* x_out;
+  void* x_out;
   float* skip;
   float* scratch;  // chain_scratch_floats() floats
   int path;        // 0, or a path forced for tests and measurements
@@ -743,12 +901,13 @@ constexpr int kPathRows = 1, kPathSplit = 2;  // 0: the shapes decide
 // How the split path cuts a chain: the reduction splits of the conditioning
 // pre-pass and of a layer's tap product, chosen so that each launch has
 // about two blocks an SM and no split is under a few chunks. A function of
-// the shapes and the SM count alone.
+// the shapes, the form's chunk and the SM count alone.
 struct SplitPlan {
   int c_splits, c_chunks;  // pre-pass: splits, chunks a split
   int g_splits, g_chunks;  // tap product of one layer
 };
 
+template <class E>
 SplitPlan split_plan(int T, int C, int G, int cin, int L, int k, int sms) {
   const int tiles = ceil_div(T, kBM) * ceil_div(G, 64);
   auto cut = [&](int n_tiles, int n_chunks, int min_chunks, int* splits,
@@ -760,8 +919,8 @@ SplitPlan split_plan(int T, int C, int G, int cin, int L, int k, int sms) {
     *splits = ceil_div(n_chunks, *chunks);
   };
   SplitPlan p;
-  cut(tiles * L, chunks_of(cin), 4, &p.c_splits, &p.c_chunks);
-  cut(tiles, k * chunks_of(C), 2, &p.g_splits, &p.g_chunks);
+  cut(tiles * L, chunks_of<E>(cin), 4, &p.c_splits, &p.c_chunks);
+  cut(tiles, k * chunks_of<E>(C), 2, &p.g_splits, &p.g_chunks);
   return p;
 }
 
@@ -776,7 +935,8 @@ SplitPlan split_plan(int T, int C, int G, int cin, int L, int k, int sms) {
 // 0.22-0.25, 0.19-0.22, 0.19-0.22, 0.17-0.23, 0.20-0.25 against 0.25-0.28,
 // 0.30-0.31, 0.43-0.48, 0.67-0.76, 1.15-1.28), where the conditioning is
 // also the wider part of the reduction. A rule of the shapes and the SM
-// count alone, so results are a function of the inputs.
+// count alone, so results are a function of the inputs. The bf16 form
+// takes the same rule (measured at f32).
 bool takes_split_path(int T, int G, int sms, int path) {
   if (path == kPathRows) return false;
   if (path == kPathSplit) return true;
@@ -794,35 +954,44 @@ int device_sms(int* sms) {
 // Floats of scratch a chain needs: the (T, C) buffer x ping-pongs through,
 // the gated output (T, G) and, on the split path, the partial sums of the
 // pre-pass (L, c_splits, T, 2G) and of one layer's tap product (g_splits,
-// T, 2G).
+// T, 2G). The bf16 form lays its buffers out at the same offsets (x and the
+// gated output in half of theirs), so one size serves both: the larger of
+// the two forms' plans.
 size_t chain_scratch_floats(int T, int C, int G, int cin, int L, int k, int sms,
                             int path) {
   size_t n = static_cast<size_t>(T) * C + static_cast<size_t>(T) * G;
   if (takes_split_path(T, G, sms, path)) {
-    const SplitPlan p = split_plan(T, C, G, cin, L, k, sms);
-    n += static_cast<size_t>(L) * p.c_splits * T * 2 * G +
-         static_cast<size_t>(p.g_splits) * T * 2 * G;
+    const SplitPlan plans[2] = {split_plan<F32Form>(T, C, G, cin, L, k, sms),
+                                split_plan<Bf16Form>(T, C, G, cin, L, k, sms)};
+    size_t parts = 0;
+    for (const SplitPlan& p : plans) {
+      const size_t need = static_cast<size_t>(L) * p.c_splits * T * 2 * G +
+                          static_cast<size_t>(p.g_splits) * T * 2 * G;
+      if (need > parts) parts = need;
+    }
+    n += parts;
   }
   return n;
 }
 
 // The gate product's arguments for layer l (l < 0: every layer, for the
 // pre-pass): the taps of x_in when `taps`, the conditioning when `cond`.
+template <class E>
 GemmArgs gate_args(const ChainArgs& c, const int* offsets, int l,
-                   const float* x_in, bool taps, bool cond) {
+                   const void* x_in, bool taps, bool cond) {
   GemmArgs a = {};
   const int C8 = round_up(c.C, 8);
   int n = 0, chunks = 0;
   if (taps) {
     for (int j = 0; j < c.k; ++j) {
       a.seg[n++] = Seg{x_in, c.C, offsets[l * c.k + j], j * C8,
-                       rows_aligned(x_in, c.C)};
-      chunks += chunks_of(c.C);
+                       rows_aligned<E>(x_in, c.C)};
+      chunks += chunks_of<E>(c.C);
     }
   }
   if (cond) {
-    a.seg[n++] = Seg{c.c, c.cin, 0, c.k * C8, rows_aligned(c.c, c.cin)};
-    chunks += chunks_of(c.cin);
+    a.seg[n++] = Seg{c.c, c.cin, 0, c.k * C8, rows_aligned<E>(c.c, c.cin)};
+    chunks += chunks_of<E>(c.cin);
   }
   a.n_seg = n;
   a.n_chunks = chunks;
@@ -831,8 +1000,9 @@ GemmArgs gate_args(const ChainArgs& c, const int* offsets, int l,
   a.ldb = c.k * C8 + round_up(c.cin, 8);
   a.b_rows = 2 * c.G;
   const size_t at = l < 0 ? 0 : static_cast<size_t>(l) * a.b_rows * a.ldb;
-  a.bhi = c.wgate_hi + at;
-  a.blo = c.wgate_lo + at;
+  using T = typename E::T;
+  a.bhi = static_cast<const T*>(c.wgate_hi) + at;
+  a.blo = E::kParts == 2 ? static_cast<const T*>(c.wgate_lo) + at : nullptr;
   a.T = c.T;
   a.G = c.G;
   return a;
@@ -841,39 +1011,42 @@ GemmArgs gate_args(const ChainArgs& c, const int* offsets, int l,
 // The projection launch of layer l: the gated output against [wres | wskip],
 // the residual and skip updates in the epilogue. Returns the layer's output
 // buffer in *x_next.
-cudaError_t launch_projection(const ChainArgs& c, int l, const float* x_in,
-                              float* gated, cudaStream_t s,
-                              const float** x_next) {
+template <class E>
+cudaError_t launch_projection(const ChainArgs& c, int l, const void* x_in,
+                              void* gated, cudaStream_t s,
+                              const void** x_next) {
   GemmArgs a = {};
-  a.seg[0] = Seg{gated, c.G, 0, 0, rows_aligned(gated, c.G)};
+  a.seg[0] = Seg{gated, c.G, 0, 0, rows_aligned<E>(gated, c.G)};
   a.n_seg = 1;
-  a.n_chunks = a.chunks_per_split = chunks_of(c.G);
+  a.n_chunks = a.chunks_per_split = chunks_of<E>(c.G);
   a.splits = 1;
   a.ldb = round_up(c.G, 8);
   a.b_rows = c.C + c.S;
   const size_t at = static_cast<size_t>(l) * a.b_rows * a.ldb;
-  a.bhi = c.wproj_hi + at;
-  a.blo = c.wproj_lo + at;
+  using T = typename E::T;
+  a.bhi = static_cast<const T*>(c.wproj_hi) + at;
+  a.blo = E::kParts == 2 ? static_cast<const T*>(c.wproj_lo) + at : nullptr;
   a.T = c.T;
   a.x_in = x_in;
   a.bres = c.bres + static_cast<size_t>(l) * c.C;
   a.bskip = c.bskip + static_cast<size_t>(l) * c.S;
   // ping-pong so that the last layer writes x_out
-  a.x_out = ((c.L - 1 - l) % 2 == 0) ? c.x_out : c.scratch;
+  a.x_out = ((c.L - 1 - l) % 2 == 0) ? c.x_out : static_cast<void*>(c.scratch);
   a.skip = c.skip;
   a.C = c.C;
   a.S = c.S;
   a.first = (l == 0);
   *x_next = a.x_out;
-  return launch_gemm<kEpiProject>(
+  return launch_gemm<kEpiProject, E>(
       a, dim3(ceil_div(c.T, kBM), ceil_div(c.C + c.S, kBN)), s);
 }
 
 // The split path: one pre-pass for every layer's conditioning product, then
 // per layer the tap product, the GLU and the projection, all on `s`.
+template <class E>
 int launch_chain_split(const ChainArgs& c, const int* offsets, int sms,
                        cudaStream_t s) {
-  const SplitPlan p = split_plan(c.T, c.C, c.G, c.cin, c.L, c.k, sms);
+  const SplitPlan p = split_plan<E>(c.T, c.C, c.G, c.cin, c.L, c.k, sms);
   const size_t layer_part = static_cast<size_t>(c.T) * 2 * c.G;
   float* gated = c.scratch + static_cast<size_t>(c.T) * c.C;
   float* cpart = gated + static_cast<size_t>(c.T) * c.G;
@@ -882,30 +1055,30 @@ int launch_chain_split(const ChainArgs& c, const int* offsets, int sms,
   if (static_cast<int64_t>(c.L) * p.c_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
 
-  GemmArgs pre = gate_args(c, offsets, -1, nullptr, false, true);
+  GemmArgs pre = gate_args<E>(c, offsets, -1, nullptr, false, true);
   pre.splits = p.c_splits;
   pre.chunks_per_split = p.c_chunks;
   pre.part = cpart;
-  cudaError_t err = launch_gemm<kEpiPartial>(
+  cudaError_t err = launch_gemm<kEpiPartial, E>(
       pre, dim3(row_tiles, col_tiles, c.L * p.c_splits), s);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const float* x_in = c.x;
+  const void* x_in = c.x;
   for (int l = 0; l < c.L; ++l) {
-    GemmArgs taps = gate_args(c, offsets, l, x_in, true, false);
+    GemmArgs taps = gate_args<E>(c, offsets, l, x_in, true, false);
     taps.splits = p.g_splits;
     taps.chunks_per_split = p.g_chunks;
     taps.part = gpart;
-    err = launch_gemm<kEpiPartial>(taps, dim3(row_tiles, col_tiles, p.g_splits),
-                                   s);
+    err = launch_gemm<kEpiPartial, E>(taps, dim3(row_tiles, col_tiles, p.g_splits),
+                                      s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    glu_kernel<<<ceil_div(c.T * (c.G / 4), kGluThreads), kGluThreads, 0, s>>>(
+    glu_kernel<E><<<ceil_div(c.T * (c.G / 4), kGluThreads), kGluThreads, 0, s>>>(
         cpart + static_cast<size_t>(l) * p.c_splits * layer_part, p.c_splits,
         gpart, p.g_splits, c.bf + static_cast<size_t>(l) * c.G,
         c.bg + static_cast<size_t>(l) * c.G, gated, c.T, c.G);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_projection(c, l, x_in, gated, s, &x_in);
+    err = launch_projection<E>(c, l, x_in, gated, s, &x_in);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -913,6 +1086,7 @@ int launch_chain_split(const ChainArgs& c, const int* offsets, int sms,
 
 // offsets: L * k row offsets, layer-major. On the row-tiled path two
 // launches a layer on `s`; chains of few rows take the split path.
+template <class E>
 int launch_chain(const ChainArgs& c, const int* offsets, cudaStream_t s) {
   if (c.k < 1 || c.k > kMaxTaps || c.L < 1 || c.T < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -920,18 +1094,18 @@ int launch_chain(const ChainArgs& c, const int* offsets, cudaStream_t s) {
   const int dev_err = device_sms(&sms);
   if (dev_err != 0) return dev_err;
   if (takes_split_path(c.T, c.G, sms, c.path))
-    return launch_chain_split(c, offsets, sms, s);
+    return launch_chain_split<E>(c, offsets, sms, s);
   float* gated = c.scratch + static_cast<size_t>(c.T) * c.C;
-  const float* x_in = c.x;
+  const void* x_in = c.x;
   for (int l = 0; l < c.L; ++l) {
-    GemmArgs gate = gate_args(c, offsets, l, x_in, true, true);
+    GemmArgs gate = gate_args<E>(c, offsets, l, x_in, true, true);
     gate.bf = c.bf + static_cast<size_t>(l) * c.G;
     gate.bg = c.bg + static_cast<size_t>(l) * c.G;
     gate.gated = gated;
-    cudaError_t err = launch_gemm<kEpiGlu>(
+    cudaError_t err = launch_gemm<kEpiGlu, E>(
         gate, dim3(ceil_div(c.T, kBM), ceil_div(c.G, 64)), s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = launch_projection(c, l, x_in, gated, s, &x_in);
+    err = launch_projection<E>(c, l, x_in, gated, s, &x_in);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
@@ -940,6 +1114,7 @@ int launch_chain(const ChainArgs& c, const int* offsets, cudaStream_t s) {
 constexpr int kMaxLayers = 64;
 
 // Causal chain with dilation k**l at layer l (the ClariNet convention).
+template <class E>
 int launch_causal(const ChainArgs& c, cudaStream_t s) {
   if (c.L > kMaxLayers || c.k > kMaxTaps)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -951,15 +1126,64 @@ int launch_causal(const ChainArgs& c, cudaStream_t s) {
       offsets[l * c.k + j] = -static_cast<int>((c.k - 1 - j) * d);
     d *= c.k;
   }
-  return launch_chain(c, offsets, s);
+  return launch_chain<E>(c, offsets, s);
+}
+
+// The non-causal chain with L dilations given.
+template <class E>
+int launch_noncausal(const ChainArgs& c, const int* dilations, cudaStream_t s) {
+  if (c.L < 1 || c.L > kMaxLayers || c.k < 1 || c.k > kMaxTaps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int offsets[kMaxLayers * kMaxTaps];
+  for (int l = 0; l < c.L; ++l)
+    for (int j = 0; j < c.k; ++j)
+      offsets[l * c.k + j] = (j - (c.k - 1) / 2) * dilations[l];
+  return launch_chain<E>(c, offsets, s);
+}
+
+// out (M, N) = a (M, K) @ b^T through the main loop alone, b in the
+// prepared layout (N, K rounded up to 8).
+template <class E>
+int launch_matmul(const void* a, const void* b_hi, const void* b_lo, int M,
+                  int N, int K, float* out, cudaStream_t s) {
+  GemmArgs g = {};
+  g.seg[0] = Seg{a, K, 0, 0, rows_aligned<E>(a, K)};
+  g.n_seg = 1;
+  g.n_chunks = g.chunks_per_split = chunks_of<E>(K);
+  g.splits = 1;
+  g.bhi = b_hi;
+  g.blo = b_lo;
+  g.ldb = round_up(K, 8);
+  g.b_rows = N;
+  g.T = M;
+  g.out = out;
+  return static_cast<int>(launch_gemm<kEpiPlain, E>(
+      g, dim3(ceil_div(M, kBM), ceil_div(N, kBN)), s));
+}
+
+template <typename S>
+int prepare_chain_weights(const S* wf, const S* wg, const S* wfc, const S* wgc,
+                          const S* wres, const S* wskip, int C, int G, int S_,
+                          int cin, int L, int k, S* wgate_hi, S* wgate_lo,
+                          S* wproj_hi, S* wproj_lo, cudaStream_t s) {
+  const size_t gate = static_cast<size_t>(L) * 2 * G *
+                      (k * round_up(C, 8) + round_up(cin, 8));
+  const size_t proj = static_cast<size_t>(L) * (C + S_) * round_up(G, 8);
+  prepare_gate_kernel<S><<<static_cast<unsigned>((gate + 255) / 256), 256, 0, s>>>(
+      wf, wg, wfc, wgc, wgate_hi, wgate_lo, L, k, C, G, cin);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  prepare_proj_kernel<S><<<static_cast<unsigned>((proj + 255) / 256), 256, 0, s>>>(
+      wres, wskip, wproj_hi, wproj_lo, L, C, G, S_);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Floats of scratch a chain of these shapes needs on the current device
-// (into *floats), and whether it takes the split path (into *split);
-// `path` 0 lets the shapes decide, 1 forces the row-tiled path, 2 the
-// split path. Returns 0 or a cudaError_t.
+// Floats of scratch a chain of these shapes needs on the current device, in
+// either form (into *floats), and whether it takes the split path (into
+// *split); `path` 0 lets the shapes decide, 1 forces the row-tiled path, 2
+// the split path. Returns 0 or a cudaError_t.
 extern "C" int fused_chain_scratch_floats(int T, int C, int G, int cin, int L,
                                           int k, int path, size_t* floats,
                                           int* split) {
@@ -982,17 +1206,27 @@ extern "C" int fused_chain_prepare_f32(const float* wf, const float* wg,
                                        int k, float* wgate_hi, float* wgate_lo,
                                        float* wproj_hi, float* wproj_lo,
                                        void* stream) {
-  const size_t gate = static_cast<size_t>(L) * 2 * G *
-                      (k * round_up(C, 8) + round_up(cin, 8));
-  const size_t proj = static_cast<size_t>(L) * (C + S) * round_up(G, 8);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  prepare_gate_kernel<<<static_cast<unsigned>((gate + 255) / 256), 256, 0, s>>>(
-      wf, wg, wfc, wgc, wgate_hi, wgate_lo, L, k, C, G, cin);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  prepare_proj_kernel<<<static_cast<unsigned>((proj + 255) / 256), 256, 0, s>>>(
-      wres, wskip, wproj_hi, wproj_lo, L, C, G, S);
-  return static_cast<int>(cudaGetLastError());
+  return prepare_chain_weights<float>(wf, wg, wfc, wgc, wres, wskip, C, G, S,
+                                      cin, L, k, wgate_hi, wgate_lo, wproj_hi,
+                                      wproj_lo, static_cast<cudaStream_t>(stream));
+}
+
+// The same for bf16 weights, transposed and not split (wgate of
+// L * 2G * (k*C8 + cin8) bf16, wproj of L * (C+S) * G8). Returns 0 or a
+// cudaError_t.
+extern "C" int fused_chain_prepare_bf16(const void* wf, const void* wg,
+                                        const void* wfc, const void* wgc,
+                                        const void* wres, const void* wskip,
+                                        int C, int G, int S, int cin, int L,
+                                        int k, void* wgate, void* wproj,
+                                        void* stream) {
+  using U = unsigned short;
+  return prepare_chain_weights<U>(
+      static_cast<const U*>(wf), static_cast<const U*>(wg),
+      static_cast<const U*>(wfc), static_cast<const U*>(wgc),
+      static_cast<const U*>(wres), static_cast<const U*>(wskip), C, G, S, cin,
+      L, k, static_cast<U*>(wgate), nullptr, static_cast<U*>(wproj), nullptr,
+      static_cast<cudaStream_t>(stream));
 }
 
 // out (M, N) = a (M, K) @ b^T, b given as its split parts b_hi, b_lo (N, K8)
@@ -1001,20 +1235,16 @@ extern "C" int fused_chain_prepare_f32(const float* wf, const float* wg,
 extern "C" int fused_chain_matmul_f32(const float* a, const float* b_hi,
                                       const float* b_lo, int M, int N, int K,
                                       float* out, void* stream) {
-  GemmArgs g = {};
-  g.seg[0] = Seg{a, K, 0, 0, rows_aligned(a, K)};
-  g.n_seg = 1;
-  g.n_chunks = g.chunks_per_split = chunks_of(K);
-  g.splits = 1;
-  g.bhi = b_hi;
-  g.blo = b_lo;
-  g.ldb = round_up(K, 8);
-  g.b_rows = N;
-  g.T = M;
-  g.out = out;
-  return static_cast<int>(launch_gemm<kEpiPlain>(
-      g, dim3(ceil_div(M, kBM), ceil_div(N, kBN)),
-      static_cast<cudaStream_t>(stream)));
+  return launch_matmul<F32Form>(a, b_hi, b_lo, M, N, K, out,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// out (M, N) f32 = a (M, K) @ b^T, a and b (N, K8) bf16: the bf16 main loop
+// alone. Returns 0 or a cudaError_t.
+extern "C" int fused_chain_matmul_bf16(const void* a, const void* b, int M,
+                                       int N, int K, float* out, void* stream) {
+  return launch_matmul<Bf16Form>(a, b, nullptr, M, N, K, out,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 #ifdef CHAIN_STAMPS
@@ -1034,34 +1264,56 @@ extern "C" int fused_chain_read_stamps(unsigned long long* host) {
 #define CHAIN_ARGS                                                            \
   ChainArgs { x, c, wgate_hi, wgate_lo, wproj_hi, wproj_lo, bf, bg, bres,     \
               bskip, T, C, G, S, cin, L, k, x_out, skip, scratch, path }
+#define CHAIN_PARAMS_BF16                                                     \
+  const void *x, const void *c, const void *wgate, const void *wproj,         \
+      const float *bf, const float *bg, const float *bres,                    \
+      const float *bskip, int T, int C, int G, int S, int cin, int L, int k,  \
+      int path
+#define CHAIN_ARGS_BF16                                                       \
+  ChainArgs { x, c, wgate, nullptr, wproj, nullptr, bf, bg, bres,             \
+              bskip, T, C, G, S, cin, L, k, x_out, skip, scratch, path }
 
 // Each entry point runs a whole chain on `stream`, on the prepared weights
-// of fused_chain_prepare_f32, and returns cudaGetLastError() of the first
-// launch that failed, or 0. Needs C, G, S multiples of 4, 16-byte aligned
-// x, weights, biases and outputs, k <= 8, L <= 64, and
-// fused_chain_scratch_floats() floats of scratch for the same `path`.
+// of fused_chain_prepare_f32 (or _bf16), and returns cudaGetLastError() of
+// the first launch that failed, or 0. Needs C, G, S multiples of 4, 16-byte
+// aligned x, weights, biases and outputs, k <= 8, L <= 64, and
+// fused_chain_scratch_floats() floats of scratch for the same `path`. The
+// bf16 forms take x, c and the weights bf16 and write x_out bf16; the
+// biases and skip are f32 in both.
 
 // The causal chain as the IAF student serves it (TPU: _chain_kernel_tiled).
 extern "C" int fused_chain_tiled_f32(CHAIN_PARAMS, float* x_out, float* skip,
                                      float* scratch, void* stream) {
-  return launch_causal(CHAIN_ARGS, static_cast<cudaStream_t>(stream));
+  return launch_causal<F32Form>(CHAIN_ARGS, static_cast<cudaStream_t>(stream));
 }
 
 // The causal chain over the whole T (TPU: _chain_kernel, one resident tile).
 extern "C" int fused_chain_f32(CHAIN_PARAMS, float* x_out, float* skip,
                                float* scratch, void* stream) {
-  return launch_causal(CHAIN_ARGS, static_cast<cudaStream_t>(stream));
+  return launch_causal<F32Form>(CHAIN_ARGS, static_cast<cudaStream_t>(stream));
 }
 
 // The non-causal chain with L dilations given (TPU: _chain_kernel_nc).
 extern "C" int fused_chain_nc_f32(CHAIN_PARAMS, const int* dilations,
                                   float* x_out, float* skip, float* scratch,
                                   void* stream) {
-  if (L < 1 || L > kMaxLayers || k < 1 || k > kMaxTaps)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int offsets[kMaxLayers * kMaxTaps];
-  for (int l = 0; l < L; ++l)
-    for (int j = 0; j < k; ++j)
-      offsets[l * k + j] = (j - (k - 1) / 2) * dilations[l];
-  return launch_chain(CHAIN_ARGS, offsets, static_cast<cudaStream_t>(stream));
+  return launch_noncausal<F32Form>(CHAIN_ARGS, dilations,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_chain_tiled_bf16(CHAIN_PARAMS_BF16, void* x_out,
+                                      float* skip, float* scratch, void* stream) {
+  return launch_causal<Bf16Form>(CHAIN_ARGS_BF16, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_chain_bf16(CHAIN_PARAMS_BF16, void* x_out, float* skip,
+                                float* scratch, void* stream) {
+  return launch_causal<Bf16Form>(CHAIN_ARGS_BF16, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int fused_chain_nc_bf16(CHAIN_PARAMS_BF16, const int* dilations,
+                                   void* x_out, float* skip, float* scratch,
+                                   void* stream) {
+  return launch_noncausal<Bf16Form>(CHAIN_ARGS_BF16, dilations,
+                                    static_cast<cudaStream_t>(stream));
 }

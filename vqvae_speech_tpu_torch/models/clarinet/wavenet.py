@@ -74,7 +74,10 @@ def gaussian_wavenet_core_fused(params, cfg: GaussianWaveNetConfig, x, c_up):
     ``ops.fused_resblock.fused_block_chain_tiled``: on a CUDA tensor one
     call of the hand-written chain kernel per chain, over
     ``params["chains"]`` (the weights stacked once, at load). The front
-    conv and the two head 1x1s stay plain PyTorch."""
+    conv and the two head 1x1s stay plain PyTorch. The chains' skip sums
+    are f32 at any dtype and are summed in f32, then cast to x's dtype
+    before the head, as in the JAX package (at bf16 the plain core sums
+    skip in bf16)."""
     if x.shape[0] != 1:
         raise ValueError("fused core is the batch-1 (single-stream) path; "
                          f"got batch {x.shape[0]}")
@@ -89,4 +92,4 @@ def gaussian_wavenet_core_fused(params, cfg: GaussianWaveNetConfig, x, c_up):
         h, s = fused_block_chain_tiled(h, c, stacked, layers=cfg.num_layers,
                                        kernel_size=cfg.kernel_size)
         skip = s if skip is None else skip + s
-    return _head(params, skip[None])
+    return _head(params, skip[None].to(x.dtype))

@@ -15,6 +15,10 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from vqvae_speech_tpu_torch.models.clarinet.modules import (
+    cast_params,
+    check_compute_dtype,
+)
 from vqvae_speech_tpu_torch.models.clarinet.wavenet import (
     GaussianWaveNetConfig,
     gaussian_wavenet_core,
@@ -76,11 +80,15 @@ def wavenet_student_apply(params, cfg: StudentConfig, z, c_up,
 
 def wavenet_student_generate(params, cfg: StudentConfig, z, c_up,
                              compute_dtype=None, use_fused=False):
-    """One-pass synthesis in f32. ``use_fused`` selects the batch-1 fused
+    """One-pass synthesis. ``compute_dtype=torch.bfloat16`` is the
+    synthesis-serving configuration: the parameters, z and c_up are cast in
+    (``cast_params``; a tree loaded at bf16 is used as it is), every flow
+    and the IAF recursion run in bf16, and the wave is returned as f32.
+    None or f32 runs in f32. ``use_fused`` selects the batch-1 fused
     resblock chains (the single-stream path)."""
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: only the f32 student is "
-            "ported to PyTorch yet")
+    check_compute_dtype(compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        params = cast_params(params, compute_dtype)
+        z, c_up = z.to(compute_dtype), c_up.to(compute_dtype)
     x, _, _ = wavenet_student_apply(params, cfg, z, c_up, use_fused=use_fused)
     return x.float()

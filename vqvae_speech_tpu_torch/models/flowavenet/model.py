@@ -23,8 +23,11 @@ from typing import Sequence
 import torch
 
 from vqvae_speech_tpu_torch.models.clarinet.modules import (
+    cast_params,
+    check_compute_dtype,
     conv_apply,
     resblock_apply,
+    scaled,
     upsample_apply,
 )
 from vqvae_speech_tpu_torch.ops.fused_resblock import fused_block_chain_nc
@@ -54,7 +57,7 @@ class CouplingNetConfig:
 def _zero_conv_apply(p, x):
     """ZeroConv1d: 1x1 conv with a learned exp(scale*3) gain
     (reference modules.py:50-63); ``w`` is (1, in, out) as in JAX."""
-    return (x @ p["w"][0] + p["b"]) * torch.exp(p["scale"] * 3.0)
+    return (x @ p["w"][0] + p["b"]) * torch.exp(scaled(p["scale"], 3.0))
 
 
 def coupling_net_apply(params, cfg: CouplingNetConfig, x, c, use_fused=False):
@@ -62,7 +65,9 @@ def coupling_net_apply(params, cfg: CouplingNetConfig, x, c, use_fused=False):
     runs each ``num_layers``-deep resblock chain by
     ``ops.fused_resblock.fused_block_chain_nc`` over ``params["chains"]``:
     on a CUDA tensor one call of the hand-written chain kernel a chain.
-    The front conv, the final 1x1 and the zero conv stay plain PyTorch."""
+    The front conv, the final 1x1 and the zero conv stay plain PyTorch. The
+    chains' skip sums are summed in f32 and cast to x's dtype, as in the
+    JAX package."""
     h = torch.relu(conv_apply(params["front_conv"], x, 3, causal=cfg.causal))
     if use_fused:
         if cfg.causal or x.shape[0] != 1:
@@ -78,7 +83,7 @@ def coupling_net_apply(params, cfg: CouplingNetConfig, x, c, use_fused=False):
                                         kernel_size=cfg.kernel_size,
                                         dilations=dil)
             skip = s if skip is None else skip + s
-        skip = skip[None]
+        skip = skip[None].to(x.dtype)
     else:
         skip = 0.0
         for i, p in enumerate(params["res_blocks"]):
@@ -176,19 +181,23 @@ def flowavenet_upsample(params, c, cfg: FlowavenetConfig):
 
 def flowavenet_reverse(params, cfg: FlowavenetConfig, z, c,
                        compute_dtype=None, use_fused=False):
-    """Invert the flow: z: (B, T, 1) noise -> waveform (B, T, 1)
-    (reference model.py:259-282), in f32. c is (B, Tc, cin) mel frames, or
-    already upsampled when its length equals z's.
+    """Invert the flow: z: (B, T, 1) noise -> waveform (B, T, 1) f32
+    (reference model.py:259-282). c is (B, Tc, cin) mel frames, or already
+    upsampled when its length equals z's. ``compute_dtype=torch.bfloat16``
+    casts the parameters, z and c in (``cast_params``; a tree loaded at
+    bf16 is used as it is), so the upsampler, the priors, the couplings and
+    the ActNorms run in bf16; None or f32 runs in f32.
 
     ``use_fused`` (batch 1 only; a larger batch raises) runs every flow's
     coupling resblock chain through the fused non-causal chain, in every
     block (the JAX package fuses only blocks whose conditioning is at most
     1024 wide, a limit of its kernel's on-chip memory that the streaming
-    kernel here does not have)."""
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: only the f32 flow is ported "
-            "to PyTorch yet")
+    kernel here does not have; at bf16 its unfused blocks sum skip in bf16,
+    these in f32)."""
+    check_compute_dtype(compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        params = cast_params(params, compute_dtype)
+        z, c = z.to(compute_dtype), c.to(compute_dtype)
     if use_fused and z.shape[0] != 1:
         raise ValueError("use_fused is the batch-1 path, got batch "
                          f"{z.shape[0]}")

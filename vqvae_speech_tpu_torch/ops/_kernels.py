@@ -11,7 +11,10 @@ if the launch reported an error, and counts its launches in a plain integer
 attribute (``vq_search_cuda.launches``, ``wavenet_step_cuda.launches``
 for every launch of the decode step, prepared or not,
 ``fused_block_chain_cuda.launches``, ``fused_block_chain_tiled_cuda.launches``,
-``fused_block_chain_nc_cuda.launches``).
+``fused_block_chain_nc_cuda.launches`` and the bf16 forms'
+``fused_block_chain_bf16_cuda.launches``,
+``fused_block_chain_tiled_bf16_cuda.launches``,
+``fused_block_chain_nc_bf16_cuda.launches``).
 """
 import ctypes
 import os
@@ -371,18 +374,26 @@ def _bind_fused_resblock(lib: ctypes.CDLL) -> None:
     # wproj_hi, wproj_lo, stream
     lib.fused_chain_prepare_f32.argtypes = [ptr] * 6 + [i32] * 6 + [ptr] * 5
     lib.fused_chain_prepare_f32.restype = i32
+    # wf, wg, wfc, wgc, wres, wskip, C, G, S, cin, L, k, wgate, wproj, stream
+    lib.fused_chain_prepare_bf16.argtypes = [ptr] * 6 + [i32] * 6 + [ptr] * 3
+    lib.fused_chain_prepare_bf16.restype = i32
     # a, b_hi, b_lo, M, N, K, out, stream
     lib.fused_chain_matmul_f32.argtypes = [ptr] * 3 + [i32] * 3 + [ptr] * 2
     lib.fused_chain_matmul_f32.restype = i32
+    # a, b, M, N, K, out, stream
+    lib.fused_chain_matmul_bf16.argtypes = [ptr] * 2 + [i32] * 3 + [ptr] * 2
+    lib.fused_chain_matmul_bf16.restype = i32
     # x, c, wgate_hi, wgate_lo, wproj_hi, wproj_lo, bf, bg, bres, bskip, T, C,
-    # G, S, cin, L, k, path, [dilations,] x_out, skip, scratch, stream
-    chain = [ptr] * 10 + [i32] * 8
-    for name in ("fused_chain_f32", "fused_chain_tiled_f32"):
-        getattr(lib, name).argtypes = chain + [ptr] * 4
-        getattr(lib, name).restype = i32
-    lib.fused_chain_nc_f32.argtypes = (chain + [ctypes.POINTER(i32)]
-                                       + [ptr] * 4)
-    lib.fused_chain_nc_f32.restype = i32
+    # G, S, cin, L, k, path, [dilations,] x_out, skip, scratch, stream; the
+    # bf16 forms take one wgate and one wproj
+    for dtype, n_weights in (("f32", 4), ("bf16", 2)):
+        chain = [ptr] * (n_weights + 6) + [i32] * 8
+        for name in ("fused_chain", "fused_chain_tiled"):
+            getattr(lib, f"{name}_{dtype}").argtypes = chain + [ptr] * 4
+            getattr(lib, f"{name}_{dtype}").restype = i32
+        getattr(lib, f"fused_chain_nc_{dtype}").argtypes = (
+            chain + [ctypes.POINTER(i32)] + [ptr] * 4)
+        getattr(lib, f"fused_chain_nc_{dtype}").restype = i32
 
 
 FUSED_CHAIN_MAX_TAPS = 8
@@ -398,13 +409,14 @@ _STACKED = ("wf", "wg", "wfc", "wgc", "wres", "wskip", "bf", "bg", "bres",
 _BIASES = ("bf", "bg", "bres", "bskip")
 
 
-def _check_chain_tensor(name, arg, t, dev, aligned=True):
+def _check_chain_tensor(name, arg, t, dev, aligned=True,
+                        dtype=torch.float32):
     if not t.is_cuda or (dev is not None and t.device != dev):
         raise ValueError(f"{name}: {arg} must be a CUDA tensor"
                          f"{'' if dev is None else f' on {dev}'}, got "
                          f"{t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: {arg} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: {arg} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: {arg} must be contiguous")
     if aligned and t.data_ptr() % 16:
@@ -416,14 +428,16 @@ class PreparedFusedChain:
     (csrc/fused_resblock.cu): everything that does not change from call to
     call is checked, laid out and allocated here, ONCE.
 
-    The kernels multiply on the tensor cores in error-compensated TF32 and
-    read the weights as the B operand, which must have the reduction index
-    contiguous and comes split into a hi and a lo part. So the stacked
+    The f32 kernels multiply on the tensor cores in error-compensated TF32
+    and read the weights as the B operand, which must have the reduction
+    index contiguous and comes split into a hi and a lo part. So the stacked
     arrays of ``ops.fused_resblock.stack_block_weights`` are transposed and
     split by a small kernel into ``wgate`` (2, L, 2G, k*C8 + cin8) and
     ``wproj`` (2, L, C+S, G8) (index 0 hi, 1 lo; x8 = x rounded up to 8;
     the layout of ``ops.fused_resblock.prepared_chain_weights_torch``):
-    ``nbytes`` more device memory, twice the chain's weights.
+    ``nbytes`` more device memory, twice the chain's weights. bf16 weights
+    (``dtype``) keep the layout unsplit, (1, L, ...): the bf16 kernels take
+    one product a product.
 
     ``run(...)`` then checks x and c_up and launches.
     """
@@ -432,8 +446,11 @@ class PreparedFusedChain:
         weights = {n: stacked[n] for n in _STACKED}
         wf = weights["wf"]
         dev = wf.device if wf.is_cuda else None
+        dtype = wf.dtype if wf.dtype == torch.bfloat16 else torch.float32
         for arg, t in weights.items():
-            _check_chain_tensor(name, arg, t, dev)
+            _check_chain_tensor(name, arg, t, dev,
+                                dtype=torch.float32 if arg in _BIASES
+                                else dtype)
         if wf.dim() != 4:
             raise ValueError(f"{name}: wf must be (L, k, C, G), got "
                              f"{tuple(wf.shape)}")
@@ -457,25 +474,35 @@ class PreparedFusedChain:
                 f"multiples of 4; got cin={cin} k={k} L={L} C={C} G={G} "
                 f"S={S}")
         self.device = dev
+        self.dtype = dtype
         self.layers, self.kernel_size = L, k
         self.dims = dict(L=L, k=k, C=C, G=G, S=S, cin=cin)
         self._biases = [weights[n] for n in _BIASES]
         self._lib = lib = _library("fused_resblock", _bind_fused_resblock)
+        bf16 = dtype == torch.bfloat16
+        parts = 1 if bf16 else 2
         with torch.cuda.device(dev):
             self.wgate = torch.empty(
-                (2, L, 2 * G, k * (-(-C // 8) * 8) + -(-cin // 8) * 8),
-                dtype=torch.float32, device=dev)
-            self.wproj = torch.empty((2, L, C + S, -(-G // 8) * 8),
-                                     dtype=torch.float32, device=dev)
-            err = lib.fused_chain_prepare_f32(
-                *(weights[n].data_ptr() for n in _STACKED[:6]), C, G, S, cin,
-                L, k, self.wgate[0].data_ptr(), self.wgate[1].data_ptr(),
-                self.wproj[0].data_ptr(), self.wproj[1].data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+                (parts, L, 2 * G, k * (-(-C // 8) * 8) + -(-cin // 8) * 8),
+                dtype=dtype, device=dev)
+            self.wproj = torch.empty((parts, L, C + S, -(-G // 8) * 8),
+                                     dtype=dtype, device=dev)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            sources = (weights[n].data_ptr() for n in _STACKED[:6])
+            if bf16:
+                err = lib.fused_chain_prepare_bf16(
+                    *sources, C, G, S, cin, L, k, self.wgate.data_ptr(),
+                    self.wproj.data_ptr(), stream)
+            else:
+                err = lib.fused_chain_prepare_f32(
+                    *sources, C, G, S, cin, L, k, self.wgate[0].data_ptr(),
+                    self.wgate[1].data_ptr(), self.wproj[0].data_ptr(),
+                    self.wproj[1].data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"{name}: preparing the weights failed with "
                                f"CUDA error {err}")
-        self.nbytes = 4 * (self.wgate.numel() + self.wproj.numel())
+        self.nbytes = self.wgate.element_size() * (self.wgate.numel()
+                                                   + self.wproj.numel())
         self._plans = {}    # (T, path id) -> (scratch floats, split path?)
 
     def _plan(self, name, T, path_id):
@@ -494,16 +521,19 @@ class PreparedFusedChain:
         return plan
 
     def run(self, name, entry, x, c_up, dilations=None, path="auto"):
-        """Run the C entry point ``entry`` on the current stream: x (T, C),
-        c_up (T, cin) -> (x (T, C), skip (T, S)), freshly allocated."""
+        """Run the C entry point ``entry`` (its f32 or bf16 form, by the
+        weights' dtype) on the current stream: x (T, C), c_up (T, cin) ->
+        (x (T, C) in the weights' dtype, skip (T, S) f32), freshly
+        allocated."""
         if path not in FUSED_CHAIN_PATHS:
             raise ValueError(f"{name}: path must be one of "
                              f"{sorted(FUSED_CHAIN_PATHS)}, got {path!r}")
-        dev, d = self.device, self.dims
-        # the conditioning may start at any float: its rows are copied one
-        # float at a time unless they are 16-byte aligned
-        _check_chain_tensor(name, "x", x, dev)
-        _check_chain_tensor(name, "c_up", c_up, dev, aligned=False)
+        dev, d, dtype = self.device, self.dims, self.dtype
+        # the conditioning may start at any element: its rows are copied one
+        # element at a time unless they are 16-byte aligned
+        _check_chain_tensor(name, "x", x, dev, dtype=dtype)
+        _check_chain_tensor(name, "c_up", c_up, dev, aligned=False,
+                            dtype=dtype)
         if x.dim() != 2 or x.shape[1] != d["C"] or x.shape[0] < 1:
             raise ValueError(f"{name}: x has shape {tuple(x.shape)}, expected "
                              f"(T >= 1, {d['C']})")
@@ -523,15 +553,19 @@ class PreparedFusedChain:
                                  f"{tuple(dilations)}")
             extra = [(ctypes.c_int * L)(*(int(v) for v in dilations))]
         path_id = FUSED_CHAIN_PATHS[path]
+        bf16 = dtype == torch.bfloat16
         with torch.cuda.device(dev):
             n_floats, split = self._plan(name, T, path_id)
-            x_out = torch.empty((T, d["C"]), dtype=torch.float32, device=dev)
+            x_out = torch.empty((T, d["C"]), dtype=dtype, device=dev)
             skip = torch.empty((T, d["S"]), dtype=torch.float32, device=dev)
+            # at bf16 the scratch's buffers are laid out as at f32, half used
             scratch = torch.empty((n_floats,), dtype=torch.float32, device=dev)
-            err = getattr(self._lib, entry)(
-                x.data_ptr(), c_up.data_ptr(), self.wgate[0].data_ptr(),
-                self.wgate[1].data_ptr(), self.wproj[0].data_ptr(),
-                self.wproj[1].data_ptr(),
+            weights = ([self.wgate.data_ptr(), self.wproj.data_ptr()] if bf16
+                       else [self.wgate[0].data_ptr(), self.wgate[1].data_ptr(),
+                             self.wproj[0].data_ptr(),
+                             self.wproj[1].data_ptr()])
+            err = getattr(self._lib, f"{entry}_{'bf16' if bf16 else 'f32'}")(
+                x.data_ptr(), c_up.data_ptr(), *weights,
                 *(b.data_ptr() for b in self._biases), T, d["C"], d["G"],
                 d["S"], d["cin"], L, k, path_id, *extra, x_out.data_ptr(),
                 skip.data_ptr(), scratch.data_ptr(),
@@ -543,13 +577,17 @@ class PreparedFusedChain:
 
 
 def _fused_chain_launch(name, entry, x, c_up, stacked, dilations=None,
-                        path="auto"):
+                        path="auto", dtype=torch.float32):
     """Run one fused chain on the current stream. ``stacked`` is a
     ``PreparedFusedChain``, or the dictionary of
     ``ops.fused_resblock.stack_block_weights``, which is prepared here for
-    this one call. x (T, C), c_up (T, cin) -> (x (T, C), skip (T, S))."""
+    this one call; its weights must be of ``dtype``, the wrapper's own.
+    x (T, C), c_up (T, cin) -> (x (T, C), skip (T, S))."""
     if not isinstance(stacked, PreparedFusedChain):
         stacked = PreparedFusedChain(stacked, name)
+    if stacked.dtype != dtype:
+        raise ValueError(f"{name}: takes {dtype} weights, got "
+                         f"{stacked.dtype}")
     return stacked.run(name, entry, x, c_up, dilations, path)
 
 
@@ -581,12 +619,36 @@ def tf32x3_matmul_cuda(a, b_hi, b_lo):
     return out
 
 
+def bf16_matmul_cuda(a, b):
+    """a (M, K) @ b^T in f32 through the bf16 chain kernels' main loop
+    alone, a and b (N, K rounded up to 8) bf16: a check of the loop against
+    a library product, not a path of the port."""
+    name = "bf16_matmul_cuda"
+    for arg, t in (("a", a), ("b", b)):
+        _check_chain_tensor(name, arg, t, a.device if a.is_cuda else None,
+                            dtype=torch.bfloat16)
+    M, K = a.shape
+    N, K8 = b.shape
+    if K8 != -(-K // 8) * 8 or min(M, N, K) < 1 or K % 8:
+        raise ValueError(f"{name}: a {tuple(a.shape)} against b "
+                         f"{tuple(b.shape)} (K a multiple of 8)")
+    lib = _library("fused_resblock", _bind_fused_resblock)
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.fused_chain_matmul_bf16(
+            a.data_ptr(), b.data_ptr(), M, N, K, out.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed with CUDA error {err}")
+    return out
+
+
 def fused_block_chain_tiled_cuda(x, c_up, stacked, path="auto"):
     """The causal gated-resblock chain (dilation k**l) on CUDA f32 tensors,
     as the IAF student serves it; the contract of
     ``ops.fused_resblock.fused_block_chain_tiled``."""
     out = _fused_chain_launch("fused_block_chain_tiled_cuda",
-                              "fused_chain_tiled_f32", x, c_up, stacked,
+                              "fused_chain_tiled", x, c_up, stacked,
                               path=path)
     fused_block_chain_tiled_cuda.launches += 1
     return out
@@ -598,7 +660,7 @@ fused_block_chain_tiled_cuda.launches = 0
 def fused_block_chain_cuda(x, c_up, stacked, path="auto"):
     """The causal chain over the whole T; the contract of
     ``ops.fused_resblock.fused_block_chain``."""
-    out = _fused_chain_launch("fused_block_chain_cuda", "fused_chain_f32",
+    out = _fused_chain_launch("fused_block_chain_cuda", "fused_chain",
                               x, c_up, stacked, path=path)
     fused_block_chain_cuda.launches += 1
     return out
@@ -611,10 +673,56 @@ def fused_block_chain_nc_cuda(x, c_up, stacked, dilations, path="auto"):
     """The non-causal chain with one dilation a layer; the contract of
     ``ops.fused_resblock.fused_block_chain_nc``."""
     out = _fused_chain_launch("fused_block_chain_nc_cuda",
-                              "fused_chain_nc_f32", x, c_up, stacked,
+                              "fused_chain_nc", x, c_up, stacked,
                               tuple(dilations), path=path)
     fused_block_chain_nc_cuda.launches += 1
     return out
 
 
 fused_block_chain_nc_cuda.launches = 0
+
+
+# The bf16 forms (csrc/fused_resblock.cu, fused_chain_*_bf16): x, c_up and
+# the weights bf16, the biases f32; x comes back bf16, skip f32. One bf16
+# wgmma product a product, f32 sums.
+
+
+def fused_block_chain_tiled_bf16_cuda(x, c_up, stacked, path="auto"):
+    """The causal chain (dilation k**l) on CUDA bf16 tensors, as the IAF
+    student serves it at bf16; the contract of
+    ``ops.fused_resblock.fused_block_chain_tiled`` at bf16."""
+    out = _fused_chain_launch("fused_block_chain_tiled_bf16_cuda",
+                              "fused_chain_tiled", x, c_up, stacked,
+                              path=path, dtype=torch.bfloat16)
+    fused_block_chain_tiled_bf16_cuda.launches += 1
+    return out
+
+
+fused_block_chain_tiled_bf16_cuda.launches = 0
+
+
+def fused_block_chain_bf16_cuda(x, c_up, stacked, path="auto"):
+    """The causal chain over the whole T at bf16; the contract of
+    ``ops.fused_resblock.fused_block_chain`` at bf16."""
+    out = _fused_chain_launch("fused_block_chain_bf16_cuda", "fused_chain",
+                              x, c_up, stacked, path=path,
+                              dtype=torch.bfloat16)
+    fused_block_chain_bf16_cuda.launches += 1
+    return out
+
+
+fused_block_chain_bf16_cuda.launches = 0
+
+
+def fused_block_chain_nc_bf16_cuda(x, c_up, stacked, dilations, path="auto"):
+    """The non-causal chain with one dilation a layer at bf16; the contract
+    of ``ops.fused_resblock.fused_block_chain_nc`` at bf16."""
+    out = _fused_chain_launch("fused_block_chain_nc_bf16_cuda",
+                              "fused_chain_nc", x, c_up, stacked,
+                              tuple(dilations), path=path,
+                              dtype=torch.bfloat16)
+    fused_block_chain_nc_bf16_cuda.launches += 1
+    return out
+
+
+fused_block_chain_nc_bf16_cuda.launches = 0

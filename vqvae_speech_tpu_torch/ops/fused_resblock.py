@@ -24,11 +24,19 @@ Three entry points, as in the JAX package, each beside its plain PyTorch
 version: ``fused_block_chain`` (causal, d = k**l; the whole-T prototype),
 ``fused_block_chain_tiled`` (the same chain, the form the student serves
 with) and ``fused_block_chain_nc`` (non-causal, any dilations; the
-FloWaveNet couplings). Each dispatches on the device of ``x``: a CUDA
-tensor always goes to the hand-written kernel ``csrc/fused_resblock.cu``, a
-CPU tensor to the plain chain. There is no threshold and no fallback. The
-JAX functions' ``tile`` and ``interpret`` arguments size and emulate the TPU
-kernel and have no counterpart: no result here depends on a tiling.
+FloWaveNet couplings). Each dispatches on the device and the dtype of
+``x``: a CUDA tensor always goes to the hand-written kernel
+``csrc/fused_resblock.cu`` (its f32 or its bf16 form), a CPU tensor to the
+plain chain. There is no threshold and no fallback. The JAX functions'
+``tile`` and ``interpret`` arguments size and emulate the TPU kernel and
+have no counterpart: no result here depends on a tiling.
+
+Two dtypes, as the JAX kernels take them: everything f32, or x, c_up and
+the weights bf16 (``stack_block_weights(..., compute_dtype=torch.bfloat16)``,
+the vocoders' bf16 serving configuration) with the biases f32. At bf16 the
+chain is another function: every product takes bf16 operands and sums in
+f32, the gated output is rounded to bf16 before the projections, x is
+rounded to bf16 after every layer and skip stays f32. Any other mix raises.
 
 The kernel multiplies on the tensor cores in error-compensated TF32: each
 f32 operand is split into ``hi = tf32(a)`` and ``lo = tf32(a - hi)`` and a
@@ -36,7 +44,11 @@ product is ``hi @ lo + lo @ hi + hi @ hi`` with f32 sums. ``split_tf32`` and
 ``fused_block_chain_tf32_torch`` are that arithmetic in plain PyTorch (its
 twin, for tests on any device), ``prepared_chain_weights_torch`` the layout
 the kernel reads its weights in, and ``prepare_block_chain`` binds a
-weight set to the kernel once, for callers that run a chain many times.
+weight set to the kernel once, for callers that run a chain many times. The
+bf16 kernel takes ONE bf16 product a product (the products of bf16 values
+are exact in f32), on weights in the same layout without the split.
+``fused_block_chain_bf16_torch`` is the plain bf16 chain with its sums in
+f32 or correctly rounded, the yardstick the bf16 kernel is held to.
 """
 import math
 
@@ -45,25 +57,33 @@ import torch.nn.functional as F
 
 from vqvae_speech_tpu_torch.ops._kernels import (
     PreparedFusedChain,
+    fused_block_chain_bf16_cuda,
     fused_block_chain_cuda,
+    fused_block_chain_nc_bf16_cuda,
     fused_block_chain_nc_cuda,
+    fused_block_chain_tiled_bf16_cuda,
     fused_block_chain_tiled_cuda,
 )
 
 _SQRT_HALF = math.sqrt(0.5)
 
 
-def stack_block_weights(block_params):
+def stack_block_weights(block_params, compute_dtype=None):
     """Stack one chain's resblock parameters (a list of L trees with
     resolved ``{"w": (Cout, Cin, K), "b"}`` convs) into the dense arrays
-    above."""
+    above: the weights in ``compute_dtype`` (None: as given), the biases f32,
+    each pair of conv biases summed in ``compute_dtype`` first (JAX sums the
+    parameters it was given, which its bf16 models cast before stacking)."""
+    def cast(t):
+        return t if compute_dtype is None else t.to(compute_dtype)
+
     def taps(name):                                       # (L, k, Cin, Cout)
-        return torch.stack([p[name]["w"].permute(2, 1, 0)
-                            for p in block_params]).contiguous()
+        return cast(torch.stack([p[name]["w"].permute(2, 1, 0)
+                                 for p in block_params])).contiguous()
 
     def bias(*names):
-        return torch.stack([sum(p[n]["b"] for n in names)
-                            for p in block_params]).contiguous()
+        return torch.stack([sum(cast(p[n]["b"]) for n in names)
+                            for p in block_params]).float().contiguous()
 
     return dict(
         wf=taps("filter_conv"), wg=taps("gate_conv"),
@@ -117,6 +137,56 @@ def _chain_torch(x, c_up, stacked, offsets, mm=torch.matmul):
     return x, skip
 
 
+def _chain_bf16_torch(x, c_up, stacked, offsets, exact=False):
+    """The bf16 chain: bf16 operands, f32 sums (``a.float() @ b.float()`` is
+    exact in its products; torch's bf16 matmul would round its result), the
+    gated output and x rounded to bf16, skip f32, the conditioning and bias
+    summed first, then the taps, as the JAX kernels do. ``exact`` takes
+    every product and sum in float64 and rounds it to f32 once, where the
+    f32 sums round: the same chain with its sums correctly rounded."""
+    wide = torch.float64 if exact else torch.float32
+
+    def mm(a, b):
+        return a.to(wide) @ b.to(wide)
+
+    skip = x.new_zeros((x.shape[0], stacked["wskip"].shape[-1]), dtype=wide)
+    for l, offs in enumerate(offsets):
+        hf = mm(c_up, stacked["wfc"][l]) + stacked["bf"][l].to(wide)
+        hg = mm(c_up, stacked["wgc"][l]) + stacked["bg"][l].to(wide)
+        for j, off in enumerate(offs):
+            xs = _shifted(x, off)
+            hf = hf + mm(xs, stacked["wf"][l, j])
+            hg = hg + mm(xs, stacked["wg"][l, j])
+        out = (torch.tanh(hf.float()) * torch.sigmoid(hg.float())).to(x.dtype)
+        skip = skip + (mm(out, stacked["wskip"][l])
+                       + stacked["bskip"][l].to(wide))
+        res = mm(out, stacked["wres"][l]) + stacked["bres"][l].to(wide)
+        x = ((x.to(wide) + res) * _SQRT_HALF).float().to(x.dtype)
+    return x, skip.float()
+
+
+def _plain_chain(x, c_up, stacked, offsets):
+    if x.dtype == torch.bfloat16:
+        return _chain_bf16_torch(x, c_up, stacked, offsets)
+    return _chain_torch(x, c_up, stacked, offsets)
+
+
+def fused_block_chain_bf16_torch(x, c_up, stacked, layers, kernel_size,
+                                 dilations=None, causal=True, exact=False):
+    """The plain bf16 chain (the plain version of the bf16 kernels) with its
+    sums in f32 in the JAX kernels' order, or with ``exact`` the same sums
+    correctly rounded (float64). The two are legitimate orders of one bf16
+    function; x is rounded to bf16 after every layer, so they disagree on
+    some elements by an ulp and the flips propagate, and their distance is
+    the spread the bf16 kernel is held to a multiple of. ``dilations``
+    defaults to kernel_size**l."""
+    _check_dtypes("fused_block_chain_bf16_torch", x, c_up, stacked)
+    _check_layers(stacked, layers, kernel_size)
+    offsets = (_causal_offsets if causal else _centred_offsets)(
+        kernel_size, _nc_dilations(layers, kernel_size, dilations))
+    return _chain_bf16_torch(x, c_up, stacked, offsets, exact)
+
+
 def split_tf32(a):
     """(hi, lo) with ``hi = tf32(a)`` and ``lo = tf32(a - hi)``, both f32
     tensors whose low 13 mantissa bits are clear. The rounding is to nearest
@@ -167,7 +237,9 @@ def prepared_chain_weights_torch(stacked):
                                      j*C8, then the conditioning's cin
       wproj (2, L, C+S, G8)          rows [0, C) wres^T, [C, C+S) wskip^T
 
-    Index 0 is hi, 1 lo; x8 is x rounded up to 8, the padding zero."""
+    Index 0 is hi, 1 lo; x8 is x rounded up to 8, the padding zero. bf16
+    weights keep the layout and are not split: the leading index has one
+    entry, the weights as they are."""
     def pad8(w):                              # along the last axis
         return F.pad(w, (0, -w.shape[-1] % 8))
 
@@ -178,14 +250,17 @@ def prepared_chain_weights_torch(stacked):
                       pad8(cond.permute(0, 2, 1))], dim=-1)
     proj = pad8(torch.cat([stacked["wres"], stacked["wskip"]],
                           dim=-1).permute(0, 2, 1))
+    if gate.dtype == torch.bfloat16:
+        return dict(wgate=gate.contiguous()[None], wproj=proj.contiguous()[None])
     return dict(wgate=torch.stack(split_tf32(gate.contiguous())),
                 wproj=torch.stack(split_tf32(proj.contiguous())))
 
 
 def prepare_block_chain(stacked):
     """Bind one chain's stacked weights to the chain kernel, once: CUDA
-    weights become a ``PreparedFusedChain`` (validated, transposed, split,
-    about twice the weights' bytes of device memory more), which the three
+    weights become a ``PreparedFusedChain`` (validated, transposed, and at
+    f32 split, about twice the weights' bytes of device memory more; at bf16
+    as many bytes as the weights), which the three
     ``fused_block_chain*`` functions take in place of ``stacked``. CPU
     weights are returned as they are: the plain chain needs nothing."""
     if isinstance(stacked, PreparedFusedChain) or not stacked["wf"].is_cuda:
@@ -203,6 +278,20 @@ def _check_layers(stacked, layers, kernel_size):
                          f"not layers={layers}, kernel_size={kernel_size}")
 
 
+def _check_dtypes(name, x, c_up, stacked):
+    """x, c_up and the weights of one dtype, as the JAX kernels take them:
+    all f32 or all bf16 (the biases f32 either way; the kernels take no
+    other, the plain chains any one float dtype). Returns whether it is
+    bf16."""
+    w = (stacked.dtype if isinstance(stacked, PreparedFusedChain)
+         else stacked["wf"].dtype)
+    if c_up.dtype != x.dtype or w != x.dtype:
+        raise ValueError(f"{name}: x, c_up and the weights must be of one "
+                         f"dtype (float32 or bfloat16), got x {x.dtype}, "
+                         f"c_up {c_up.dtype}, weights {w}")
+    return x.dtype == torch.bfloat16
+
+
 def _nc_dilations(layers, kernel_size, dilations):
     if dilations is None:
         return _power_dilations(layers, kernel_size)
@@ -212,9 +301,11 @@ def _nc_dilations(layers, kernel_size, dilations):
 
 
 def fused_block_chain_torch(x, c_up, stacked, layers=6, kernel_size=3):
-    """The plain PyTorch causal chain with d = kernel_size**l."""
+    """The plain PyTorch causal chain with d = kernel_size**l (f32 or bf16,
+    by the dtype of x)."""
+    _check_dtypes("fused_block_chain_torch", x, c_up, stacked)
     _check_layers(stacked, layers, kernel_size)
-    return _chain_torch(x, c_up, stacked, _causal_offsets(
+    return _plain_chain(x, c_up, stacked, _causal_offsets(
         kernel_size, _power_dilations(layers, kernel_size)))
 
 
@@ -228,8 +319,9 @@ def fused_block_chain_nc_torch(x, c_up, stacked, layers=2, kernel_size=3,
                                dilations=None):
     """The plain PyTorch non-causal chain (per-layer zero padding of the
     symmetric convs); ``dilations`` defaults to kernel_size**l."""
+    _check_dtypes("fused_block_chain_nc_torch", x, c_up, stacked)
     _check_layers(stacked, layers, kernel_size)
-    return _chain_torch(x, c_up, stacked, _centred_offsets(
+    return _plain_chain(x, c_up, stacked, _centred_offsets(
         kernel_size, _nc_dilations(layers, kernel_size, dilations)))
 
 
@@ -241,18 +333,22 @@ def _on_cpu(name, x):
 def fused_block_chain(x, c_up, stacked, layers=6, kernel_size=3):
     """One causal L-layer chain over the whole T. x: (T, C); c_up:
     (T, cin); stacked: stack_block_weights()."""
+    bf16 = _check_dtypes("fused_block_chain", x, c_up, stacked)
     if x.is_cuda:
         _check_layers(stacked, layers, kernel_size)
-        return fused_block_chain_cuda(x, c_up, stacked)
+        return (fused_block_chain_bf16_cuda if bf16
+                else fused_block_chain_cuda)(x, c_up, stacked)
     _on_cpu("fused_block_chain", x)
     return fused_block_chain_torch(x, c_up, stacked, layers, kernel_size)
 
 
 def fused_block_chain_tiled(x, c_up, stacked, layers=6, kernel_size=3):
     """The causal chain in the form the IAF student serves with."""
+    bf16 = _check_dtypes("fused_block_chain_tiled", x, c_up, stacked)
     if x.is_cuda:
         _check_layers(stacked, layers, kernel_size)
-        return fused_block_chain_tiled_cuda(x, c_up, stacked)
+        return (fused_block_chain_tiled_bf16_cuda if bf16
+                else fused_block_chain_tiled_cuda)(x, c_up, stacked)
     _on_cpu("fused_block_chain_tiled", x)
     return fused_block_chain_tiled_torch(x, c_up, stacked, layers,
                                          kernel_size)
@@ -262,9 +358,11 @@ def fused_block_chain_nc(x, c_up, stacked, layers=2, kernel_size=3,
                          dilations=None):
     """The non-causal chain (FloWaveNet coupling nets pass
     ``2**(i % layers)`` as ``dilations``)."""
+    bf16 = _check_dtypes("fused_block_chain_nc", x, c_up, stacked)
     if x.is_cuda:
         _check_layers(stacked, layers, kernel_size)
-        return fused_block_chain_nc_cuda(
+        return (fused_block_chain_nc_bf16_cuda if bf16
+                else fused_block_chain_nc_cuda)(
             x, c_up, stacked, _nc_dilations(layers, kernel_size, dilations))
     _on_cpu("fused_block_chain_nc", x)
     return fused_block_chain_nc_torch(x, c_up, stacked, layers, kernel_size,

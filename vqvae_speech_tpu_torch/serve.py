@@ -45,6 +45,7 @@ from vqvae_speech_tpu_torch.models.clarinet import (
     gaussian_wavenet_upsample,
     wavenet_student_generate,
 )
+from vqvae_speech_tpu_torch.models.clarinet.modules import check_compute_dtype
 from vqvae_speech_tpu_torch.models.flowavenet import flowavenet_reverse
 from vqvae_speech_tpu_torch.models.wavenet import wavenet_incremental_generate
 from vqvae_speech_tpu_torch.ops import num_frames, speech_features, vq_search
@@ -310,13 +311,18 @@ class BucketedParallelSynthesisServer:
         requires teacher_params/teacher_cfg, whose conv stack performs the
         mel upsampling, as reference synthesize.py does).
     temp : scale on z (reference flow_wavenet/synthesize.py:60 uses 0.8).
-    compute_dtype : the JAX server's bf16 path; not ported yet, anything
-        but None raises.
+    compute_dtype : None or torch.float32 (f32), or torch.bfloat16, the JAX
+        server's bf16 serving path: the vocoder's parameters are loaded in
+        bf16 (cast before the weight norm is resolved, as JAX does) and the
+        model runs in bf16; for iaf_student the teacher's mel upsampler
+        stays f32 and only its output is cast. Noise is drawn in f32 and
+        cast in the model; waves come back f32. Anything else raises.
     use_fused_chain : max_batch=1 only: run the vocoder's resblock chains
         through the fused chain (causal for iaf_student, non-causal for
-        flowavenet): the hand-written CUDA kernel on a GPU, every chain's
-        weights bound to it once, at load (about twice the chains'
-        weights of device memory more).
+        flowavenet): the hand-written CUDA kernel on a GPU (its bf16 form at
+        bf16), every chain's weights bound to it once, at load (about twice
+        the chains' weights of device memory more at f32, as much at
+        bf16).
     device : where the model runs ("cuda", "cpu"); no default.
     """
 
@@ -337,21 +343,21 @@ class BucketedParallelSynthesisServer:
         if use_fused_chain and max_batch != 1:
             raise ValueError("use_fused_chain is the single-stream "
                              "(max_batch=1) path")
-        if compute_dtype is not None:
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: only the f32 vocoders are "
-                "ported to PyTorch yet")
+        check_compute_dtype(compute_dtype)
         self._device = resolve_device(device)
         self._kind = kind
         self._cfg = cfg
         self._teacher_cfg = teacher_cfg
+        self._compute_dtype = compute_dtype
+        load = dict(prepare_chains=use_fused_chain,
+                    compute_dtype=compute_dtype)
         if kind == "flowavenet":
-            self._params = load_flowavenet_params(
-                params, cfg, self._device, prepare_chains=use_fused_chain)
+            self._params = load_flowavenet_params(params, cfg, self._device,
+                                                  **load)
             scales = cfg.upsample_scales
         else:
-            self._params = load_student_params(
-                params, cfg, self._device, prepare_chains=use_fused_chain)
+            self._params = load_student_params(params, cfg, self._device,
+                                               **load)
             # only the teacher's upsampling stack is used
             self._upsample = {"upsample_conv": load_upsample_params(
                 teacher_params["upsample_conv"], self._device)}
@@ -371,9 +377,11 @@ class BucketedParallelSynthesisServer:
         (B, T, 1), T = bucket * upsample_factor."""
         if self._kind == "flowavenet":
             return flowavenet_reverse(self._params, self._cfg, z, c,
+                                      compute_dtype=self._compute_dtype,
                                       use_fused=self._use_fused_chain)
         c_up = gaussian_wavenet_upsample(self._upsample, c, self._teacher_cfg)
         return wavenet_student_generate(self._params, self._cfg, z, c_up,
+                                        compute_dtype=self._compute_dtype,
                                         use_fused=self._use_fused_chain)
 
     def _noise(self, seed: int, index: int, T: int, noises) -> np.ndarray:

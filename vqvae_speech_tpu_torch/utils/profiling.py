@@ -11,10 +11,16 @@ import numpy as np
 import torch
 
 # Sentinel kernels mark a window: launches of torch.erfinv_ before the
-# profiled call, a sync after each, and one of torch.digamma_ after the
-# call. Nothing else in this package launches either.
+# profiled call and of torch.digamma_ after it, a sync after each, at least
+# LEADS of each and for at least SPAN seconds (the tail for at least
+# TAIL_SHARE of the call's time if that is longer). Nothing else in this
+# package launches either.
 _LEAD, _TAIL = "erfinv", "digamma"
-LEADS, WINDOWS = 8, 5
+LEADS, SPAN, TAIL_SHARE, WINDOWS = 8, 5e-3, 5e-2, 8
+# one entry a window that did not count, in every device_events call of the
+# process: (lead sentinels seen, launched, tail sentinels seen, launched,
+# other device events, whether they added up)
+RETAKEN: List[tuple] = []
 
 
 class DeviceEvent(NamedTuple):
@@ -23,11 +29,31 @@ class DeviceEvent(NamedTuple):
     count: int      # launches
 
 
-def one_window(fn: Callable[[], object], leads: int = LEADS
-               ) -> Tuple[float, List[DeviceEvent], int, int]:
-    """One profiler window around ``fn``: (host seconds of ``fn`` up to the
-    end of its device work, its device events, lead sentinels seen of
-    ``leads``, tail sentinels seen of 1). No retake, no check:
+class Window(NamedTuple):
+    seconds: float              # host seconds of fn up to its device work's end
+    events: List[DeviceEvent]   # fn's device events
+    leads_seen: int
+    leads: int                  # lead sentinels launched
+    tails_seen: int
+    tails: int                  # tail sentinels launched
+
+
+def _sentinels(launch: Callable[[], object], count: int, span: float) -> int:
+    """Launches ``launch``, a sync after each, ``count`` times and on until
+    ``span`` seconds have passed; returns how many launched."""
+    t0, n = time.perf_counter(), 0
+    while n < count or time.perf_counter() - t0 < span:
+        launch()
+        torch.cuda.synchronize()
+        n += 1
+    return n
+
+
+def one_window(fn: Callable[[], object], leads: int = LEADS,
+               span: float = SPAN, tail_share: float = TAIL_SHARE) -> Window:
+    """One profiler window around ``fn``, opened and closed by sentinel runs
+    of at least ``leads`` launches and ``span`` seconds (the closing one at
+    least ``tail_share`` of ``fn``'s time). No retake, no check:
     ``device_events`` is the entry point; this one serves it and
     scripts/profiler_window_probe.py."""
     from torch.profiler import ProfilerActivity, profile
@@ -35,27 +61,25 @@ def one_window(fn: Callable[[], object], leads: int = LEADS
     mark = torch.full((8,), 0.5, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(leads):
-            mark.erfinv_()
-            torch.cuda.synchronize()
+        n_leads = _sentinels(mark.erfinv_, leads, span)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
-        mark.digamma_()
-        torch.cuda.synchronize()
-    events, leads_seen, tail_seen = [], 0, 0
+        n_tails = _sentinels(mark.digamma_, leads,
+                             max(span, tail_share * window))
+    events, leads_seen, tails_seen = [], 0, 0
     for e in prof.key_averages():
         if not e.self_device_time_total > 0:
             continue
         if _LEAD in e.key:
             leads_seen += e.count
         elif _TAIL in e.key:
-            tail_seen += e.count
+            tails_seen += e.count
         else:
             events.append(DeviceEvent(e.key, e.self_device_time_total,
                                       e.count))
-    return window, events, leads_seen, tail_seen
+    return Window(window, events, leads_seen, n_leads, tails_seen, n_tails)
 
 
 def device_events(fn: Callable[[], object],
@@ -63,38 +87,43 @@ def device_events(fn: Callable[[], object],
                   ) -> Tuple[float, List[DeviceEvent]]:
     """(host seconds of ``fn``, everything that ran on the device meanwhile).
 
-    A bare window is not to be trusted. On an NVIDIA H100 with torch 2.11,
-    in a process that has profiled other work before (seen from the first
-    window after a train step on, not in every run), the FIRST k device
-    kernels launched in a window are missing from the profiler's events,
-    in every window or in every other one: with k = 1 a window around n
-    launches of one kernel shows n - 1 and a window around one launch shows
-    nothing; k was 4 at the end of a run of chip_smoke.py. k counts
-    kernels, not time: a sleep inside the window before the first launch,
-    or after it, saves nothing (scripts/profiler_window_probe.py shows
-    each). So the window opens with ``LEADS`` sentinel kernels that take
-    the loss and closes with one more. It counts only if a lead sentinel
-    shows, so that the loss ended before ``fn`` began, and the last one
-    shows, so that the profiler was still recording after ``fn``. Runs of
-    kernels have also been seen to go from the middle and the end of a
-    window, so a caller that knows how often ``fn`` launches some kernel
-    passes ``check``, which sees the events and says whether they add up.
-    Any window that does not count is taken again with twice the leads,
-    ``WINDOWS`` times in all, and then this raises: what callers print from
-    here is a measurement, never a blank. ``fn`` may so run more than
-    once."""
-    seen, leads = [], LEADS
+    A bare window is not to be trusted. The profiler's library (Kineto)
+    drops every device record whose timestamp, converted to the host's
+    clock, falls outside the window's host-clock range (its own log, with
+    KINETO_LOG_LEVEL=0, counts them as "Out-of-range"), and on an NVIDIA
+    H100 with torch 2.11 those converted timestamps stray: kernels are
+    stamped up to ~0.85 ms before their own launch in a window of 100000
+    launches (scripts/profiler_window_probe.py --long). So the first device
+    kernels of a window go missing (1 to 16 of them in runs of
+    chip_smoke.py, at times all of a 2 ms run), and at times the last ones:
+    every closing sentinel of a two-second window, 10 ms of them once, and
+    K2 launches with them; the last 2041 launches of a one-second window
+    and the 10 ms of sentinels after them. So the window opens with a run of sentinel kernels that
+    takes the loss at its start and closes with a run of another kind that
+    takes it at its end, each of at least ``LEADS`` launches and ``SPAN``
+    seconds, the closing one at least ``TAIL_SHARE`` of ``fn``'s time. It
+    counts only if a lead sentinel shows, so that the loss ended before
+    ``fn`` began, and a tail sentinel shows, so that the profiler was still
+    recording after ``fn``. A caller that knows how often ``fn`` launches
+    some kernel passes ``check``, which sees the events and says whether
+    they add up. Any window that does not count is noted in ``RETAKEN`` and
+    taken again with both runs twice as long, ``WINDOWS`` times in all, and
+    then this raises: what callers print from here is a measurement, never
+    a blank. ``fn`` may so run more than once."""
+    seen, leads, span = [], LEADS, SPAN
     for _ in range(WINDOWS):
-        window, events, leads_seen, tail_seen = one_window(fn, leads)
-        added_up = bool(events) and (check is None or check(events))
-        if leads_seen and tail_seen and added_up:
-            return window, events
-        seen.append((leads_seen, leads, tail_seen, len(events), added_up))
-        leads *= 2
+        w = one_window(fn, leads, span)
+        added_up = bool(w.events) and (check is None or check(w.events))
+        if w.leads_seen and w.tails_seen and added_up:
+            return w.seconds, w.events
+        seen.append((w.leads_seen, w.leads, w.tails_seen, w.tails,
+                     len(w.events), added_up))
+        RETAKEN.append(seen[-1])
+        leads, span = 2 * leads, 2 * span
     raise RuntimeError(
         f"torch.profiler lost device events in {WINDOWS} windows running: "
-        f"(lead sentinels seen, launched, last sentinel of 1, other device "
-        f"events, whether they added up) {seen}")
+        f"(lead sentinels seen, launched, tail sentinels seen, launched, "
+        f"other device events, whether they added up) {seen}")
 
 
 class StepTimer:
