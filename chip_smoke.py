@@ -82,6 +82,22 @@
    reports samples/s, the real-time factor, ms per step and the device's
    idle share from torch.profiler.
 
+   Continuous phase (right after it): the same model and ten requests
+   (local_conditioning, so the VQ kernel runs) drained greedily by
+   ContinuousSynthesisServer (8 slots, chunks of 512, max_frames 23), one
+   decode-step kernel launch a step. Checks launches = chunks x 512, two
+   requests against a standalone batch-1 decode (equal, or equal up to a
+   printed near-tie), the last request alone bit-equal to its stream
+   admitted behind the other nine, the streams against the bucketed
+   server's (parting only at near-ties of the teacher-forced logits);
+   reports samples/s beside the bucketed server's, ms a step, seconds a
+   chunk, slot utilization, latency and admission wait in chunks, and the
+   device's idle share. Then the int8, int8_block and bf16 decodes (the
+   per-layer path): one chunk of 512 steps at 8 slots on the card against
+   the same on the CPU (equal up to near-ties), ms a step beside K2's; and a
+   scalar-input (mixture) WaveNet at the same width through the kernel,
+   greedy and sampled, for 384 steps.
+
 6. Chain kernel phase: holds the three fused-chain entry points against
    their plain PyTorch chains on the same CUDA tensors: the causal tiled
    chain at the IAF student's width for T=20480 and an odd T, the whole-T
@@ -131,10 +147,10 @@ Imports nothing of JAX.
     python3 chip_smoke.py --phases step_kernel,synthesis
 
 runs only the named phases (kernel, slice, train, experiment, evaluate,
-step_kernel, synthesis, chain_kernel, vocoder), for work on one kernel or
-slice; such a run prints neither of the two JSON lines. The evaluate phase
-run without the experiment phase first trains jitter12 for one epoch
-through the CLI. A run fails if it imported JAX, the JAX package,
+step_kernel, synthesis, continuous, chain_kernel, vocoder), for work on one
+kernel or slice; such a run prints neither of the two JSON lines. The
+evaluate phase run without the experiment phase first trains jitter12 for
+one epoch through the CLI. A run fails if it imported JAX, the JAX package,
 scikit-learn or matplotlib.
 """
 import concurrent.futures
@@ -1746,14 +1762,32 @@ def step_kernel_phase(gpu):
     return max_err, timed
 
 
+_SYNTH_MODEL = []
+
+
+def synthesis_model():
+    """(numpy params, WaveNet config, WaveNetVQVAE on the card) at the
+    vctk_wavenet width, weights from numpy seed SEED; made once a run, for
+    the synthesis and continuous phases."""
+    if not _SYNTH_MODEL:
+        from vqvae_speech_tpu_torch.convert import (
+            load_wavenet_vqvae_params,
+            numpy_wavenet_vqvae_params,
+        )
+        from vqvae_speech_tpu_torch.models import WaveNetVQVAE
+
+        n_spk = WAVENET_CONFIG["num_speakers"]
+        params, state, wcfg = numpy_wavenet_vqvae_params(
+            WAVENET_CONFIG, n_spk, seed=SEED)
+        model = load_wavenet_vqvae_params(WaveNetVQVAE(WAVENET_CONFIG, n_spk),
+                                          params, state).cuda().eval()
+        _SYNTH_MODEL.append((params, wcfg, model))
+    return _SYNTH_MODEL[0]
+
+
 def synthesis_phase(gpu):
     """WaveNet-VQ-VAE synthesis serving at the vctk_wavenet width."""
     import torch
-    from vqvae_speech_tpu_torch.convert import (
-        load_wavenet_vqvae_params,
-        numpy_wavenet_vqvae_params,
-    )
-    from vqvae_speech_tpu_torch.models import WaveNetVQVAE
     from vqvae_speech_tpu_torch.ops import (
         _kernels,
         mu_law_decode,
@@ -1764,11 +1798,7 @@ def synthesis_phase(gpu):
     from vqvae_speech_tpu_torch.serve import BucketedSynthesisServer
 
     t0 = time.perf_counter()
-    n_spk = WAVENET_CONFIG["num_speakers"]
-    params, state, wcfg = numpy_wavenet_vqvae_params(WAVENET_CONFIG, n_spk,
-                                                     seed=SEED)
-    model = load_wavenet_vqvae_params(WaveNetVQVAE(WAVENET_CONFIG, n_spk),
-                                      params, state).cuda().eval()
+    params, wcfg, model = synthesis_model()
     server = BucketedSynthesisServer(
         params["decoder"]["wavenet"], wcfg, frame_buckets=SYNTH_BUCKETS,
         max_batch=SYNTH_MAX_BATCH, device="cuda")
@@ -1945,6 +1975,324 @@ def synthesis_phase(gpu):
           f"{kernel_us / total_us:.3f} of device time [{gpu}]")
     for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
         print(f"  {us / 1e3:10.2f} ms  {name[:100]}")
+    return step_launches, vq_launches
+
+
+# continuous-batching AR synthesis: the synthesis phase's model and requests
+CONT_SLOTS, CONT_CHUNK, CONT_MAX_FRAMES = 8, 512, 23
+CONT_STANDALONE = (0, 9)        # requests held against a batch-1 decode
+# the per-layer decodes, one chunk at 8 slots on the card and on the CPU;
+# 2 conditioning frames a slot (768 samples) hold the chunk's 512 steps
+NARROW_CONFIGS = (("int8", dict(weight_quant="int8")),
+                  ("int8_block", dict(weight_quant="int8_block")),
+                  ("bf16", dict(compute_dtype="bfloat16")))
+NARROW_FRAMES = 2
+# the CPU's run of the same chunk covers its first steps: a bf16 stream
+# parts from the card's after 27 steps or more, and the CPU takes 14-183 ms
+# a step at this width, by host
+NARROW_CPU_STEPS = 64
+# a bf16 near-tie: the top two logits within 2**-6 of the top one's
+# magnitude (2-4 bf16 ulps: cuBLAS and the CPU's bf16 products round apart)
+BF16_NEAR_TIE_REL = 2 ** -6
+SCALAR_STEPS = 384              # the mixture WaveNet's decode, at 8 streams
+PROFILED_CHUNKS = 3             # the idle share's window, a full pool
+
+
+def _first_flip(got, want, logits, tie):
+    """(first step where two streams of one request part, or None; the
+    top-two gap of ``logits`` there). Raises unless the gap is within
+    ``tie(top logit)``."""
+    diff = np.flatnonzero(np.asarray(got) != np.asarray(want))
+    if not len(diff):
+        return None, None
+    at = int(diff[0])
+    top2 = np.sort(np.asarray(logits[at]))[-2:]
+    gap = float(top2[1] - top2[0])
+    if not gap <= tie(float(top2[1])):
+        raise AssertionError(f"streams part at step {at} where the top two "
+                             f"logits are {gap:.3e} apart, no near-tie")
+    return at, gap
+
+
+def _narrow_chunk(module, wcfg, lcs, speakers, kw, steps):
+    """One chunk of ``steps`` steps of 8 admitted slots through the
+    per-layer decode of ``kw`` on the f32 ``module``'s device: (bins
+    (8, steps), logits (8, steps, 256), seconds)."""
+    import torch
+    from vqvae_speech_tpu_torch.models.wavenet import cast_floating
+    from vqvae_speech_tpu_torch.models.wavenet.chunked import (
+        admit_slot,
+        decode_chunk,
+        init_decode_slots,
+        slot_conditioning,
+    )
+
+    kw = {k: getattr(torch, v) if k == "compute_dtype" else v
+          for k, v in kw.items()}
+    module = cast_floating(module, kw.get("compute_dtype"))
+    device = module.first_conv.bias.device
+    max_t = NARROW_FRAMES * module.upsample_factor
+    prep, state = init_decode_slots(module, wcfg, CONT_SLOTS, max_t, **kw)
+    for slot in range(CONT_SLOTS):
+        c = lcs[slot][:NARROW_FRAMES].detach().to(device)
+        rows = slot_conditioning(module, wcfg, c, speakers[slot], max_t)
+        admit_slot(prep, state, slot, rows)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, em, outs = decode_chunk(prep, state, wcfg, steps, sample=False,
+                               return_logits=True)
+    em, outs = em.cpu().numpy(), outs.cpu().numpy()
+    return em, outs, time.perf_counter() - t0
+
+
+def continuous_phase(gpu):
+    """ContinuousSynthesisServer at the vctk_wavenet width: the synthesis
+    phase's model and its ten VCTK requests, greedy, f32 (K2 a step)."""
+    import dataclasses
+
+    import torch
+    from vqvae_speech_tpu_torch.convert import (
+        load_wavenet_params,
+        numpy_wavenet_params,
+    )
+    from vqvae_speech_tpu_torch.models.wavenet import (
+        WaveNet,
+        wavenet_incremental_generate,
+    )
+    from vqvae_speech_tpu_torch.ops import _kernels, mu_law_decode
+    from vqvae_speech_tpu_torch.serve import (
+        BucketedSynthesisServer,
+        ContinuousSynthesisServer,
+    )
+
+    parts = [("start", time.perf_counter())]
+    t0 = time.perf_counter()
+    params, wcfg, model = synthesis_model()
+    tree = params["decoder"]["wavenet"]
+    server = ContinuousSynthesisServer(
+        tree, wcfg, slots=CONT_SLOTS, chunk_size=CONT_CHUNK,
+        max_frames=CONT_MAX_FRAMES, device="cuda")
+    waves, speakers = synthesis_requests()
+    factor = server.stats["upsample_factor"]
+    print(f"continuous: set-up {time.perf_counter() - t0:.2f} s "
+          f"({len(waves)} requests, {CONT_SLOTS} slots, chunk {CONT_CHUNK}, "
+          f"max_frames {CONT_MAX_FRAMES})")
+
+    # the main path: waves -> features -> codes (VQ kernel) -> local
+    # conditioning -> continuous batching (decode-step kernel every step)
+    _kernels.vq_search_cuda.launches = 0
+    _kernels.wavenet_step_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lcs = [model.local_conditioning(wavenet_features(w, "cuda"))[0][0]
+               for w in waves]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    results = server.run(lcs, speakers)
+    sec = time.perf_counter() - t1     # the run ends in a device-to-host copy
+    main_sec = time.perf_counter() - t0
+    vq_launches = _kernels.vq_search_cuda.launches
+    step_launches = _kernels.wavenet_step_cuda.launches
+    stats = server.stats
+    if step_launches != stats["launches"] * CONT_CHUNK:
+        raise AssertionError(f"decode-step kernel launched {step_launches} "
+                             f"times in {stats['launches']} chunks of "
+                             f"{CONT_CHUNK}")
+    if vq_launches == 0:
+        raise AssertionError("the VQ kernel never ran on the continuous path")
+    lengths = [lc.shape[0] * factor for lc in lcs]
+    for n, r in zip(lengths, results):
+        if r.wave.shape != (n,):
+            raise AssertionError(f"wave {r.wave.shape} for {n} samples")
+        audio = mu_law_decode(torch.from_numpy(r.wave), wcfg.out_channels)
+        if not (bool(torch.isfinite(audio).all())
+                and float(audio.abs().max()) <= 1.0):
+            raise AssertionError("decoded audio not finite or outside [-1, 1]")
+    print(f"continuous: main path {main_sec:.2f} s, {stats['launches']} "
+          f"chunks = {step_launches} decode steps, each one decode-step "
+          f"kernel launch; vq_search {vq_launches}; {sum(lengths)} samples "
+          f"(LC frames {[lc.shape[0] for lc in lcs]}) decoded to finite "
+          f"audio in [-1, 1]")
+    print(f"continuous stats: {json.dumps(stats)}")
+
+    parts.append(("main", time.perf_counter()))
+    # each stream against a standalone batch-1 decode through the kernel
+    # (its bucketed path at max_batch 1): the same weights, another batch
+    # size for the kernel and for the upsampler's and hoist's products
+    for i in CONT_STANDALONE:
+        outs, em = wavenet_incremental_generate(
+            server.model, wcfg, lengths[i], c=lcs[i][None],
+            g=torch.tensor([speakers[i]], device="cuda"), sample=False,
+            use_fused_stack=True)
+        at, gap = _first_flip(results[i].wave, em[0].cpu().numpy(),
+                              outs[0].cpu().numpy(),
+                              lambda top: NEAR_TIE_LOGITS)
+        print(f"continuous request {i} vs a standalone batch-1 decode: " + (
+            f"equal in all {lengths[i]} samples" if at is None else
+            f"equal up to sample {at} of {lengths[i]}, where the standalone "
+            f"decode's top two logits lie {gap:.3e} apart (a near-tie)"))
+
+    parts.append(("standalone", time.perf_counter()))
+    # admission time and neighbours: the last request served alone (the
+    # drained pool rewinds its clock: slot 0 at clock 0) is bit-equal to
+    # its stream admitted last behind the other nine
+    last = len(lcs) - 1
+    alone = server.run([lcs[last]], [speakers[last]])[0].wave
+    if not np.array_equal(alone, results[last].wave):
+        raise AssertionError(f"request {last} alone differs from request "
+                             f"{last} admitted behind the others")
+    print(f"continuous: request {last} served alone bit-equal to its stream "
+          f"admitted last behind the other {last} ({len(alone)} samples)")
+
+    parts.append(("alone", time.perf_counter()))
+    # the bucketed server (frame buckets 12 and 23 at max_batch 8) on the
+    # same conditioning; a stream that parts must part at a near-tie of
+    # the plain teacher-forced forward over the continuous stream
+    bucketed = BucketedSynthesisServer(
+        tree, wcfg, frame_buckets=SYNTH_BUCKETS, max_batch=SYNTH_MAX_BATCH,
+        device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b_results = bucketed.synthesize(lcs, speakers)
+    b_sec = time.perf_counter() - t0
+    parted = []
+    for i, (r, b) in enumerate(zip(results, b_results)):
+        if np.array_equal(r.wave, b.wave):
+            continue
+        emitted = torch.from_numpy(r.wave)[None].cuda()
+        with torch.inference_mode():
+            forward = server.model(
+                teacher_forced_inputs(emitted, wcfg.out_channels),
+                lcs[i][None], torch.tensor([speakers[i]], device="cuda"))
+        at, gap = _first_flip(r.wave, b.wave, forward[0].cpu().numpy(),
+                              lambda top: NEAR_TIE_LOGITS)
+        parted.append((i, at, f"{gap:.2e}"))
+    print(f"continuous vs bucketed streams: {len(lcs) - len(parted)} of "
+          f"{len(lcs)} equal; parted (request, first sample, top-two gap of "
+          f"the teacher-forced logits there): {parted}")
+
+    parts.append(("bucketed", time.perf_counter()))
+    # throughput and latency of the main path's drain, then the device's
+    # idle share
+    rate = WAVENET_CONFIG["sampling_rate"]
+    chunks = stats["launches"]
+    real = sum(lengths)
+    print(f"continuous: drain of {len(lcs)} requests {sec:.3f} s, {chunks} "
+          f"chunks, {sec / chunks:.4f} s a chunk, "
+          f"{sec / (chunks * CONT_CHUNK) * 1e3:.4f} ms a decode step, "
+          f"{real / sec:.0f} samples/s delivered, real-time factor of a "
+          f"stream {sec / (real / len(lcs) / rate):.3f}; bucketed "
+          f"synthesize {b_sec:.3f} s, {real / b_sec:.0f} samples/s delivered "
+          f"({bucketed.stats['launches']} launches); continuous / bucketed "
+          f"{b_sec / sec:.3f} [{gpu}]")
+    print(f"continuous latency in chunks (slot_utilization "
+          f"{stats['slot_utilization']}): latency {stats['latency_chunks']}, "
+          f"admission wait {stats['admission_wait_chunks']}, decode "
+          f"{stats['decode_chunks']}; in seconds at {sec / chunks:.4f} s a "
+          f"chunk: latency p50 {stats['latency_chunks']['p50'] * sec / chunks:.3f}"
+          f", p90 {stats['latency_chunks']['p90'] * sec / chunks:.3f} [{gpu}]")
+
+    # a full pool for PROFILED_CHUNKS chunks: the first 8 requests cut to
+    # their first frames (the profiler takes ~7 ms a step to read a window
+    # back: a whole drain's took 110 s)
+    cut = [lc[:PROFILED_CHUNKS * CONT_CHUNK // factor]
+           for lc in lcs[:CONT_SLOTS]]
+
+    def drain():
+        _kernels.wavenet_step_cuda.launches = 0
+        server.run(cut, speakers[:CONT_SLOTS])
+
+    window, busy_us = _device_profile(
+        drain, "step_kernel", lambda: _kernels.wavenet_step_cuda.launches)
+    total_us = sum(busy_us.values())
+    kernel_us = sum(v for k, v in busy_us.items() if "step_kernel" in k)
+    print(f"continuous profile (8 slots busy, {len(cut[0])} frames each: "
+          f"{_kernels.wavenet_step_cuda.launches} steps; torch.profiler CUDA "
+          f"activity through utils.profiling.device_events): window "
+          f"{window:.3f} s, "
+          f"device busy {total_us / 1e6:.3f} s, idle share "
+          f"{1 - total_us / 1e6 / window:.3f}; decode-step kernels "
+          f"{kernel_us / total_us:.3f} of device time [{gpu}]")
+    for name, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"  {us / 1e3:10.2f} ms  {name[:100]}")
+    k2_ms = sec / (chunks * CONT_CHUNK) * 1e3
+
+    parts.append(("profile", time.perf_counter()))
+    # the bf16 and int8 decodes: one chunk at 8 slots on the card and the
+    # same on the CPU at the same weights, streams equal up to a near-tie
+    cpu_lcs = [lc.detach().cpu() for lc in lcs[:CONT_SLOTS]]
+    cpu_model = load_wavenet_params(WaveNet(wcfg), tree).eval()
+    for name, kw in NARROW_CONFIGS:
+        before = _kernels.wavenet_step_cuda.launches
+        em, outs, sec = _narrow_chunk(server.model, wcfg, lcs, speakers, kw,
+                                      CONT_CHUNK)
+        if _kernels.wavenet_step_cuda.launches != before:
+            raise AssertionError(f"{name}: the decode-step kernel ran")
+        cpu_em, cpu_outs, cpu_sec = _narrow_chunk(
+            cpu_model, wcfg, cpu_lcs, speakers, kw, NARROW_CPU_STEPS)
+        em, outs = em[:, :NARROW_CPU_STEPS], outs[:, :NARROW_CPU_STEPS]
+        if not np.isfinite(outs).all():
+            raise AssertionError(f"{name}: logits not finite")
+        if name == "bf16":
+            def tie(top):
+                return BF16_NEAR_TIE_REL * max(1.0, abs(top))
+        else:
+            def tie(top):
+                return NEAR_TIE_LOGITS
+        flips = [_first_flip(em[s], cpu_em[s], cpu_outs[s], tie)
+                 for s in range(CONT_SLOTS)]
+        agree = [NARROW_CPU_STEPS if at is None else at for at, _ in flips]
+        err = max(np.abs(outs[s, :n] - cpu_outs[s, :n]).max()
+                  for s, n in enumerate(agree) if n)
+        print(f"continuous {name}: one chunk of {CONT_CHUNK} steps at "
+              f"{CONT_SLOTS} slots, per-layer path on the card "
+              f"{sec / CONT_CHUNK * 1e3:.4f} ms a step "
+              f"({sec / CONT_CHUNK * 1e3 / k2_ms:.1f}x the f32 step through "
+              f"K2, {k2_ms:.4f} ms in the drain), on the CPU "
+              f"{cpu_sec / NARROW_CPU_STEPS * 1e3:.3f} ms a step; streams "
+              f"equal to the CPU's first {NARROW_CPU_STEPS} for {agree} "
+              f"steps (parting at near-ties, gaps "
+              f"{[None if g is None else f'{g:.1e}' for _, g in flips]}), "
+              f"logits before max abs diff {err:.3e} [{gpu}]")
+
+    parts.append(("narrow", time.perf_counter()))
+    # a scalar-input (mixture-of-logistics) WaveNet at the same width
+    # through the kernel, greedy and sampled
+    scfg = dataclasses.replace(wcfg, scalar_input=True, out_channels=30)
+    smodel = load_wavenet_params(WaveNet(scfg), numpy_wavenet_params(
+        scfg, SEED)).cuda().eval()
+    c = torch.stack([lc[:1] for lc in lcs[:CONT_SLOTS]])
+    g = torch.tensor(speakers[:CONT_SLOTS], device="cuda")
+    before = _kernels.wavenet_step_cuda.launches
+    s_outs, greedy = wavenet_incremental_generate(
+        smodel, scfg, SCALAR_STEPS, c=c, g=g, sample=False,
+        use_fused_stack=True)
+    _, sampled = wavenet_incremental_generate(
+        smodel, scfg, SCALAR_STEPS, c=c, g=g, sample=True,
+        generator=torch.Generator(device="cuda").manual_seed(SEED),
+        use_fused_stack=True)
+    launches = _kernels.wavenet_step_cuda.launches - before
+    if launches != 2 * SCALAR_STEPS:
+        raise AssertionError(f"scalar input: {launches} kernel launches for "
+                             f"2 x {SCALAR_STEPS} steps")
+    if not (bool(torch.isfinite(greedy).all())
+            and bool(torch.isfinite(sampled).all())
+            and float(sampled.abs().max()) <= 1.0
+            and torch.equal(greedy, s_outs[..., 0])):
+        raise AssertionError("scalar input: samples not finite, sampled "
+                             "outside [-1, 1] or greedy not the logits' "
+                             "first channel")
+    print(f"continuous scalar input (10 logistics, C=G=768): {SCALAR_STEPS} "
+          f"steps at {CONT_SLOTS} streams greedy and sampled, {launches} "
+          f"decode-step kernel launches; greedy in "
+          f"[{float(greedy.min()):.3f}, {float(greedy.max()):.3f}], sampled "
+          f"in [{float(sampled.min()):.3f}, {float(sampled.max()):.3f}]")
+    parts.append(("scalar", time.perf_counter()))
+    print("continuous phase, seconds by part: " + ", ".join(
+        f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t)
+        in zip(parts, parts[1:])))
     return step_launches, vq_launches
 
 
@@ -2502,7 +2850,7 @@ def _serve_kind(gpu, kind, params, cfg, common, mels, key, chains, wrappers,
 
 
 PHASES = ("kernel", "slice", "train", "experiment", "evaluate", "step_kernel",
-          "synthesis", "chain_kernel", "vocoder")
+          "synthesis", "continuous", "chain_kernel", "vocoder")
 # what a run may not import: the card's machine has none of them, and the
 # port needs none
 FORBIDDEN_IMPORTS = ("jax", "vqvae_speech_tpu", "sklearn", "matplotlib")
@@ -2583,6 +2931,7 @@ def main():
                     ("evaluate", evaluate_phase, (gpu, work)),
                     ("step_kernel", step_kernel_phase, (gpu,)),
                     ("synthesis", synthesis_phase, (gpu,)),
+                    ("continuous", continuous_phase, (gpu,)),
                     ("chain_kernel", chain_kernel_phase, (gpu,)),
                     ("vocoder", vocoder_phase, (gpu,))):
                 if name in only:
@@ -2606,6 +2955,7 @@ def main():
         shutil.rmtree(work)
     step_err, (step_ms, step_plain_ms) = phase(step_kernel_phase, gpu)
     step_launches, synth_vq_launches = phase(synthesis_phase, gpu)
+    cont_step_launches, cont_vq_launches = phase(continuous_phase, gpu)
     chains = phase(chain_kernel_phase, gpu)
     chain_launches = phase(vocoder_phase, gpu)
     _check_imports()
@@ -2631,14 +2981,15 @@ def main():
     print(json.dumps({"kernels": [
         line("vq_search", "vq_search.cu", "vqvae_speech_tpu/ops/vq.py:91",
              encode_vq_launches + train_vq_launches + experiment_vq_launches
-             + evaluate_vq_launches + synth_vq_launches,
+             + evaluate_vq_launches + synth_vq_launches + cont_vq_launches,
              dict(max_abs_err=vq_err, ms=vq_ms, plain_ms=vq_plain_ms,
                   bound_ms=vq_bound[0], bound_by=vq_bound[1]),
              # ms is by CUDA events, which at this size time the host's
              # launch; device_ms is the kernel's own time in the train steps
              device_ms=vq_device_ms),
         line("wavenet_step", "wavenet_step.cu",
-             "vqvae_speech_tpu/ops/wavenet_step.py:35", step_launches,
+             "vqvae_speech_tpu/ops/wavenet_step.py:35",
+             step_launches + cont_step_launches,
              dict(max_abs_err=step_err, ms=step_ms, plain_ms=step_plain_ms,
                   bound_ms=step_bound[0], bound_by=step_bound[1])),
         line("fused_block_chain_tiled", "fused_resblock.cu",

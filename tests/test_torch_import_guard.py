@@ -153,3 +153,51 @@ def test_the_cli_evaluates_without_sklearn_or_matplotlib(tmp_path):
     """.replace("{base!r}", repr(os.path.join(REPO_ROOT, "configurations",
                                              "vctk_features.yaml")))
          , tmp_path)
+
+
+def test_continuous_synthesis_serves_without_jax(tmp_path):
+    """The AR serving slice's new modules (models/wavenet/chunked.py,
+    mixture.py, util.py, serve.ContinuousSynthesisServer) import and serve
+    with JAX unimportable: a factory-built model drains greedy f32, int8
+    and bf16 pools and a sampled mixture pool."""
+    out = _run("""
+        import numpy as np
+        import torch
+        from vqvae_speech_tpu_torch.models.wavenet import (
+            build_wavenet_from_hparams, discretized_mix_logistic_loss)
+        from vqvae_speech_tpu_torch.models.wavenet.chunked import (
+            decode_chunk, init_decode_slots)
+        from vqvae_speech_tpu_torch.serve import ContinuousSynthesisServer
+
+        hp = dict(out_channels=32, layers=4, stacks=2, residual_channels=8,
+                  gate_channels=8, skip_out_channels=8, kernel_size=2,
+                  cin_channels=4, upsample_conditional_features=True,
+                  upsample_scales=[2, 2])
+        rng = np.random.default_rng(0)
+        conds = [rng.standard_normal((n, 4)).astype(np.float32)
+                 for n in (5, 3, 6)]
+        for kw in ({}, {"weight_quant": "int8"},
+                   {"compute_dtype": torch.bfloat16}):
+            tree, cfg = build_wavenet_from_hparams(hp, seed=0)
+            server = ContinuousSynthesisServer(
+                tree, cfg, slots=2, chunk_size=7, max_frames=6,
+                device="cpu", **kw)
+            waves = [r.wave for r in server.run(conds)]
+            assert [len(w) for w in waves] == [20, 12, 24]
+        del hp["out_channels"]          # the mixture's default, 10 x 3
+        tree, cfg = build_wavenet_from_hparams(dict(hp, input_type="raw"),
+                                               seed=1)
+        server = ContinuousSynthesisServer(tree, cfg, slots=2, chunk_size=7,
+                                           max_frames=6, sample=True,
+                                           device="cpu")
+        waves = [r.wave for r in server.run(conds, seed=3)]
+        assert all(np.abs(w).max() <= 1.0 for w in waves)
+        loss = discretized_mix_logistic_loss(torch.zeros(1, 4, 30),
+                                             torch.zeros(1, 4, 1))
+        assert torch.isfinite(loss)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "optax", "yaml", "vqvae_speech_tpu")
+                     and sys.modules[m] is not None)
+        print("served", bad)
+    """, tmp_path)
+    assert out.split() == ["served", "[]"]

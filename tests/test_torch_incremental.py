@@ -18,13 +18,18 @@ from jax.experimental.pallas import tpu as pltpu
 from vqvae_speech_tpu.models.wavenet import WaveNetConfig as JaxConfig
 from vqvae_speech_tpu.models.wavenet import wavenet_init
 from vqvae_speech_tpu.models.wavenet.incremental import (
+    prepare_decode_weights as jax_prepare_decode_weights,
+)
+from vqvae_speech_tpu.models.wavenet.incremental import (
     wavenet_incremental_generate as jax_generate,
 )
 from vqvae_speech_tpu_torch.convert import load_wavenet_params
+from vqvae_speech_tpu_torch.models.wavenet import incremental
 from vqvae_speech_tpu_torch.models.wavenet import (
     WaveNet,
     WaveNetConfig,
     init_buffers,
+    prepare_decode_weights,
     wavenet_incremental_generate,
 )
 from vqvae_speech_tpu_torch.ops._kernels import wavenet_step_cuda
@@ -195,10 +200,19 @@ def test_sampling_needs_a_generator():
     ({"compute_dtype": torch.bfloat16}, "compute_dtype"),
 ])
 def test_unported_decodes_raise(kwargs, match):
+    """The decode-step kernel is f32 only: a narrow configuration under
+    use_fused_stack raises (as JAX asserts) and never quietly runs the
+    per-layer path; an unknown one raises without it."""
     _, tcfg, _, model = setup()
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         wavenet_incremental_generate(model, tcfg, 4, c=torch.zeros(1, 1, 6),
-                                     sample=False, **kwargs)
+                                     sample=False, use_fused_stack=True,
+                                     **kwargs)
+    unknown = {"weight_quant": "int4", "compute_dtype": torch.float16}
+    name = next(iter(kwargs))
+    with pytest.raises(ValueError, match=match):
+        wavenet_incremental_generate(model, tcfg, 4, c=torch.zeros(1, 1, 6),
+                                     sample=False, **{name: unknown[name]})
 
 
 def test_short_conditioning_raises():
@@ -212,14 +226,20 @@ def test_short_conditioning_raises():
 
 
 def test_scalar_input_raises():
-    _, tcfg, _, model = setup(cin_channels=-1, gin_channels=-1,
-                              upsample_conditional_features=False)
+    """The scalar input takes one channel: a one-hot first input raises;
+    sampling it needs a generator."""
     scalar = WaveNetConfig(**dict(CFG_KW, scalar_input=True, cin_channels=-1,
-                                  gin_channels=-1,
+                                  gin_channels=-1, out_channels=30,
                                   upsample_conditional_features=False))
-    with pytest.raises(NotImplementedError, match="scalar_input"):
-        wavenet_incremental_generate(WaveNet(scalar).eval(), scalar, 4,
-                                     sample=False)
+    model = WaveNet(scalar).eval()
+    with pytest.raises(ValueError, match="initial_input"):
+        wavenet_incremental_generate(model, scalar, 4, sample=False,
+                                     initial_input=torch.zeros(2, 30))
+    with pytest.raises(ValueError, match="Generator"):
+        wavenet_incremental_generate(model, scalar, 4, sample=True)
+    _, em = wavenet_incremental_generate(model, scalar, 4, sample=False,
+                                         initial_input=torch.zeros(2, 1))
+    assert em.dtype == torch.float32 and tuple(em.shape) == (2, 4)
 
 
 def test_ring_holds_every_lag():
@@ -227,3 +247,157 @@ def test_ring_holds_every_lag():
     cfg = WaveNetConfig(**dict(CFG_KW, layers=20, stacks=2))
     ring = init_buffers(cfg, 3, "cpu")
     assert tuple(ring.shape) == (20, 2 * 512, 3, 8) and not ring.any()
+
+
+# ---- the JAX decode's other configurations: int8, int8_block, bf16, and
+# the scalar (mixture-of-logistics) input ----
+
+# bf16 logits: one bf16 ulp at |x| in [0.5, 1) for the first step (the same
+# inputs through both packages), two before the first near-tie (XLA keeps
+# f32 between fused ops in its scan, torch rounds every op), and a near-tie
+# within one
+BF16_LOGIT_TOL, BF16_NEAR_TIE = 2 ** -8, 2 ** -8
+
+
+def jax_resolved(params, jcfg):
+    """{name: (L, ...) stacked} of the JAX decode's f32 weights, before any
+    quantization: the port's resolved weights differ from these by an ulp
+    here and there (the weight norm's sum in another order)."""
+    plain = jax_prepare_decode_weights(params, jcfg)["layers"]
+    return {name: torch.from_numpy(np.stack([np.asarray(lw[jname])
+                                             for lw in plain]))
+            for name, jname in (("wtap", "conv_w"), ("wskip", "skip_w"),
+                                ("wout", "out_w"))}
+
+
+@pytest.mark.parametrize("weight_quant,C", [
+    ("int8", 8), ("int8_block", 8), ("int8", 256), ("int8_block", 256)])
+def test_quantized_weights_bit_equal_jax(weight_quant, C):
+    """C=256 gives two 128-row blocks a tap, C=8 one block (the fallback);
+    the projections' input G/2 = 128 one block either way. On the same f32
+    weights the int8 weights and the scales are bit-equal to JAX's; through
+    each package's own weight norm the int8 weights are equal and the
+    scales within 2**-21 relative (a few f32 ulps: XLA sums the norm's
+    squares in another order than torch, 26-86% of the resolved weights
+    differ from torch's by an ulp or two)."""
+    jcfg, tcfg, params, model = setup(seed=2, residual_channels=C,
+                                      gate_channels=256)
+    jax_prep = jax_prepare_decode_weights(params, jcfg, weight_quant)
+    with torch.no_grad():
+        prep = prepare_decode_weights(model, tcfg, weight_quant)
+        same = prepare_decode_weights(model, tcfg)
+        same.update(jax_resolved(params, jcfg))
+        exact = dict(same)
+        for name, dims in (("wtap", (0, 1)), ("wskip", (0,)), ("wout", (0,))):
+            pairs = [incremental._quantized(w, weight_quant, dims)
+                     for w in same[name]]
+            exact[name + "_int8"] = torch.stack([p[0] for p in pairs])
+            exact[name + "_scale"] = torch.stack([p[1] for p in pairs])
+    suffix = "_scale" if weight_quant == "int8" else "_bscale"
+    for name, jname in (("wtap", "conv_w"), ("wskip", "skip_w"),
+                        ("wout", "out_w")):
+        assert prep[name + "_int8"].dtype == torch.int8
+        for l, lw in enumerate(jax_prep["layers"]):
+            want_w, want_s = np.asarray(lw[jname]), np.asarray(lw[jname + suffix])
+            np.testing.assert_array_equal(exact[name + "_int8"][l].numpy(),
+                                          want_w)
+            np.testing.assert_array_equal(exact[name + "_scale"][l].numpy(),
+                                          want_s)
+            np.testing.assert_array_equal(prep[name + "_int8"][l].numpy(),
+                                          want_w)
+            np.testing.assert_allclose(prep[name + suffix][l].numpy(), want_s,
+                                       rtol=2 ** -21, atol=0)
+            # the values the products read are the int8 weights, exactly
+            assert torch.equal(prep[name][l], prep[name + "_int8"][l].float())
+    nb = 2 if (weight_quant, C) == ("int8_block", 256) else 1
+    want = (4, 3, nb, 256) if weight_quant == "int8_block" else (4, 1, 256)
+    assert tuple(prep["wtap" + suffix].shape) == want
+
+
+@pytest.mark.parametrize("weight_quant", ["int8", "int8_block"])
+def test_quantized_greedy_matches_jax(weight_quant):
+    jcfg, tcfg, params, model = setup(seed=2, residual_channels=256)
+    rng = np.random.default_rng(3)
+    T, B = 32, 2
+    c = rng.standard_normal((B, T // 8, 6)).astype(np.float32)
+    g = np.array([1, 2])
+    j_outs, j_em = jax_generate(params, jcfg, jax.random.PRNGKey(0), T,
+                                c=jnp.asarray(c), g=jnp.asarray(g),
+                                sample=False, weight_quant=weight_quant)
+    outs, em = wavenet_incremental_generate(
+        model, tcfg, T, c=torch.from_numpy(c), g=torch.from_numpy(g),
+        sample=False, weight_quant=weight_quant)
+    np.testing.assert_array_equal(em.numpy(), np.asarray(j_em))
+    np.testing.assert_allclose(outs.numpy(), np.asarray(j_outs), rtol=1e-4,
+                               atol=1e-4)
+
+
+def scalar_setup(seed=3):
+    return setup(seed=seed, scalar_input=True, out_channels=30)
+
+
+def test_scalar_input_greedy_matches_jax():
+    """The unclipped first channel fed back as the next input: samples
+    within 1e-6 of JAX's (measured 4e-8), logits within 1e-5."""
+    jcfg, tcfg, params, model = scalar_setup()
+    rng = np.random.default_rng(4)
+    T, B = 48, 2
+    c = rng.standard_normal((B, T // 8, 6)).astype(np.float32)
+    g = np.array([2, 0])
+    for fused in (False, True):
+        j_outs, j_em = jax_generate(params, jcfg, jax.random.PRNGKey(0), T,
+                                    c=jnp.asarray(c), g=jnp.asarray(g),
+                                    sample=False)
+        outs, em = wavenet_incremental_generate(
+            model, tcfg, T, c=torch.from_numpy(c), g=torch.from_numpy(g),
+            sample=False, use_fused_stack=fused)
+        assert em.dtype == torch.float32 and tuple(outs.shape) == (B, T, 30)
+        np.testing.assert_allclose(em.numpy(), np.asarray(j_em), rtol=0,
+                                   atol=1e-6)
+        np.testing.assert_allclose(outs.numpy(), np.asarray(j_outs), rtol=0,
+                                   atol=1e-5)
+        assert torch.equal(em, outs[..., 0])          # unclipped
+
+
+def test_scalar_input_sampling_draws_from_the_mixture():
+    _, tcfg, _, model = scalar_setup()
+    c = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (3, 4, 6)).astype(np.float32))
+    g = torch.tensor([0, 1, 2])
+    runs = [wavenet_incremental_generate(
+        model, tcfg, 32, c=c, g=g, sample=True, use_fused_stack=True,
+        generator=torch.Generator().manual_seed(seed))[1] for seed in (0, 0, 1)]
+    assert torch.isfinite(runs[0]).all() and runs[0].abs().max() <= 1.0
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+
+
+@pytest.mark.parametrize("weight_quant", [None, "int8", "int8_block"])
+def test_bf16_logits_follow_jax(weight_quant):
+    """bf16 (alone and with int8 weights): the first step's logits within
+    one bf16 ulp of JAX's, the greedy streams equal up to the first
+    near-tie and the logits before it within two."""
+    jcfg, tcfg, params, model = setup()
+    rng = np.random.default_rng(0)
+    T, B = 48, 2
+    c = rng.standard_normal((B, T // 8, 6)).astype(np.float32)
+    g = np.array([2, 0])
+    j_outs, j_em = jax_generate(params, jcfg, jax.random.PRNGKey(0), T,
+                                c=jnp.asarray(c), g=jnp.asarray(g),
+                                sample=False, compute_dtype=jnp.bfloat16,
+                                weight_quant=weight_quant)
+    outs, em = wavenet_incremental_generate(
+        model, tcfg, T, c=torch.from_numpy(c), g=torch.from_numpy(g),
+        sample=False, compute_dtype=torch.bfloat16, weight_quant=weight_quant)
+    assert outs.dtype == torch.float32 and em.dtype == torch.int32
+    j_outs, j_em = np.asarray(j_outs), np.asarray(j_em)
+    outs, em = outs.numpy(), em.numpy()
+    np.testing.assert_allclose(outs[:, 0], j_outs[:, 0], rtol=0,
+                               atol=BF16_LOGIT_TOL)
+    for b in range(B):
+        diff = np.flatnonzero(em[b] != j_em[b])
+        flip = diff[0] if len(diff) else T
+        if len(diff):
+            top2 = np.sort(j_outs[b, flip])[-2:]
+            assert top2[1] - top2[0] <= BF16_NEAR_TIE, (b, flip, top2)
+        np.testing.assert_allclose(outs[b, :flip], j_outs[b, :flip], rtol=0,
+                                   atol=2 * BF16_LOGIT_TOL)

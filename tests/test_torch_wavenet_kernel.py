@@ -224,3 +224,99 @@ def test_wrapper_refuses_cpu_tensors():
     assert wavenet_step_cuda.launches == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _chunk_model(device, slots, seed=0):
+    """A speaker- and locally conditioned WaveNet at the kernel's widths
+    (L=6, k=3, C=G=128, S=64, 256 bins), numpy-seeded, and two requests'
+    conditioning (frames, 16) with speaker ids."""
+    from vqvae_speech_tpu_torch.convert import (
+        load_wavenet_params,
+        numpy_wavenet_params,
+    )
+    from vqvae_speech_tpu_torch.models.wavenet import WaveNet, WaveNetConfig
+
+    cfg = WaveNetConfig(out_channels=256, layers=6, stacks=2,
+                        residual_channels=128, gate_channels=128,
+                        skip_out_channels=64, kernel_size=3, cin_channels=16,
+                        gin_channels=8, n_speakers=4,
+                        upsample_conditional_features=True,
+                        upsample_scales=(4, 4))
+    module = load_wavenet_params(WaveNet(cfg), numpy_wavenet_params(
+        cfg, seed)).to(device).eval()
+    rng = np.random.default_rng(seed)
+    conds = [rng.standard_normal((n, 16)).astype(np.float32)
+             for n in (12, 7, 10)[:slots]]
+    return module, cfg, conds
+
+
+@pytest.mark.cuda
+def test_decode_chunk_kernel_matches_plain_chain(cuda):
+    """Two chunks of 96 steps at 3 slots through the kernel (one launch a
+    step) and through the plain chain on the same CUDA weights, the third
+    request admitted at the second chunk into a slot with history: the
+    logits within 1e-3 (the bucketed smoke's teacher-forced bound) up to
+    the first bin where the streams part, which must be a near-tie of the
+    plain chain's logits (top two within 2e-3)."""
+    from vqvae_speech_tpu_torch.models.wavenet.chunked import (
+        admit_slot,
+        decode_chunk,
+        init_decode_slots,
+        slot_conditioning,
+    )
+
+    module, cfg, conds = _chunk_model(cuda, 3)
+    runs = {}
+    for name in ("kernel", "plain"):
+        prep, state = init_decode_slots(module, cfg, 3, 12 * 16,
+                                        use_fused_stack=True)
+        if name == "plain":
+            w = [prep[n] for n in WEIGHTS]
+            prep["stack_step"] = lambda x0, taps, cond: glu_stack_step_torch(
+                x0, taps, cond, *w, legacy=cfg.legacy)
+        before = wavenet_step_cuda.launches
+        em, outs = [], []
+        for chunk, admit in enumerate(((0, 1), (2,))):
+            for slot in admit:
+                c = np.zeros((12, 16), np.float32)
+                c[:len(conds[slot])] = conds[slot]
+                rows = slot_conditioning(module, cfg, torch.from_numpy(c),
+                                         slot, 12 * 16)
+                admit_slot(prep, state, slot, rows)
+            state, e, o = decode_chunk(prep, state, cfg, 96, sample=False,
+                                       return_logits=True)
+            em.append(e)
+            outs.append(o)
+        launches = wavenet_step_cuda.launches - before
+        assert launches == (192 if name == "kernel" else 0)
+        runs[name] = (torch.cat(em, 1).cpu().numpy(),
+                      torch.cat(outs, 1).cpu().numpy())
+    (got, got_logits), (want, want_logits) = runs["kernel"], runs["plain"]
+    for slot in range(3):
+        diff = np.flatnonzero(got[slot] != want[slot])
+        flip = diff[0] if len(diff) else got.shape[1]
+        if len(diff):
+            top2 = np.sort(want_logits[slot, flip])[-2:]
+            assert top2[1] - top2[0] <= 2e-3, (slot, flip, top2)
+        np.testing.assert_allclose(got_logits[slot, :flip],
+                                   want_logits[slot, :flip], rtol=0,
+                                   atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_continuous_server_takes_what_the_kernel_takes(cuda):
+    """At f32 the server's slots are the kernel's batch: 33 raise at
+    construction; the int8 decode (layer by layer) takes them."""
+    from vqvae_speech_tpu_torch.convert import numpy_wavenet_params
+    from vqvae_speech_tpu_torch.serve import ContinuousSynthesisServer
+
+    module, cfg, conds = _chunk_model("cpu", 1)
+    tree = numpy_wavenet_params(cfg, 0)
+    with pytest.raises(ValueError, match="slots=33"):
+        ContinuousSynthesisServer(tree, cfg, slots=33, device="cuda")
+    server = ContinuousSynthesisServer(tree, cfg, slots=33, chunk_size=8,
+                                       max_frames=12, weight_quant="int8",
+                                       device="cuda")
+    before = wavenet_step_cuda.launches
+    wave = server.run(conds)[0].wave
+    assert wavenet_step_cuda.launches == before and wave.shape == (192,)

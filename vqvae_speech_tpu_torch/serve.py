@@ -1,4 +1,4 @@
-"""Batch wav -> VQ-code serving, and batch AR synthesis, with buckets.
+"""Batch wav -> VQ-code serving, and AR and one-pass synthesis serving.
 
 Counterpart of ``BucketedEncodeServer`` in ``vqvae_speech_tpu/serve.py``,
 with the same API and exactness contract: for every request, the returned
@@ -19,7 +19,13 @@ max_batch * C * T / D rows — the fused CUDA kernel on a GPU.
 name: local-conditioning frame buckets, launches padded to ``max_batch``,
 each a greedy (or sampled) AR decode whose f32 layer stack runs as one
 prepared ``glu_stack_step`` per step — on a GPU one launch of the
-hand-written CUDA kernel, bound to the weights once a decode.
+hand-written CUDA kernel, bound to the weights once a decode. Its bf16 and
+int8 decodes run the layer stack layer by layer, as JAX runs them.
+
+``ContinuousSynthesisServer`` is the counterpart of the JAX server of the
+same name: continuous batching over device-resident decode slots
+(``models/wavenet/chunked.py``); every launch advances all slots one chunk,
+and requests join and retire at chunk boundaries.
 
 ``BucketedParallelSynthesisServer`` is the counterpart of the JAX server of
 the same name: one-pass synthesis with the ClariNet IAF student or the
@@ -27,6 +33,7 @@ FloWaveNet reverse pass over mel-frame buckets; with ``use_fused_chain`` at
 ``max_batch=1`` every resblock chain is one call of the fused chain kernels
 (``ops/fused_resblock.py``) on a GPU.
 """
+from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -47,8 +54,26 @@ from vqvae_speech_tpu_torch.models.clarinet import (
 )
 from vqvae_speech_tpu_torch.models.clarinet.modules import check_compute_dtype
 from vqvae_speech_tpu_torch.models.flowavenet import flowavenet_reverse
-from vqvae_speech_tpu_torch.models.wavenet import wavenet_incremental_generate
+from vqvae_speech_tpu_torch.models.wavenet import (
+    cast_floating,
+    wavenet_incremental_generate,
+)
+from vqvae_speech_tpu_torch.models.wavenet.chunked import (
+    admit_slot,
+    decode_chunk,
+    init_decode_slots,
+    noise_width,
+    slot_conditioning,
+)
+from vqvae_speech_tpu_torch.models.wavenet.incremental import (
+    check_decode_options,
+)
+from vqvae_speech_tpu_torch.models.wavenet.mixture import (
+    gumbel_noise,
+    logistic_uniform,
+)
 from vqvae_speech_tpu_torch.ops import num_frames, speech_features, vq_search
+from vqvae_speech_tpu_torch.ops._kernels import WAVENET_STEP_MAX_BATCH
 from vqvae_speech_tpu_torch.utils import resolve_device
 
 
@@ -198,8 +223,15 @@ class BucketedSynthesisServer:
     max_batch : streams per launch (the kernel takes up to 32).
     sample : categorical sampling (a ``torch.Generator`` seeded per launch)
         instead of greedy argmax.
-    compute_dtype, weight_quant, mesh : the JAX server's bf16, int8 and
-        tensor-parallel decodes; not ported yet, anything but None raises.
+    compute_dtype : None or torch.float32 (f32: the layer stack through the
+        decode-step kernel on a GPU), or torch.bfloat16: the parameters cast
+        to bf16 at load, the weight norm resolved after, the decode in bf16
+        with f32 logits, layer by layer.
+    weight_quant : None, "int8" (one scale an output channel) or
+        "int8_block" (one a 128-input block and output): the JAX decode's
+        weight-only int8 GLU stack, layer by layer.
+    mesh : the tensor-parallel decode; not ported yet, anything but None
+        raises.
     device : where the model runs ("cuda", "cpu"); no default.
     """
 
@@ -211,19 +243,21 @@ class BucketedSynthesisServer:
                  weight_quant: Optional[str] = None,
                  mesh=None,
                  device):
-        for name, value in (("compute_dtype", compute_dtype),
-                            ("weight_quant", weight_quant), ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}={value!r}: only the f32 single-device decode is "
-                    "ported to PyTorch yet")
+        if mesh is not None:
+            raise NotImplementedError(
+                f"mesh={mesh!r}: the tensor-parallel decode is not ported "
+                "to PyTorch yet")
+        self._fused = compute_dtype != torch.bfloat16 and weight_quant is None
+        check_decode_options(compute_dtype, weight_quant, self._fused)
         self._device = resolve_device(device)
         self._cfg = cfg
         self._buckets = tuple(sorted(int(b) for b in frame_buckets))
         self._max_batch = int(max_batch)
         self._sample = sample
-        self.model = load_wavenet_params(WaveNet(cfg), params).to(
-            self._device).eval()
+        self._compute_dtype = compute_dtype
+        self._weight_quant = weight_quant
+        self.model = cast_floating(load_wavenet_params(WaveNet(cfg), params).to(
+            self._device).eval(), compute_dtype)
         self._launches = 0
         self._upsample_factor = self.model.upsample_factor
 
@@ -236,7 +270,9 @@ class BucketedSynthesisServer:
             gen = torch.Generator(device=self._device).manual_seed(seed)
         return wavenet_incremental_generate(
             self.model, self._cfg, c.shape[1] * self._upsample_factor, c=c,
-            g=g, sample=self._sample, generator=gen, use_fused_stack=True)
+            g=g, sample=self._sample, generator=gen,
+            use_fused_stack=self._fused, compute_dtype=self._compute_dtype,
+            weight_quant=self._weight_quant)
 
     def padded_batch(self, conds: Sequence, speaker_ids: Optional[Sequence[int]],
                      bucket: int):
@@ -441,4 +477,236 @@ class BucketedParallelSynthesisServer:
     def stats(self) -> dict:
         return {"served_buckets": sorted(self._served),
                 "launches": self._launches, "max_batch": self._max_batch,
+                "upsample_factor": self._upsample_factor}
+
+
+def _distribution(xs) -> Optional[dict]:
+    if not xs:
+        return None
+    a = np.asarray(xs, np.float64)
+    return {"mean": round(float(a.mean()), 2),
+            "p50": float(np.percentile(a, 50)),
+            "p90": float(np.percentile(a, 90)),
+            "max": float(a.max())}
+
+
+class ContinuousSynthesisServer:
+    """Continuous-batching AR synthesis over device-resident decode slots.
+
+    ``slots`` decode streams live on the device; every launch advances all
+    of them ``chunk_size`` samples (``chunked.decode_chunk``) and requests
+    join and retire at chunk boundaries, so the batch stays full under
+    mixed-length traffic and a queued request starts within one chunk
+    instead of one utterance.
+
+    Contracts (tests/test_torch_continuous_serve.py):
+
+    * a greedy stream equals a standalone batch-1 greedy decode of the same
+      request where the arithmetic agrees: conditioning is hoisted at
+      admission at batch 1, as the standalone decode hoists it;
+    * a request's stream, greedy or sampled, does not depend on what shares
+      the pool or when it is admitted: every launch has the same
+      (slots, chunk_size) shape, and a sampled stream reads only its own
+      draws, made at admission from a ``torch.Generator`` seeded from
+      (seed, request id) mixed by ``np.random.SeedSequence`` (or given:
+      ``noise=`` / ``noises=``).
+
+    Online API: ``submit()`` enqueues a request and returns its id,
+    ``step()`` advances the pool one chunk and returns the ids that completed
+    in it, ``collect()`` takes a finished result; ``run()`` is the offline
+    drain built on them. ``stats`` has the JAX server's keys and values.
+
+    params, cfg : a ``wavenet_init``-shaped numpy tree and its WaveNetConfig.
+    max_frames : the longest admissible conditioning (frames); fixes the
+        slots' conditioning buffer (slots, max_frames * upsample, L, G).
+    compute_dtype, weight_quant : as ``BucketedSynthesisServer``'s. At f32
+        every step's layer stack is one call of the decode-step kernel on a
+        GPU, which takes at most 32 slots; the bf16 and int8 decodes run
+        layer by layer.
+    device : where the model runs ("cuda", "cpu"); no default.
+    """
+
+    def __init__(self, params, cfg, *,
+                 slots: int = 8,
+                 chunk_size: int = 256,
+                 max_frames: int = 40,
+                 sample: bool = False,
+                 compute_dtype=None,
+                 weight_quant: Optional[str] = None,
+                 device):
+        fused = compute_dtype != torch.bfloat16 and weight_quant is None
+        check_decode_options(compute_dtype, weight_quant, fused)
+        self._device = resolve_device(device)
+        if fused and self._device.type == "cuda" and not (
+                1 <= int(slots) <= WAVENET_STEP_MAX_BATCH):
+            raise ValueError(f"slots={slots}: the f32 decode-step kernel "
+                             f"takes 1..{WAVENET_STEP_MAX_BATCH} streams")
+        self._cfg = cfg
+        self._slots = int(slots)
+        self._chunk = int(chunk_size)
+        self._sample = bool(sample)
+        self.model = cast_floating(load_wavenet_params(WaveNet(cfg), params).to(
+            self._device).eval(), compute_dtype)
+        self._upsample_factor = self.model.upsample_factor
+        self._max_frames = int(max_frames)
+        self._max_t = self._max_frames * self._upsample_factor
+        self._prep, self._state = init_decode_slots(
+            self.model, cfg, self._slots, self._max_t,
+            weight_quant=weight_quant, use_fused_stack=fused)
+        self._queue = deque()                # request ids awaiting a slot
+        self._requests: Dict[int, dict] = {}
+        self._results: Dict[int, SynthesisResult] = {}
+        self._active: Dict[int, list] = {}   # slot -> [id, remaining, parts]
+        self._next_id = 0
+        self._launches = 0
+        self._busy_steps = 0
+        self._slot_steps = 0
+        # per request, in chunks: submit -> completion, submit -> slot and
+        # slot -> completion
+        self._wait_chunks: List[int] = []
+        self._admission_wait_chunks: List[int] = []
+        self._decode_chunks: List[int] = []
+
+    @property
+    def pending(self) -> int:
+        """Requests submitted but not yet completed."""
+        return len(self._queue) + len(self._active)
+
+    def _check_size(self, cond) -> None:
+        if cond.shape[0] > self._max_frames:
+            raise ValueError(f"conditioning of {cond.shape[0]} frames "
+                             f"exceeds max_frames {self._max_frames}")
+
+    def _noise(self, n: int, seed: int, rid: int, given) -> torch.Tensor:
+        """A sampled request's draws (n, noise_width): ``given``, or drawn
+        from a CPU generator seeded from (seed, rid)."""
+        width = noise_width(self._cfg)
+        if given is not None:
+            return torch.from_numpy(np.array(given, np.float32))
+        # the CPU generator keeps 32 bits of its seed: mix the pair into them
+        mixed = np.random.SeedSequence([seed, rid]).generate_state(1)[0]
+        gen = torch.Generator(device="cpu").manual_seed(int(mixed))
+        if not self._cfg.scalar_input:
+            return gumbel_noise((n, width), gen)
+        return torch.cat([gumbel_noise((n, width - 1), gen),
+                          logistic_uniform((n, 1), gen)], dim=1)
+
+    def submit(self, cond, speaker_id: Optional[int] = None, seed: int = 0,
+               noise=None) -> int:
+        """Enqueue one request, (Tc, cin) local conditioning; returns its id.
+        Its stream depends only on (params, cond, speaker_id, seed, id), or
+        on ``noise`` in place of the seeded draws of a sampled stream:
+        (Tc * upsample, noise_width) Gumbel draws (the categorical output)
+        or [Gumbel | u] (the mixture)."""
+        self._check_size(cond)
+        if seed < 0:
+            raise ValueError(f"seed {seed} is negative")
+        want = (cond.shape[0] * self._upsample_factor, noise_width(self._cfg))
+        if noise is not None and np.shape(noise) != want:
+            raise ValueError(f"noise of shape {np.shape(noise)}; the request "
+                             f"needs {want}")
+        rid = self._next_id
+        self._next_id += 1
+        self._requests[rid] = dict(cond=cond, speaker_id=speaker_id,
+                                   seed=seed, noise=noise,
+                                   submitted=self._launches)
+        self._queue.append(rid)
+        return rid
+
+    def _admit(self, slot: int, rid: int) -> None:
+        req = self._requests[rid]
+        cond = req["cond"]
+        n = cond.shape[0] * self._upsample_factor
+        # zero-padded to the slots' capacity: every admission has one shape
+        with torch.inference_mode():
+            c = torch.zeros((self._max_frames, cond.shape[-1]),
+                            dtype=torch.float32, device=self._device)
+            c[:cond.shape[0]] = torch.as_tensor(cond, dtype=torch.float32,
+                                                device=self._device)
+        rows = slot_conditioning(self.model, self._cfg, c, req["speaker_id"],
+                                 self._max_t)
+        noise = None
+        if self._sample:
+            noise = self._noise(n, req["seed"], rid, req["noise"])
+        req["admitted"] = self._launches
+        admit_slot(self._prep, self._state, slot, rows, noise)
+        self._active[slot] = [rid, n, []]
+
+    def step(self) -> List[int]:
+        """Admit queued requests into free slots, advance every slot one
+        chunk, and return the ids of requests that completed in it."""
+        if not self._queue and not self._active:
+            return []
+        if not self._active:
+            # pool drained: rewind the shared clock (a busy pool only
+            # advances it while streams are in flight)
+            self._state["g"] = 0
+            with torch.inference_mode():
+                self._state["start"].zero_()
+        for s in range(self._slots):
+            if s not in self._active and self._queue:
+                self._admit(s, self._queue.popleft())
+        self._state, emitted = decode_chunk(
+            self._prep, self._state, self._cfg, self._chunk,
+            sample=self._sample)
+        emitted = emitted.cpu().numpy()
+        self._launches += 1
+        self._slot_steps += self._slots * self._chunk
+        done = []
+        for s in list(self._active):
+            rid, remaining, parts = self._active[s]
+            take = min(remaining, self._chunk)
+            parts.append(emitted[s, :take])
+            self._busy_steps += take
+            if remaining > self._chunk:
+                self._active[s][1] = remaining - take
+                continue
+            req = self._requests.pop(rid)
+            self._results[rid] = SynthesisResult(wave=np.concatenate(parts),
+                                                 bucket=self._max_frames)
+            self._wait_chunks.append(self._launches - req["submitted"])
+            self._admission_wait_chunks.append(req["admitted"]
+                                               - req["submitted"])
+            self._decode_chunks.append(self._launches - req["admitted"])
+            del self._active[s]
+            done.append(rid)
+        return done
+
+    def collect(self, request_id: int) -> Optional[SynthesisResult]:
+        """Take a completed request's result (once), or None while it is in
+        flight."""
+        return self._results.pop(request_id, None)
+
+    def run(self, conds: Sequence, speaker_ids: Optional[Sequence[int]] = None,
+            seed: int = 0, noises: Optional[Sequence] = None
+            ) -> List[SynthesisResult]:
+        """Offline drain: submit everything, step until empty. conds:
+        per-request (Tc, cin) local conditioning; ``noises``: optionally one
+        array a request, as ``submit``'s ``noise``. Returns trimmed waves
+        (int32 bins, or f32 samples for the scalar input) in order."""
+        for c in conds:                 # validate before enqueuing any
+            self._check_size(c)
+        if noises is not None and len(noises) != len(conds):
+            raise ValueError(f"{len(noises)} noises for {len(conds)} requests")
+        ids = [self.submit(c, None if speaker_ids is None else speaker_ids[i],
+                           seed, None if noises is None else noises[i])
+               for i, c in enumerate(conds)]
+        while self.pending:
+            self.step()
+        return [self.collect(rid) for rid in ids]  # type: ignore[misc]
+
+    @property
+    def stats(self) -> dict:
+        util = (self._busy_steps / self._slot_steps
+                if self._slot_steps else 0.0)
+        waits = self._wait_chunks
+        return {"launches": self._launches, "slots": self._slots,
+                "chunk_size": self._chunk,
+                "slot_utilization": round(util, 4),
+                "mean_latency_chunks": (round(sum(waits) / len(waits), 2)
+                                        if waits else 0.0),
+                "latency_chunks": _distribution(self._wait_chunks),
+                "admission_wait_chunks": _distribution(
+                    self._admission_wait_chunks),
+                "decode_chunks": _distribution(self._decode_chunks),
                 "upsample_factor": self._upsample_factor}
