@@ -30,6 +30,16 @@
    the card against the same step on the CPU; reports ms a step, steps/s
    and, from torch.profiler, the device's idle share and the shares of the
    VQ kernel, the convolutions forward and backward and the optimizer.
+   bf16 (right after the f32 runs, in the same phase): the gradient VQ at
+   compute_dtype bfloat16, 5 + 50 steps on the same batch: one kernel launch
+   a step, the reconstruction loss within TRAIN_BF16_RECON_BAND of the f32
+   run's at every step, ms a step beside f32's, the idle share and the top
+   device kernels.
+   Pth import phase (between the slice and the train phases): a
+   reference-layout state_dict of seeded numpy weights at the flagship
+   width, saved as .pth and converted by train/convert_reference.py,
+   encodes the 12 requests on the card (VQ kernel) and on the CPU: the
+   same codes, or near-ties on the card's latents.
    Experiment phase (right after it): the flagship's training loop through
    the port's CLI (python -m vqvae_speech_tpu_torch.main) in a temporary
    directory with configurations/ and data/vctk/raw linked in: export of
@@ -63,9 +73,22 @@
    with none, the plain codes' scores equal the CLI's); the empirical
    sweep's utterances/s and, from torch.profiler, its device idle share
    and the kernel's share of device time.
+   WaveNet train phase (after the evaluate phase): WaveNet-VQ-VAE training
+   at configurations/vctk_wavenet.yaml's width (20 layers, k=3, C=G=768,
+   S=256, quantize 256, K=29, length 7680, batch 1, gradient VQ), 3 + 20
+   steps of make_wavenet_train_step on a VCTK crop with the f32 decoder and
+   with the bf16 one: one VQ kernel launch a step, finite losses, ms a
+   step, the idle share and the top device kernels; then the CLI
+   (python -m vqvae_speech_tpu_torch.main) on an experiments JSON naming
+   configurations/vctk_wavenet.yaml, one epoch and a resume to two, on the
+   first 3 wavs of each speaker of the tracked subset (the only cut: 19
+   train utterances): the checkpoints of epochs 1 and 2, the epoch-2
+   parameters in the JAX tree and layout, the optax-named amsgrad state
+   and its count, the checkpoint's size.
 4. Decode-step kernel phase: holds glu_stack_step against its plain
    PyTorch chain at the vctk_wavenet width (20 layers, k=3, C=G=768,
    S=256) for batch 1, 8 and 32 with and without the legacy skip scaling,
+   for batch 33, 64 and 100 (groups of 32 streams, one launch a group),
    at k=2, and at a narrow width whose tiles and slices are ragged; runs
    each twice and requires bit-equal outputs; times the prepared step (the
    decode loop's form) and the plain chain, reports the kernel's
@@ -96,7 +119,10 @@
    per-layer path): one chunk of 512 steps at 8 slots on the card against
    the same on the CPU (equal up to near-ties), ms a step beside K2's; and a
    scalar-input (mixture) WaveNet at the same width through the kernel,
-   greedy and sampled, for 384 steps.
+   greedy and sampled, for 384 steps. Then 64 slots (two launches of the
+   decode-step kernel a step): 64 one-frame requests in chunks of 256
+   steps, launches = steps x 2, each stream against the 8-slot server's
+   (parting only at a near-tie, the step and its top-two gap printed).
 
 6. Chain kernel phase: holds the three fused-chain entry points against
    their plain PyTorch chains on the same CUDA tensors: the causal tiled
@@ -146,8 +172,9 @@ Imports nothing of JAX.
 
     python3 chip_smoke.py --phases step_kernel,synthesis
 
-runs only the named phases (kernel, slice, train, experiment, evaluate,
-step_kernel, synthesis, continuous, chain_kernel, vocoder), for work on one
+runs only the named phases (kernel, slice, pth_import, train, experiment,
+evaluate, wavenet_train, step_kernel, synthesis, continuous, chain_kernel,
+vocoder), for work on one
 kernel or slice; such a run prints neither of the two JSON lines. The
 evaluate phase run without the experiment phase first trains jitter12 for
 one epoch through the CLI. A run fails if it imported JAX, the JAX package,
@@ -229,6 +256,12 @@ TRAIN_KERNEL_TOL = 1e-5
 # absolute on the updated codebook (one amsgrad step moves a weight by at
 # most the learning rate)
 TRAIN_LOSS_RTOL, TRAIN_CODEBOOK_ATOL = 1e-4, 1e-5
+# the gradient VQ at compute_dtype bfloat16 against the same steps in f32:
+# its reconstruction loss, step by step, within this share of the f32
+# run's (chosen before the first run on the card, from the CPU tests'
+# bf16 spread of a few 1e-4 relative at the tiny width, with room for 55
+# steps at full width)
+TRAIN_BF16_RECON_BAND = 0.1
 # a differing index is a near-tie when its distance is within this of the
 # winner's: 1e-5 * (||z||^2 + 1) between the kernel and the plain search on
 # the same tensors (f32 summation order); 1e-4 * (||z||^2 + 1) against the
@@ -277,8 +310,10 @@ TEACHER_FORCED_SAMPLES = 256  # request 0's samples in the golden logits
 # gate pairs, 20 + 12 projection columns and 60-row reduction leave every
 # tile and slice ragged, with random weights
 NARROW_STEP = dict(L=5, C=20, G=136, S=12)
+# B = 33, 64 and 100 run as groups of 32 streams, one launch each
 STEP_SHAPES = ((1, 3, True, None), (1, 3, False, None), (8, 3, True, None),
                (8, 3, False, None), (2, 2, True, None), (32, 3, True, None),
+               (33, 3, True, None), (64, 3, True, None), (100, 3, True, None),
                (3, 3, True, NARROW_STEP))
 TIMED_STEP = (8, 3, True, None)     # the server's batch
 # an emitted bin may differ from the teacher-forced forward's argmax when
@@ -859,9 +894,11 @@ def train_phase(gpu):
     shape = tuple(batch["input_features"].shape)
     if shape != (TRAIN_BATCH, 47, 39):
         raise AssertionError(f"train batch shape {shape}")
-    total_launches, vq_device_ms, step_ms = 0, None, {}
+    total_launches, vq_device_ms, step_ms, recon_runs = 0, None, {}, {}
     for name, config in (("gradient VQ", base),
-                         ("EMA VQ", dict(base, decay=0.99))):
+                         ("EMA VQ", dict(base, decay=0.99)),
+                         ("gradient VQ, bf16",
+                          dict(base, compute_dtype="bfloat16"))):
         state, step = _train_setup(config, "cuda")
         before = _kernels.vq_search_cuda.launches
         losses, recons = [], []
@@ -885,6 +922,7 @@ def train_phase(gpu):
                 f"train [{name}]: {launches} vq_search launches in "
                 f"{TRAIN_WARMUP + TRAIN_STEPS} steps")
         losses, recons = torch.stack(losses).cpu(), torch.stack(recons).cpu()
+        recon_runs[name] = recons
         if not bool(torch.isfinite(losses).all()):
             raise AssertionError(f"train [{name}]: non-finite loss")
         # the reconstruction term is the one held to fall: on one repeated
@@ -934,12 +972,13 @@ def train_phase(gpu):
         if not vq_us > 0:
             raise AssertionError(f"train [{name}]: the profiler showed no "
                                  "vq_search kernel in the steps")
-        vq_device_ms = vq_us / n_prof / 1e3
+        if "bf16" not in name:
+            vq_device_ms = vq_us / n_prof / 1e3
         print(f"train [{name}] profile ({n_prof} steps, torch.profiler "
               f"CUDA activity): window {window / n_prof * 1e3:.3f} ms a "
               f"step, device busy {total_us / n_prof / 1e3:.3f} ms a "
               f"step, idle share {1 - total_us / 1e6 / window:.3f}; "
-              f"vq_search {vq_device_ms:.5f} ms a step "
+              f"vq_search {vq_us / n_prof / 1e3:.5f} ms a step "
               f"({vq_us / total_us:.4f} of device time), convolution "
               f"kernels forward {share(lambda k: is_conv(k) and not is_bwd(k)):.3f}"
               f" and backward {share(lambda k: is_conv(k) and is_bwd(k)):.3f}"
@@ -949,6 +988,21 @@ def train_phase(gpu):
             print(f"  {us / n_prof / 1e3:10.4f} ms a step  {key[:100]}")
         del state
         torch.cuda.empty_cache()
+
+    f32, bf16 = recon_runs["gradient VQ"], recon_runs["gradient VQ, bf16"]
+    band = ((bf16 - f32).abs() / f32).max().item()
+    if not band <= TRAIN_BF16_RECON_BAND:
+        raise AssertionError(f"train: the bf16 step's reconstruction loss is "
+                             f"{band:.3f} of the f32 run's from it (limit "
+                             f"{TRAIN_BF16_RECON_BAND})")
+    print(f"train: compute_dtype bfloat16 against f32 (gradient VQ, the same "
+          f"{TRAIN_WARMUP + TRAIN_STEPS} steps on the same batch): "
+          f"reconstruction loss within {band:.4f} of the f32 run's at every "
+          f"step (limit {TRAIN_BF16_RECON_BAND}); "
+          f"{step_ms['gradient VQ, bf16']:.3f} ms a step against "
+          f"{step_ms['gradient VQ']:.3f} ms in f32, "
+          f"{step_ms['gradient VQ'] / step_ms['gradient VQ, bf16']:.2f}x "
+          f"[{gpu}]")
 
     # one whole step on the card against the same step on the CPU: same
     # weights, batch and jitter masks
@@ -976,6 +1030,330 @@ def train_phase(gpu):
           f"{loss_cpu:.6f}, updated codebook within {cb_err:.2e} (limits "
           f"{TRAIN_LOSS_RTOL} relative, {TRAIN_CODEBOOK_ATOL})")
     return total_launches, vq_device_ms, step_ms["gradient VQ"]
+
+
+# the wavenet_train phase: configurations/vctk_wavenet.yaml as it stands
+# (20 layers, k=3, C=G=768, S=256, quantize 256, K=29, length 7680, batch 1,
+# the gradient VQ, learning rate 2e-4), normalize false, on a crop of
+# VCTK p300_001: 3 warm-up and 20 timed steps of the f32 decoder, then of
+# the bf16 one (compute_dtype bfloat16: the decoder in bf16)
+WAVENET_TRAIN_CONFIG = dict(WAVENET_CONFIG, learning_rate=2e-4, length=7680,
+                            normalize=False)
+WAVENET_TRAIN_WARMUP, WAVENET_TRAIN_STEPS = 3, 20
+# the CLI: configurations/vctk_wavenet.yaml through main.py, num_epochs 1
+# then 2 in the frozen config; the only cut is the number of utterances:
+# the first WAVENET_CLI_WAVS of each of the tracked subset's 8 speakers
+# (24 wavs, a 0.8 split: 19 train utterances, 19 steps an epoch at batch 1)
+WAVENET_CLI_WAVS = 3
+WAVENET_EXPERIMENT = "wavenet"
+
+
+def wavenet_train_batch(device):
+    """One utterance at the vctk_wavenet length: VCTK p300_001 (tiled where
+    shorter) cropped to length + 1 samples, its MFCC + deltas, speaker 0."""
+    import torch
+    from vqvae_speech_tpu_torch.data.audio import load_and_preprocess
+
+    n = WAVENET_TRAIN_CONFIG["length"] + 1
+    w, _ = load_and_preprocess(os.path.join(WAVE_DIR, "p300_001.wav"), 16000)
+    audio = np.tile(w, -(-n // len(w)))[:n].astype(np.float32)
+    feats = wavenet_features(audio, device)
+    return {"preprocessed_audio": torch.from_numpy(audio)[None].to(device),
+            "input_features": feats,
+            "speaker_id": torch.zeros((1,), dtype=torch.int64, device=device)}
+
+
+def _wavenet_cli_workdir(work):
+    """configurations/ (both YAMLs linked, the experiments JSON naming
+    vctk_wavenet.yaml) and data/vctk/raw/VCTK-Corpus holding the first
+    WAVENET_CLI_WAVS wavs of each speaker of the tracked subset (links),
+    with its txt and phonemes trees."""
+    corpus = os.path.join(CORPUS_ROOT, "VCTK-Corpus")
+    os.makedirs(os.path.join(work, "configurations"))
+    for name in ("vctk_features.yaml", "vctk_wavenet.yaml"):
+        os.symlink(os.path.join(REPO_ROOT, "configurations", name),
+                   os.path.join(work, "configurations", name))
+    spec = {"experiments_path": "experiments", "results_path": "results",
+            "configuration_path": os.path.join("configurations",
+                                               "vctk_wavenet.yaml"),
+            "seed": 1234,
+            "experiments": {WAVENET_EXPERIMENT: {"num_epochs": 1}}}
+    with open(os.path.join(work, "wavenet.json"), "w") as f:
+        json.dump(spec, f, indent=4)
+    raw = os.path.join(work, "data", "vctk", "raw", "VCTK-Corpus")
+    for tree in ("txt", "phonemes"):
+        os.makedirs(raw, exist_ok=True)
+        os.symlink(os.path.join(corpus, tree), os.path.join(raw, tree))
+    n = 0
+    for speaker in sorted(os.listdir(os.path.join(corpus, "wav48"))):
+        os.makedirs(os.path.join(raw, "wav48", speaker))
+        for name in sorted(os.listdir(os.path.join(corpus, "wav48",
+                                                   speaker)))[:WAVENET_CLI_WAVS]:
+            os.symlink(os.path.join(corpus, "wav48", speaker, name),
+                       os.path.join(raw, "wav48", speaker, name))
+            n += 1
+    return n
+
+
+def _wavenet_cli(gpu, work):
+    """main.py trains configurations/vctk_wavenet.yaml one epoch and resumes
+    it to two; the checkpoints are the JAX package's format."""
+    from vqvae_speech_tpu_torch.convert import numpy_wavenet_vqvae_params
+    from vqvae_speech_tpu_torch.train import (
+        find_checkpoints,
+        freeze_configuration,
+        load_checkpoint,
+        load_configuration,
+    )
+
+    n_wavs = _wavenet_cli_workdir(work)
+    spec = ("--experiments_configuration_path", "wavenet.json")
+    export_sec, _ = _cli(work, "--export_to_features", *spec)
+    exp_dir = os.path.join(work, "experiments")
+    first_sec, _ = _cli(work, *spec)
+    frozen = os.path.join(exp_dir, f"{WAVENET_EXPERIMENT}_configuration.yaml")
+    config = load_configuration(frozen)
+    if config["decoder_type"] != "wavenet" or config["n_layers"] != 20:
+        raise AssertionError(f"wavenet cli: frozen config {config}")
+    freeze_configuration(dict(config, num_epochs=2), exp_dir,
+                         WAVENET_EXPERIMENT)
+    second_sec, out = _cli(work, *spec)
+    if "Resuming WaveNet" not in out:
+        raise AssertionError("wavenet cli: the second run did not resume")
+    ckpts = find_checkpoints(exp_dir, WAVENET_EXPERIMENT)
+    if [e for e, _ in ckpts] != [1, 2]:
+        raise AssertionError(f"wavenet cli: checkpoints {ckpts}")
+    path = ckpts[-1][1]
+    size = os.path.getsize(path)
+    ckpt = load_checkpoint(path)
+    steps = len(ckpt["train_res_recon_error"])
+    want, _, _ = numpy_wavenet_vqvae_params(
+        config, config["num_speakers"], 0)
+
+    def leaves(tree, at=()):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], at + (k,))
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from leaves(v, at + (i,))
+        else:
+            yield at, tree
+
+    got = list(leaves(ckpt["params"]))
+    expected = list(leaves(want))
+    if [p for p, _ in got] != [p for p, _ in expected] or any(
+            g.shape != w.shape or g.dtype != np.float32
+            for (_, g), (_, w) in zip(got, expected)):
+        raise AssertionError("wavenet cli: the epoch-2 checkpoint's params "
+                             "are not the JAX tree")
+    state, rest = ckpt["opt_state"]
+    count = int(np.asarray(state[0]))
+    if (type(state).__name__, type(rest).__name__) != (
+            "ScaleByAmsgradState", "EmptyState") or count != 2 * steps:
+        raise AssertionError(f"wavenet cli: opt_state {type(state)} count "
+                             f"{count} after 2 epochs of {steps} steps")
+    losses = np.asarray([e["loss"] for e in ckpt["train_res_recon_error"]])
+    if not np.isfinite(losses).all():
+        raise AssertionError("wavenet cli: non-finite losses")
+    print(f"wavenet cli: main.py on configurations/vctk_wavenet.yaml, "
+          f"{n_wavs} wavs ({steps} train utterances, batch 1): export "
+          f"{export_sec:.1f} s, epoch 1 {first_sec:.1f} s, resumed epoch 2 "
+          f"{second_sec:.1f} s (processes with start-up and checkpoint "
+          f"writes); epoch-2 checkpoint {os.path.basename(path)} "
+          f"{size / 1e9:.3f} GB, {len(got)} parameter leaves in the JAX "
+          f"layout ({got[0][0]} {tuple(got[0][1].shape)}), "
+          f"optax-named amsgrad state, count {count}; epoch-2 loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} [{gpu}]")
+
+
+def wavenet_train_phase(gpu):
+    """WaveNet-VQ-VAE training at the vctk_wavenet width: the step with the
+    f32 and the bf16 decoder, then the CLI; returns the VQ kernel's launches
+    and {decoder: ms a step}."""
+    import tempfile
+
+    import torch
+    from vqvae_speech_tpu_torch.convert import (
+        load_wavenet_vqvae_params,
+        numpy_wavenet_vqvae_params,
+    )
+    from vqvae_speech_tpu_torch.models import WaveNetVQVAE
+    from vqvae_speech_tpu_torch.ops import _kernels
+    from vqvae_speech_tpu_torch.train import (
+        create_wavenet_train_state,
+        make_optimizer,
+        make_wavenet_train_step,
+    )
+
+    config = WAVENET_TRAIN_CONFIG
+    speakers = config["num_speakers"]
+    batch = wavenet_train_batch("cuda")
+    if tuple(batch["input_features"].shape) != (1, 47, 39):
+        raise AssertionError(f"wavenet train: features "
+                             f"{tuple(batch['input_features'].shape)}")
+    params, state, _ = numpy_wavenet_vqvae_params(config, speakers, SEED)
+    n_steps = WAVENET_TRAIN_WARMUP + WAVENET_TRAIN_STEPS
+    launches, step_ms = 0, {}
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        model = load_wavenet_vqvae_params(WaveNetVQVAE(config, speakers),
+                                          params, state)
+        optimizer = make_optimizer(config["learning_rate"])
+        tstate = create_wavenet_train_state(model, optimizer, device="cuda",
+                                            seed=SEED)
+        step = make_wavenet_train_step(config, model.decoder.cfg, optimizer,
+                                       compute_dtype=dtype)
+        metrics = []
+        _kernels.vq_search_cuda.launches = 0
+        for _ in range(WAVENET_TRAIN_WARMUP):
+            tstate, m = step(tstate, batch)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WAVENET_TRAIN_STEPS):
+            tstate, m = step(tstate, batch)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / WAVENET_TRAIN_STEPS
+        got = _kernels.vq_search_cuda.launches
+        launches += got
+        if got != n_steps:
+            raise AssertionError(f"wavenet train [{name}]: {got} vq_search "
+                                 f"launches in {n_steps} steps")
+        loss = torch.stack([m["loss"] for m in metrics]).cpu()
+        ce = torch.stack([m["reconstruction_loss"] for m in metrics]).cpu()
+        if not bool(torch.isfinite(loss).all()):
+            raise AssertionError(f"wavenet train [{name}]: non-finite loss")
+        step_ms[name] = sec * 1e3
+        print(f"wavenet train [{name} decoder]: batch 1 x 7680 samples, "
+              f"{WAVENET_TRAIN_WARMUP} + {WAVENET_TRAIN_STEPS} steps, one "
+              f"vq_search launch a step; cross-entropy {ce[0]:.4f} -> "
+              f"{ce[-1]:.4f}, loss {loss[0]:.4f} -> {loss[-1]:.4f}, "
+              f"perplexity {metrics[-1]['perplexity'].item():.2f}; "
+              f"{sec * 1e3:.2f} ms a step (host clock around "
+              f"{WAVENET_TRAIN_STEPS} steps ending in a sync) [{gpu}]")
+        n_prof = 3
+        _kernels.vq_search_cuda.launches = 0
+        window, busy_us = _device_profile(
+            lambda: [step(tstate, batch) for _ in range(n_prof)],
+            "vq_", lambda: n_prof)
+        launches += _kernels.vq_search_cuda.launches
+        total_us = sum(busy_us.values())
+        print(f"wavenet train [{name} decoder] profile ({n_prof} steps, "
+              f"torch.profiler CUDA activity): window "
+              f"{window / n_prof * 1e3:.2f} ms a step, device busy "
+              f"{total_us / n_prof / 1e3:.2f} ms a step, idle share "
+              f"{1 - total_us / 1e6 / window:.3f} [{gpu}]")
+        for key, us in sorted(busy_us.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"  {us / n_prof / 1e3:10.3f} ms a step "
+                  f"({us / total_us:.3f})  {key[:90]}")
+        del tstate, model, step
+        torch.cuda.empty_cache()
+    print(f"wavenet train: bf16 decoder {step_ms['bf16']:.2f} ms a step "
+          f"against f32 {step_ms['f32']:.2f} ms, "
+          f"{step_ms['f32'] / step_ms['bf16']:.2f}x [{gpu}]")
+    work = tempfile.mkdtemp(prefix="chip_smoke_wavenet_")
+    try:
+        _wavenet_cli(gpu, work)
+    finally:
+        shutil.rmtree(work)
+    return launches, step_ms
+
+
+def reference_state_dict(params):
+    """A ``conv_vqvae_init``-shaped tree (plain convs) as the reference
+    ConvolutionalVQVAE's state_dict: its module paths and torch layouts,
+    the inverse of train/convert_reference.py's map."""
+    import torch
+
+    sd = {}
+
+    def put(prefix, conv):
+        sd[f"{prefix}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(conv["w"]).transpose(2, 1, 0)))
+        if "b" in conv:
+            sd[f"{prefix}.bias"] = torch.from_numpy(np.asarray(conv["b"]))
+
+    for i in range(1, 6):
+        put(f"_encoder._conv_{i}", params["encoder"][f"conv_{i}"])
+    for side in ("encoder", "decoder"):
+        block = params[side]["residual_stack"]["block"]
+        put(f"_{side}._residual_stack._layers.0._block.1", block["conv1"])
+        put(f"_{side}._residual_stack._layers.0._block.3", block["conv2"])
+    put("_pre_vq_conv", params["pre_vq_conv"])
+    put("_decoder._conv_1", params["decoder"]["conv_1"])
+    for i in range(1, 4):
+        put(f"_decoder._conv_trans_{i}", params["decoder"][f"conv_trans_{i}"])
+    sd["_vq._embedding.weight"] = torch.from_numpy(
+        np.asarray(params["vq"]["codebook"]))
+    return sd
+
+
+PTH_MAX_BATCH = 4
+
+
+def pth_import_phase(gpu):
+    """A reference-layout .pth of seeded numpy weights at the flagship width,
+    converted by train/convert_reference.py, encodes the 12 smoke requests
+    on the card through K1 and on the CPU: the same codes, or near-ties on
+    the card's latents. Returns K1's launches."""
+    import tempfile
+
+    import torch
+    from vqvae_speech_tpu_torch.convert import numpy_params
+    from vqvae_speech_tpu_torch.ops import _kernels
+    from vqvae_speech_tpu_torch.serve import BucketedEncodeServer
+    from vqvae_speech_tpu_torch.train.convert_reference import (
+        convert_reference_checkpoint,
+    )
+
+    params, _ = numpy_params(FLAGSHIP_CONFIG, seed=SEED + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "baseline_15_checkpoint.pth")
+        torch.save({"model": reference_state_dict(params),
+                    "experiment_name": "baseline", "epoch": 15}, path)
+        got, state, meta = convert_reference_checkpoint(path, FLAGSHIP_CONFIG)
+    if meta != {"experiment_name": "baseline", "epoch": 15} or not np.array_equal(
+            got["encoder"]["conv_3"]["w"], params["encoder"]["conv_3"]["w"]):
+        raise AssertionError("pth import: the converted tree is not the one "
+                             "saved")
+    requests = smoke_requests()
+    codes = {}
+    for device in ("cuda", "cpu"):
+        server = BucketedEncodeServer(got, state, FLAGSHIP_CONFIG,
+                                      max_batch=PTH_MAX_BATCH, device=device)
+        _kernels.vq_search_cuda.launches = 0
+        results = server.encode(requests)
+        if device == "cuda":
+            launches = _kernels.vq_search_cuda.launches
+            if launches == 0:
+                raise AssertionError("pth import: no vq_search launch")
+            cuda_server, cuda_results = server, results
+        codes[device] = results
+    n_diff = 0
+    codebook = cuda_server.model.vq.codebook.detach()
+    for bucket in sorted({r.bucket for r in cuda_results}):
+        rows = [i for i, r in enumerate(cuda_results) if r.bucket == bucket]
+        for at in range(0, len(rows), PTH_MAX_BATCH):
+            part = rows[at:at + PTH_MAX_BATCH]
+            with torch.inference_mode():
+                z = cuda_server.model.latents(cuda_server.features(
+                    cuda_server.padded_batch([requests[i] for i in part],
+                                             bucket)))
+            flat = z[:len(part)].contiguous().view(-1, codebook.shape[1])
+            on_card = torch.from_numpy(np.concatenate(
+                [codes["cuda"][i].codes for i in part])).cuda()
+            on_cpu = torch.from_numpy(np.concatenate(
+                [codes["cpu"][i].codes for i in part])).cuda()
+            n_diff += _near_ties(flat, codebook, on_card, on_cpu,
+                                 NEAR_TIE_GOLDEN)
+    n_codes = sum(r.codes.size for r in cuda_results)
+    print(f"pth import: a reference-layout state_dict (seeded numpy weights, "
+          f"flagship width) saved as .pth, read with weights_only=True and "
+          f"converted; {len(requests)} requests encoded on the card "
+          f"({launches} vq_search launches) and on the CPU: {n_codes} codes, "
+          f"{n_diff} differ (each a near-tie on the card's latents) [{gpu}]")
+    return launches
 
 
 # the experiment phase: the flagship run of the CLI's default mode,
@@ -1723,10 +2101,12 @@ def step_kernel_phase(gpu):
                                          "glu_stack_step differ")
             ms = _per_launch_ms(lambda: step(x0, taps, cond))
             # the kernel's own time on the device, without launch gaps
+            groups = step.launches_per_step
             _, busy_us = _device_profile(
                 lambda: [step(x0, taps, cond) for _ in range(20)],
-                "step_kernel", lambda: 20)
-            device = f"{sum(busy_us.values()) / 20 / 1e3:.4f} ms a launch"
+                "step_kernel", lambda: 20 * groups)
+            device = (f"{sum(busy_us.values()) / 20 / 1e3:.4f} ms a step of "
+                      f"{groups} launch{'es' if groups > 1 else ''}")
             plain_ms = _per_launch_ms(
                 lambda: glu_stack_step_torch(legacy=legacy, **args))
             weight_bytes = 4 * sum(w[n].numel() for n in ("wtap", "wskip",
@@ -1741,7 +2121,7 @@ def step_kernel_phase(gpu):
                       f"{sum(counts.values())} device kernels, memsets and "
                       f"copies (torch.profiler): {counts}; launch "
                       f"{step.describe()}")
-            if width is None and k == 3 and legacy:
+            if width is None and k == 3 and legacy and groups == 1:
                 prof = _step_phase_profile(step, x0, taps, cond)
                 print(f"kernel glu_stack_step B={B}: inside one launch, us "
                       f"a phase (mean over layers; the slowest block's "
@@ -1751,7 +2131,8 @@ def step_kernel_phase(gpu):
                       f"to last store {prof['launch']:.1f} us; SM clock "
                       f"{prof['mhz']:.0f} MHz")
             print(f"kernel glu_stack_step L={L} k={k} B={B} C={C} G={G} "
-                  f"S={w['wskip'].shape[2]} legacy={legacy}: max_abs_err "
+                  f"S={w['wskip'].shape[2]} legacy={legacy} ({groups} "
+                  f"launch{'es' if groups > 1 else ''} a step): max_abs_err "
                   f"{err:.3e}, two runs bit-equal; kernel {ms:.4f} ms/step "
                   f"({gbps:.0f} GB/s of {weight_bytes / 1e6:.1f} MB weights, "
                   f"bound {bound_ms:.4f} ms, {bound_ms / ms:.3f} of the "
@@ -1981,6 +2362,9 @@ def synthesis_phase(gpu):
 # continuous-batching AR synthesis: the synthesis phase's model and requests
 CONT_SLOTS, CONT_CHUNK, CONT_MAX_FRAMES = 8, 512, 23
 CONT_STANDALONE = (0, 9)        # requests held against a batch-1 decode
+# more slots than one launch of K2 takes (32): 64 one-frame requests (the
+# ten requests' frames 0..6) in chunks of 256 steps, two launches a step
+WIDE_SLOTS, WIDE_CHUNK, WIDE_FRAMES = 64, 256, 7
 # the per-layer decodes, one chunk at 8 slots on the card and on the CPU;
 # 2 conditioning frames a slot (768 samples) hold the chunk's 512 steps
 NARROW_CONFIGS = (("int8", dict(weight_quant="int8")),
@@ -2174,6 +2558,8 @@ def continuous_phase(gpu):
           f"the teacher-forced logits there): {parted}")
 
     parts.append(("bucketed", time.perf_counter()))
+    wide_launches = _wide_pool(server, tree, wcfg, lcs, speakers, gpu)
+    parts.append(("64 slots", time.perf_counter()))
     # throughput and latency of the main path's drain, then the device's
     # idle share
     rate = WAVENET_CONFIG["sampling_rate"]
@@ -2293,7 +2679,62 @@ def continuous_phase(gpu):
     print("continuous phase, seconds by part: " + ", ".join(
         f"{name} {t - t_prev:.1f}" for (_, t_prev), (name, t)
         in zip(parts, parts[1:])))
-    return step_launches, vq_launches
+    return step_launches + wide_launches, vq_launches
+
+
+def _wide_pool(server, tree, wcfg, lcs, speakers, gpu):
+    """ContinuousSynthesisServer with WIDE_SLOTS slots, more than one launch
+    of K2 takes: K2 on every step, once for each group of 32 slots. The
+    streams against the 8-slot ``server``'s on the same requests: a stream
+    may part where a group of 32 sums in another order than a group of 8,
+    which must be a near-tie of the teacher-forced logits; the first such
+    step and its top-two gap are printed. Returns K2's launches."""
+    import torch
+    from vqvae_speech_tpu_torch.ops import _kernels
+    from vqvae_speech_tpu_torch.serve import ContinuousSynthesisServer
+
+    reqs = [(lc[f:f + 1], spk) for f in range(WIDE_FRAMES)
+            for lc, spk in zip(lcs, speakers)][:WIDE_SLOTS]
+    conds, spks = [c for c, _ in reqs], [s for _, s in reqs]
+    wide = ContinuousSynthesisServer(
+        tree, wcfg, slots=WIDE_SLOTS, chunk_size=WIDE_CHUNK,
+        max_frames=CONT_MAX_FRAMES, device="cuda")
+    per_step = -(-WIDE_SLOTS // _kernels.WAVENET_STEP_GROUP)
+    _kernels.wavenet_step_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = wide.run(conds, spks)
+    sec = time.perf_counter() - t0
+    launches = _kernels.wavenet_step_cuda.launches
+    steps = wide.stats["launches"] * WIDE_CHUNK
+    if launches != steps * per_step:
+        raise AssertionError(f"{WIDE_SLOTS} slots: {launches} decode-step "
+                             f"kernel launches in {steps} steps, not "
+                             f"{per_step} a step")
+    narrow = server.run(conds, spks)
+    parted = []
+    for i, (r, n) in enumerate(zip(results, narrow)):
+        if np.array_equal(r.wave, n.wave):
+            continue
+        emitted = torch.from_numpy(r.wave)[None].cuda()
+        with torch.inference_mode():
+            forward = server.model(
+                teacher_forced_inputs(emitted, wcfg.out_channels),
+                conds[i][None], torch.tensor([spks[i]], device="cuda"))
+        at, gap = _first_flip(r.wave, n.wave, forward[0].cpu().numpy(),
+                              lambda top: NEAR_TIE_LOGITS)
+        parted.append((i, at, f"{gap:.2e}"))
+    print(f"continuous {WIDE_SLOTS} slots: {len(conds)} one-frame requests "
+          f"({len(results[0].wave)} samples each), {wide.stats['launches']} "
+          f"chunks of {WIDE_CHUNK} = {steps} steps, {launches} decode-step "
+          f"kernel launches ({per_step} a step, groups of "
+          f"{_kernels.WAVENET_STEP_GROUP}); {sec:.3f} s, "
+          f"{sec / steps * 1e3:.4f} ms a step [{gpu}]")
+    print(f"continuous {WIDE_SLOTS} slots vs {CONT_SLOTS} slots, greedy: "
+          f"{len(conds) - len(parted)} of {len(conds)} streams equal; parted "
+          f"(request, first sample, top-two gap of the teacher-forced logits "
+          f"there, limit {NEAR_TIE_LOGITS}): {parted}")
+    return launches
 
 
 def _bound(flops, nbytes):
@@ -2849,8 +3290,9 @@ def _serve_kind(gpu, kind, params, cfg, common, mels, key, chains, wrappers,
     return counts[key]
 
 
-PHASES = ("kernel", "slice", "train", "experiment", "evaluate", "step_kernel",
-          "synthesis", "continuous", "chain_kernel", "vocoder")
+PHASES = ("kernel", "slice", "pth_import", "train", "experiment", "evaluate",
+          "wavenet_train", "step_kernel", "synthesis", "continuous",
+          "chain_kernel", "vocoder")
 # what a run may not import: the card's machine has none of them, and the
 # port needs none
 FORBIDDEN_IMPORTS = ("jax", "vqvae_speech_tpu", "sklearn", "matplotlib")
@@ -2926,9 +3368,11 @@ def main():
             for name, fn, args in (
                     ("kernel", kernel_phase, ()),
                     ("slice", slice_phase, (gpu,)),
+                    ("pth_import", pth_import_phase, (gpu,)),
                     ("train", train_phase, (gpu,)),
                     ("experiment", experiment_phase, (gpu, work)),
                     ("evaluate", evaluate_phase, (gpu, work)),
+                    ("wavenet_train", wavenet_train_phase, (gpu,)),
                     ("step_kernel", step_kernel_phase, (gpu,)),
                     ("synthesis", synthesis_phase, (gpu,)),
                     ("continuous", continuous_phase, (gpu,)),
@@ -2943,6 +3387,7 @@ def main():
 
         vq_err, (vq_ms, vq_plain_ms) = phase(kernel_phase)
         encode_vq_launches = phase(slice_phase, gpu)
+        pth_vq_launches = phase(pth_import_phase, gpu)
         train_vq_launches, vq_device_ms, train_ms = phase(train_phase, gpu)
         experiment_vq_launches, loop_ms, bare_ms = phase(experiment_phase, gpu,
                                                          work)
@@ -2953,6 +3398,7 @@ def main():
         evaluate_vq_launches = phase(evaluate_phase, gpu, work)
     finally:
         shutil.rmtree(work)
+    wavenet_vq_launches, _ = phase(wavenet_train_phase, gpu)
     step_err, (step_ms, step_plain_ms) = phase(step_kernel_phase, gpu)
     step_launches, synth_vq_launches = phase(synthesis_phase, gpu)
     cont_step_launches, cont_vq_launches = phase(continuous_phase, gpu)
@@ -2980,8 +3426,9 @@ def main():
         wcfg.gate_channels, wcfg.skip_out_channels)
     print(json.dumps({"kernels": [
         line("vq_search", "vq_search.cu", "vqvae_speech_tpu/ops/vq.py:91",
-             encode_vq_launches + train_vq_launches + experiment_vq_launches
-             + evaluate_vq_launches + synth_vq_launches + cont_vq_launches,
+             encode_vq_launches + pth_vq_launches + train_vq_launches
+             + experiment_vq_launches + evaluate_vq_launches
+             + wavenet_vq_launches + synth_vq_launches + cont_vq_launches,
              dict(max_abs_err=vq_err, ms=vq_ms, plain_ms=vq_plain_ms,
                   bound_ms=vq_bound[0], bound_by=vq_bound[1]),
              # ms is by CUDA events, which at this size time the host's

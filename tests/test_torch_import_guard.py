@@ -201,3 +201,111 @@ def test_continuous_synthesis_serves_without_jax(tmp_path):
         print("served", bad)
     """, tmp_path)
     assert out.split() == ["served", "[]"]
+
+
+def test_wavenet_training_bf16_and_pth_import_without_jax_or_yaml(tmp_path):
+    """The training slice's modules (train/wavenet_trainer.py,
+    train/convert_reference.py, nn/cast.py) with JAX and PyYAML
+    unimportable: the CLI trains configurations/vctk_wavenet.yaml (cut to
+    the tiny width of tests/test_wavenet_trainer.py) one epoch and resumes
+    to two; one flagship step runs at compute_dtype bfloat16; a reference
+    .pth converts and encodes."""
+    out = _run("""
+        import json
+        import numpy as np
+        import torch
+        from vqvae_speech_tpu_torch.convert import (
+            export_jax_params, load_jax_params, numpy_params)
+        from vqvae_speech_tpu_torch.data.synthetic import build_synthetic_store
+        from vqvae_speech_tpu_torch.main import main
+        from vqvae_speech_tpu_torch.models import ConvVQVAE
+        from vqvae_speech_tpu_torch.train import (
+            create_train_state, find_checkpoints, load_checkpoint,
+            make_optimizer, make_train_step)
+        from vqvae_speech_tpu_torch.train.config import (
+            freeze_configuration, load_configuration)
+        from vqvae_speech_tpu_torch.train.convert_reference import (
+            convert_reference_checkpoint)
+
+        build_synthetic_store("store/features", 4, 2, length=1920,
+                              device="cpu")
+        cfg = load_configuration({wavenet!r})
+        assert cfg["decoder_type"] == "wavenet"
+        cfg.update(data_root="store", length=1920, input_features_dim=11,
+                   quantize=32, num_hiddens=16, embedding_dim=8,
+                   num_embeddings=7, residual_channels=8, n_layers=4,
+                   filter_size=2, gate_channels=8, skip_out_channels=8,
+                   global_condition_dim=6, local_condition_dim=16,
+                   num_speakers=4, batch_size=2)
+        freeze_configuration(cfg, ".", "base")
+        spec = dict(experiments_path="runs", results_path="results",
+                    configuration_path="base_configuration.yaml", seed=3,
+                    experiments=dict(wn=dict(num_epochs=1)))
+        with open("spec.json", "w") as f:
+            json.dump(spec, f)
+        args = ["--experiments_configuration_path", "spec.json",
+                "--device", "cpu"]
+        assert main(args) == 0
+        frozen = load_configuration("runs/wn_configuration.yaml")
+        freeze_configuration(dict(frozen, num_epochs=2), "runs", "wn")
+        assert main(args) == 0
+        assert [e for e, _ in find_checkpoints("runs", "wn")] == [1, 2]
+        ckpt = load_checkpoint("runs/wn_2_checkpoint.pkl")
+        assert len(ckpt["params"]["decoder"]["wavenet"]["conv_layers"]) == 4
+
+        flagship = load_configuration({features!r})
+        flagship.update(num_hiddens=16, residual_channels=16,
+                        embedding_dim=8, compute_dtype="bfloat16")
+        params, state = numpy_params(flagship, 0)
+        model = load_jax_params(ConvVQVAE.from_config(flagship), params,
+                                state)
+        optimizer = make_optimizer(flagship["learning_rate"])
+        tstate = create_train_state(model, optimizer, device="cpu")
+        x = torch.randn(2, 47, 39)
+        _, metrics = make_train_step(flagship, optimizer)(
+            tstate, {{"input_features": x, "output_features": x}})
+        assert all(v.dtype == torch.float32 and torch.isfinite(v)
+                   for v in metrics.values())
+        assert next(model.parameters()).dtype == torch.float32
+
+        # the model's own weights under the reference's state_dict names
+        sd = {{}}
+        jparams, _ = export_jax_params(model)
+
+        def put(prefix, conv):
+            w = conv["w"].transpose(2, 1, 0)
+            sd[prefix + ".weight"] = torch.from_numpy(np.ascontiguousarray(w))
+            if "b" in conv:
+                sd[prefix + ".bias"] = torch.from_numpy(conv["b"])
+        for i in range(1, 6):
+            put(f"_encoder._conv_{{i}}", jparams["encoder"][f"conv_{{i}}"])
+        for side in ("encoder", "decoder"):
+            block = jparams[side]["residual_stack"]["block"]
+            put(f"_{{side}}._residual_stack._layers.0._block.1", block["conv1"])
+            put(f"_{{side}}._residual_stack._layers.0._block.3", block["conv2"])
+        put("_pre_vq_conv", jparams["pre_vq_conv"])
+        put("_decoder._conv_1", jparams["decoder"]["conv_1"])
+        for i in range(1, 4):
+            put(f"_decoder._conv_trans_{{i}}",
+                jparams["decoder"][f"conv_trans_{{i}}"])
+        sd["_vq._embedding.weight"] = torch.from_numpy(
+            jparams["vq"]["codebook"])
+        torch.save({{"model": sd, "epoch": 1}}, "ref.pth")
+        params, state, meta = convert_reference_checkpoint(
+            "ref.pth", dict(flagship, decay=0.0))
+        imported = load_jax_params(ConvVQVAE.from_config(flagship), params,
+                                   state).eval()
+        model.eval()
+        with torch.no_grad():
+            assert torch.equal(imported.encode(x).indices,
+                               model.encode(x).indices)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "optax", "yaml", "vqvae_speech_tpu")
+                     and sys.modules[m] is not None)
+        print("trained", meta["epoch"], bad)
+    """.replace("{wavenet!r}", repr(os.path.join(
+        REPO_ROOT, "configurations", "vctk_wavenet.yaml"))).replace(
+        "{features!r}", repr(os.path.join(
+            REPO_ROOT, "configurations", "vctk_features.yaml")))
+        .replace("{{", "{").replace("}}", "}"), tmp_path)
+    assert out.split()[-3:] == ["trained", "1", "[]"]

@@ -196,3 +196,112 @@ def test_wrapper_refuses_cpu_tensors():
         vq_search_cuda(flat, cb)
     got, want = vq_search(flat, cb), vq_search_torch(flat, cb)
     torch.testing.assert_close(got.indices, want.indices, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_bf16_flagship_step_launches_the_kernel_once(cuda):
+    """A train step at compute_dtype bfloat16 on the card (a narrow flagship
+    configuration): K1 once a step on f32 copies of the bf16 latents and
+    codebook, f32 metrics and parameters, and the first step on the CPU
+    (the plain search on the same rounded rows): the bf16 terms equal, the
+    f32 reconstruction loss and total within rtol 1e-5 (measured 1.2e-07 on
+    an H100)."""
+    from vqvae_speech_tpu_torch.convert import load_jax_params, numpy_params
+    from vqvae_speech_tpu_torch.models import ConvVQVAE
+    from vqvae_speech_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    cfg = dict(input_features_filters=13, augment_input_features=True,
+               output_features_filters=13, augment_output_features=True,
+               num_hiddens=64, num_residual_layers=2, residual_channels=64,
+               embedding_dim=16, num_embeddings=11, commitment_cost=0.25,
+               decay=0.0, use_kaiming_normal=False, use_jitter=False,
+               jitter_probability=0.12, use_speaker_conditioning=False,
+               learning_rate=2e-4, compute_dtype="bfloat16")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 47, 39)).astype(np.float32))
+    metrics = {}
+    for device in ("cuda", "cpu"):
+        model = load_jax_params(ConvVQVAE.from_config(cfg),
+                                *numpy_params(cfg, 0))
+        optimizer = make_optimizer(cfg["learning_rate"])
+        state = create_train_state(model, optimizer, device=device)
+        step = make_train_step(cfg, optimizer)
+        batch = {"input_features": x.to(device),
+                 "output_features": x.to(device)}
+        vq_search_cuda.launches = 0
+        firsts = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            firsts.append(m)
+        assert vq_search_cuda.launches == (3 if device == "cuda" else 0)
+        assert all(v.dtype == torch.float32 for v in m.values())
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        metrics[device] = {k: v.item() for k, v in firsts[0].items()}
+    for name, value in metrics["cpu"].items():
+        np.testing.assert_allclose(metrics["cuda"][name], value, rtol=1e-5,
+                                   atol=1e-7, err_msg=name)
+
+
+@pytest.mark.cuda
+def test_wavenet_train_step_launches_the_kernel_once(cuda):
+    """make_wavenet_train_step on the card at a narrow width, the f32 and
+    the bf16 decoder: K1 once a step, finite f32 metrics; the f32 first
+    step's metrics (from the same weights, cuDNN's TF32 off as the trainer
+    sets it) equal the CPU's on the same dropout masks within rtol 1e-5
+    (measured at most 2.3e-07 on an H100)."""
+    from vqvae_speech_tpu_torch.convert import (
+        load_wavenet_vqvae_params,
+        numpy_wavenet_vqvae_params,
+    )
+    from vqvae_speech_tpu_torch.models import WaveNetVQVAE
+    from vqvae_speech_tpu_torch.train import (
+        create_wavenet_train_state,
+        make_optimizer,
+        make_wavenet_train_step,
+    )
+
+    cfg = dict(input_features_filters=13, augment_input_features=True,
+               num_hiddens=16, num_residual_layers=2, residual_channels=8,
+               embedding_dim=8, num_embeddings=7, commitment_cost=0.25,
+               decay=0.0, use_kaiming_normal=False, use_jitter=False,
+               jitter_probability=0.12, quantize=32, n_loop=2, n_layers=4,
+               filter_size=2, gate_channels=8, skip_out_channels=8,
+               global_condition_dim=6, local_condition_dim=16,
+               learning_rate=2e-4, length=1920)
+    rng = np.random.default_rng(0)
+    batch = {"preprocessed_audio": np.clip(0.3 * rng.standard_normal(
+                 (2, 1921)), -1, 1).astype(np.float32),
+             "input_features": rng.standard_normal((2, 11, 39)).astype(
+                 np.float32),
+             "speaker_id": np.array([0, 3])}
+    params, state, wcfg = numpy_wavenet_vqvae_params(cfg, 4, 0)
+    masks = [torch.from_numpy(rng.random((2, 1920, 8)) < 0.95)
+             for _ in range(4)]
+    metrics = {}
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    for device, dtype in (("cuda", None), ("cuda", torch.bfloat16),
+                          ("cpu", None)):
+        model = load_wavenet_vqvae_params(WaveNetVQVAE(cfg, 4), params, state)
+        optimizer = make_optimizer(cfg["learning_rate"])
+        tstate = create_wavenet_train_state(model, optimizer, device=device)
+        step = make_wavenet_train_step(cfg, wcfg, optimizer,
+                                       compute_dtype=dtype)
+        on = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        vq_search_cuda.launches = 0
+        firsts = []
+        for _ in range(2):
+            tstate, m = step(tstate, on, dropout_masks=masks)
+            firsts.append(m)
+        assert vq_search_cuda.launches == (2 if device == "cuda" else 0)
+        assert all(v.dtype == torch.float32 and bool(torch.isfinite(v))
+                   for v in m.values())
+        metrics[(device, dtype)] = {k: v.item() for k, v in firsts[0].items()}
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    for name, value in metrics[("cpu", None)].items():
+        np.testing.assert_allclose(metrics[("cuda", None)][name], value,
+                                   rtol=1e-5, atol=1e-7, err_msg=name)

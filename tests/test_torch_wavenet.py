@@ -112,10 +112,16 @@ def test_upsample_lc_matches_jax(init):
 
 
 def test_training_mode_raises():
-    _, tcfg = configs()
-    model = WaveNet(tcfg)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model(torch.zeros(1, 8, 16))
+    """Training mode is ported: dropout needs fed masks or a generator
+    (tests/test_torch_wavenet_train.py holds it to JAX's); the wrong number
+    of masks raises."""
+    _, tcfg = configs(dropout=0.05)
+    model = WaveNet(tcfg).train()
+    masks = model.dropout_masks((1, 8, tcfg.residual_channels),
+                                torch.Generator().manual_seed(0))
+    assert len(masks) == tcfg.layers
+    with pytest.raises(ValueError, match="dropout masks"):
+        model(torch.zeros(1, 8, tcfg.out_channels), dropout_masks=masks[1:])
 
 
 @pytest.mark.parametrize("overrides", [

@@ -77,7 +77,11 @@ def assert_kernel_matches_plain(args, legacy):
     (6, 2, 2, 16, 32, 8, True),
     (3, 3, 5, 20, 136, 12, True),        # ragged tiles, B not a power of 2
     (2, 1, 3, 64, 64, 64, True),         # k = 1: no history taps
-    (3, 3, 32, 128, 256, 132, False),    # the largest batch
+    (3, 3, 32, 128, 256, 132, False),    # the largest batch a launch
+    (20, 3, 33, 768, 768, 256, True),    # groups of 32 and 1
+    (20, 3, 64, 768, 768, 256, True),    # two full groups
+    (20, 3, 100, 768, 768, 256, True),   # 32, 32, 32 and 4
+    (3, 3, 70, 20, 136, 12, False),      # ragged tiles in groups
 ])
 def test_kernel_matches_plain(cuda, L, k, B, C, G, S, legacy):
     args = stack_inputs(L, k, B, C, G, S, seed=L + k + B, device=cuda)
@@ -100,7 +104,8 @@ def test_kernel_batches_taps_and_legacy(cuda, C, G, S, B, k, legacy):
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,k,B,C,G,S", [
     (20, 3, 8, 768, 768, 256),    # the server's shape
-    (20, 3, 32, 768, 768, 256),   # the largest batch
+    (20, 3, 32, 768, 768, 256),   # the largest batch a launch
+    (20, 3, 64, 768, 768, 256),   # two launches a step
     (5, 3, 3, 20, 136, 12),       # narrow and ragged
 ])
 def test_kernel_is_bit_equal_over_twenty_runs(cuda, L, k, B, C, G, S):
@@ -174,9 +179,34 @@ def test_kernel_is_deterministic_and_counts_launches(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,launches", [(32, 1), (33, 2), (64, 2), (100, 4)])
+def test_kernel_launches_once_a_group_of_32(cuda, B, launches):
+    """A batch over 32 runs as groups of 32, one launch each, and each
+    group's streams equal the same streams run as a batch of their own: the
+    groups read the batch through its stride, nothing is copied."""
+    args = stack_inputs(4, 3, B, 64, 128, 64, seed=B, device=cuda)
+    step = prepare_glu_stack_step(*(args[n] for n in WEIGHTS), batch=B,
+                                  legacy=True)
+    assert step.launches_per_step == launches
+    before = wavenet_step_cuda.launches
+    got = [t.clone() for t in step(args["x0"], args["taps"], args["cond"])]
+    assert wavenet_step_cuda.launches == before + launches
+    for b0 in range(0, B, 32):
+        rows = slice(b0, min(B, b0 + 32))
+        alone = glu_stack_step(
+            args["x0"][rows].contiguous(),
+            args["taps"][:, :, rows].contiguous(),
+            args["cond"][:, rows].contiguous(),
+            *(args[n] for n in WEIGHTS), legacy=True)
+        assert torch.equal(got[0][rows], alone[0])
+        assert torch.equal(got[1][rows], alone[1])
+        assert torch.equal(got[2][:, rows], alone[2])
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_take(cuda):
-    args = stack_inputs(2, 3, 33, 16, 32, 8, seed=0, device=cuda)
-    with pytest.raises(ValueError, match="batch 33"):
+    args = stack_inputs(2, 3, 0, 16, 32, 8, seed=0, device=cuda)
+    with pytest.raises(ValueError, match="batch 0"):
         glu_stack_step(**args)
     args = stack_inputs(2, 3, 2, 16, 32, 8, seed=0, device=cuda)
     with pytest.raises(ValueError, match="float32"):
@@ -305,18 +335,54 @@ def test_decode_chunk_kernel_matches_plain_chain(cuda):
 
 @pytest.mark.cuda
 def test_continuous_server_takes_what_the_kernel_takes(cuda):
-    """At f32 the server's slots are the kernel's batch: 33 raise at
-    construction; the int8 decode (layer by layer) takes them."""
+    """At f32 the server's slots are the kernel's batch, and the kernel takes
+    any: 33 slots run it on every step, two launches a step (groups of 32
+    and 1), and the request's greedy wave is bit-equal to the one 32 slots
+    decode (its slot is in a group of 32 either way, so the sums are made in
+    the same order); the int8 decode (layer by layer) launches nothing."""
     from vqvae_speech_tpu_torch.convert import numpy_wavenet_params
     from vqvae_speech_tpu_torch.serve import ContinuousSynthesisServer
 
     module, cfg, conds = _chunk_model("cpu", 1)
     tree = numpy_wavenet_params(cfg, 0)
-    with pytest.raises(ValueError, match="slots=33"):
-        ContinuousSynthesisServer(tree, cfg, slots=33, device="cuda")
+    waves = {}
+    for slots in (33, 32):
+        server = ContinuousSynthesisServer(tree, cfg, slots=slots,
+                                           chunk_size=8, max_frames=12,
+                                           device="cuda")
+        before = wavenet_step_cuda.launches
+        waves[slots] = server.run(conds)[0].wave
+        steps = server.stats["launches"] * 8
+        assert wavenet_step_cuda.launches - before == steps * (
+            2 if slots == 33 else 1)
+    assert waves[33].shape == (192,)
+    np.testing.assert_array_equal(waves[33], waves[32])
     server = ContinuousSynthesisServer(tree, cfg, slots=33, chunk_size=8,
                                        max_frames=12, weight_quant="int8",
                                        device="cuda")
     before = wavenet_step_cuda.launches
     wave = server.run(conds)[0].wave
     assert wavenet_step_cuda.launches == before and wave.shape == (192,)
+
+
+@pytest.mark.cuda
+def test_bucketed_server_at_max_batch_64_runs_the_kernel(cuda):
+    """A bucketed launch of 64 streams runs K2 on every step, two launches a
+    step (groups of 32); the requests' greedy waves are bit-equal to the
+    same requests at max_batch 32 (their rows are in a group of 32 either
+    way)."""
+    from vqvae_speech_tpu_torch.convert import numpy_wavenet_params
+    from vqvae_speech_tpu_torch.serve import BucketedSynthesisServer
+
+    _, cfg, conds = _chunk_model("cpu", 3)
+    tree = numpy_wavenet_params(cfg, 0)
+    waves = {}
+    for max_batch in (64, 32):
+        server = BucketedSynthesisServer(tree, cfg, frame_buckets=(12,),
+                                         max_batch=max_batch, device="cuda")
+        wavenet_step_cuda.launches = 0
+        waves[max_batch] = [r.wave for r in server.synthesize(conds)]
+        steps = server.stats["launches"] * 12 * 16
+        assert wavenet_step_cuda.launches == steps * (max_batch // 32)
+    for a, b in zip(waves[64], waves[32]):
+        np.testing.assert_array_equal(a, b)

@@ -114,11 +114,23 @@ def test_local_conditioning_is_batch1_per_item_and_matches_jax():
 
 
 def test_training_forward_raises():
+    """The training forward is ported (tests/test_torch_wavenet_train.py
+    holds it to JAX's); with no draws it drops nothing and equals the eval
+    forward, and fed dropout masks change the logits."""
     model = WaveNetVQVAE(config(), N_SPEAKERS)
     feats, onehot, spk = inputs(1, 16, 8)
-    with pytest.raises(NotImplementedError, match="training"):
-        model(torch.from_numpy(feats), torch.from_numpy(onehot),
-              torch.from_numpy(spk))
+    args = (torch.from_numpy(feats), torch.from_numpy(onehot),
+            torch.from_numpy(spk))
+    with torch.no_grad():
+        trained = model.train()(*args).reconstructed_x
+        evaluated = model.eval()(*args).reconstructed_x
+        assert torch.equal(trained, evaluated)
+        wavenet = model.decoder.wavenet
+        masks = wavenet.dropout_masks(
+            (1, onehot.shape[1], wavenet.cfg.residual_channels),
+            torch.Generator().manual_seed(0))
+        dropped = model.train()(*args, dropout_masks=masks).reconstructed_x
+    assert not torch.equal(dropped, evaluated)
 
 
 @pytest.mark.parametrize("overrides", [

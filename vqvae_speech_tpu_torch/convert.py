@@ -116,20 +116,26 @@ def load_jax_params(model: ConvVQVAE, params: dict, state: dict) -> ConvVQVAE:
         _load_conv(getattr(model.decoder, name), dec[name])
     _load_stack(model.decoder.residual_stack, dec["residual_stack"])
     _load_vq(model.vq, params, state)
+    _load_revival(model, state)
+    return model
+
+
+def _load_revival(model, state: dict) -> None:
     if (model.revival_usage is None) != ("revival" not in state):
         raise ValueError("codebook_revival mismatch between config and state")
     if "revival" in state:
         _copy(model.revival_usage, state["revival"]["usage"])
-    return model
 
 
 # -------------------- back to the JAX layout --------------------
 
 
 class ParamLeaf(NamedTuple):
-    path: tuple           # the leaf's keys in the JAX param tree
+    path: tuple           # the leaf's keys (str) and list indices (int) in
+    #                       the JAX param tree
     tensor: torch.Tensor  # the port's parameter
-    is_kernel: bool       # a conv kernel: JAX layout is transpose(2, 1, 0)
+    is_kernel: bool       # a kernel: the JAX layout is transpose(perm)
+    perm: tuple = (2, 1, 0)   # conv kernels; the LC upsample's (2, 3, 0, 1)
 
 
 def _conv_leaves(path, module):
@@ -147,11 +153,34 @@ def _stack_leaves(path, stack):
     yield from _conv_leaves(path + ("block", "conv2"), stack.block.conv2)
 
 
-def jax_param_leaves(model: ConvVQVAE) -> list:
-    """Every parameter of ``model`` with its place in the JAX package's
-    ``conv_vqvae_init`` param tree, in JAX's flatten order (sorted keys): the
-    map that checkpoint writing, optimizer-state conversion and the gradient
-    statistics' layer names all go through."""
+def _wavenet_leaves(path, module: WaveNet):
+    """A ``wavenet_init`` tree's leaves: ``conv_layers`` and
+    ``upsample_conv`` are lists, their items indexed by int."""
+    yield from _conv_leaves(path + ("first_conv",), module.first_conv)
+    for i, layer in enumerate(module.conv_layers):
+        for name in ("conv", "conv1x1c", "conv1x1g", "conv1x1_skip",
+                     "conv1x1_out"):
+            if getattr(layer, name) is not None:
+                yield from _conv_leaves(path + ("conv_layers", i, name),
+                                        getattr(layer, name))
+    yield from _conv_leaves(path + ("last_conv_1",), module.last_conv_1)
+    yield from _conv_leaves(path + ("last_conv_2",), module.last_conv_2)
+    if module.embed_speakers is not None:
+        yield ParamLeaf(path + ("embed_speakers", "table"),
+                        module.embed_speakers, False)
+    for i, stage in enumerate(module.upsample_conv or ()):
+        at = path + ("upsample_conv", i)
+        yield ParamLeaf(at + ("v",), stage.v, True, (2, 3, 0, 1))
+        yield ParamLeaf(at + ("g",), stage.g, False)
+        yield ParamLeaf(at + ("b",), stage.b, False)
+
+
+def jax_param_leaves(model) -> list:
+    """Every parameter of ``model`` (a ``ConvVQVAE`` or a ``WaveNetVQVAE``)
+    with its place in the JAX package's ``conv_vqvae_init`` or
+    ``wavenet_vqvae_init`` param tree, in JAX's flatten order (sorted keys,
+    list items in order): the map that checkpoint writing, optimizer-state
+    conversion and the gradient statistics' layer names all go through."""
     leaves = []
     for name in ("conv_1", "conv_2", "conv_3", "conv_4", "conv_5"):
         leaves += _conv_leaves(("encoder", name), getattr(model.encoder, name))
@@ -161,12 +190,18 @@ def jax_param_leaves(model: ConvVQVAE) -> list:
     if not model.vq.ema:
         leaves.append(ParamLeaf(("vq", "codebook"), model.vq.codebook, False))
     dec = model.decoder
-    for name in ("conv_1", "conv_trans_1", "conv_trans_2", "conv_trans_3"):
-        leaves += _conv_leaves(("decoder", name), getattr(dec, name))
-    leaves += _stack_leaves(("decoder", "residual_stack"), dec.residual_stack)
-    if dec.speaker_embedding is not None:
-        leaves.append(ParamLeaf(("decoder", "speaker_embedding", "table"),
-                                dec.speaker_embedding.table, False))
+    if isinstance(model, WaveNetVQVAE):
+        leaves += _conv_leaves(("decoder", "conv_1"), dec.conv_1)
+        leaves += _wavenet_leaves(("decoder", "wavenet"), dec.wavenet)
+    else:
+        for name in ("conv_1", "conv_trans_1", "conv_trans_2",
+                     "conv_trans_3"):
+            leaves += _conv_leaves(("decoder", name), getattr(dec, name))
+        leaves += _stack_leaves(("decoder", "residual_stack"),
+                                dec.residual_stack)
+        if dec.speaker_embedding is not None:
+            leaves.append(ParamLeaf(("decoder", "speaker_embedding", "table"),
+                                    dec.speaker_embedding.table, False))
     if len(leaves) != len(list(model.parameters())):
         raise AssertionError("a parameter of the model has no place in the "
                              "JAX param tree")
@@ -174,25 +209,39 @@ def jax_param_leaves(model: ConvVQVAE) -> list:
 
 
 def nest_by_path(items) -> dict:
-    """(path, value) pairs -> nested dicts keyed by the paths' parts."""
+    """(path, value) pairs -> nested dicts keyed by the paths' parts; a
+    level whose keys are the ints 0..n-1 becomes a list."""
     tree = {}
     for path, value in items:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = value
-    return tree
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(isinstance(k, int) for k in node):
+            if sorted(node) != list(range(len(node))):
+                raise ValueError(f"list indices {sorted(node)} have gaps")
+            return [node[i] for i in range(len(node))]
+        return node
+
+    return lists(tree)
 
 
 def _to_jax_layout(leaf: ParamLeaf, value: torch.Tensor) -> np.ndarray:
     a = value.detach().cpu().numpy()
-    return np.ascontiguousarray(a.transpose(2, 1, 0)) if leaf.is_kernel \
+    return np.ascontiguousarray(a.transpose(leaf.perm)) if leaf.is_kernel \
         else a.copy()
 
 
-def export_jax_params(model: ConvVQVAE):
-    """The inverse of ``load_jax_params``: ``(params, model_state)`` as
-    nested dicts of numpy arrays in the JAX tree's names and layouts
+def export_jax_params(model):
+    """The inverse of ``load_jax_params`` (``ConvVQVAE``) and
+    ``load_wavenet_vqvae_params`` (``WaveNetVQVAE``): ``(params,
+    model_state)`` as nested dicts of numpy arrays in the JAX tree's names
+    and layouts
     ((K, Cin, Cout) kernels, weight-norm ``v``/``g``, the EMA state under
     ``model_state["vq"]``, ``revival.usage``)."""
     params = nest_by_path((leaf.path, _to_jax_layout(leaf, leaf.tensor))
@@ -207,13 +256,13 @@ def export_jax_params(model: ConvVQVAE):
     return params, state
 
 
-def _moment_index(model: ConvVQVAE) -> dict:
+def _moment_index(model) -> dict:
     """id(parameter) -> its position in ``list(model.parameters())``, the
     order of the optimizer's moment lists."""
     return {id(p): i for i, p in enumerate(model.parameters())}
 
 
-def export_jax_opt_state(model: ConvVQVAE, opt_state):
+def export_jax_opt_state(model, opt_state):
     """The optimizer's state as ``optax.amsgrad`` lays it out, as numpy
     arrays: ``(ScaleByAmsgradState(count, mu, nu, nu_max), EmptyState())``,
     each moment a tree shaped like ``params`` with every leaf transposed as
@@ -240,7 +289,7 @@ def export_jax_opt_state(model: ConvVQVAE, opt_state):
                                 tree(opt_state.nu_max)), EmptyState())
 
 
-def load_jax_opt_state(model: ConvVQVAE, opt_state, into) -> None:
+def load_jax_opt_state(model, opt_state, into) -> None:
     """Copy an ``optax.amsgrad`` state, as the checkpoint reader returns it
     (nested tuples ``((count, mu, nu, nu_max), ...)`` of param-shaped trees),
     into the port's ``AmsgradState`` ``into``, in place."""
@@ -253,8 +302,9 @@ def load_jax_opt_state(model: ConvVQVAE, opt_state, into) -> None:
             for key in leaf.path:
                 value = value[key]
             value = np.asarray(value)
+            # perm is its own inverse for both kernel layouts
             _copy(dst[at[id(leaf.tensor)]],
-                  value.transpose(2, 1, 0) if leaf.is_kernel else value)
+                  value.transpose(leaf.perm) if leaf.is_kernel else value)
 
 
 def load_wavenet_params(module: WaveNet, tree: dict) -> WaveNet:
@@ -297,6 +347,7 @@ def load_wavenet_vqvae_params(model: WaveNetVQVAE, params: dict,
     _load_vq(model.vq, params, state)
     _load_conv(model.decoder.conv_1, params["decoder"]["conv_1"])
     load_wavenet_params(model.decoder.wavenet, params["decoder"]["wavenet"])
+    _load_revival(model, state)
     return model
 
 

@@ -18,7 +18,9 @@
 // What bounds it on an H100: bytes. One step streams every layer's weights
 // once, 4*L*(k*C*G + G/2*(S+C)) bytes = 173 MB at the vctk_wavenet width
 // (L=20, k=3, C=G=768, S=256), more than three times the 50 MB L2, for
-// 2*B flops per weight element (B <= 32). At 3.35 TB/s that is 52 us a step.
+// 2*B flops per weight element (B <= 32 a launch). At 3.35 TB/s that is
+// 52 us a launch. A batch of more than 32 streams runs as groups of 32, one
+// launch each (see Prepared): each group streams the weights again.
 // The weight stream does not depend on the activations: only the (B, C) and
 // (B, G/2) vectors carry the layer-to-layer dependency.
 //
@@ -48,8 +50,8 @@
 //    own ring with cp.async.wait_group and __syncwarp, and a phase has ONE
 //    block barrier (after its inputs are staged). A phase ends in three
 //    shuffle steps over the 8 row groups that halve the live batch rows each
-//    time. Batch rows are registers (acc[BT][4], BT = B rounded up to a
-//    power of two).
+//    time. Batch rows are registers (acc[BT][4], BT = the group's B
+//    rounded up to a power of two, at most 32).
 //  * No last-block combine, no counters, no memsets. A phase's blocks write
 //    their slice's partial sums to scratch and go to the barrier. The
 //    consumers sum the slices, in a fixed order, while they stage their
@@ -105,10 +107,14 @@ constexpr int kMaxBatch = 32;
 constexpr int kErrSharedMemory = -1;  // a slice's inputs do not fit
 constexpr int kErrTooWide = -2;       // more column tiles than blocks
 
+// One launch computes a GROUP of B <= kMaxBatch streams of a batch of Bs:
+// x0, x_out and skip point at the group's first row; taps, cond and x_all
+// at the group's first row of their first (layer, tap), with Bs rows from
+// one (layer, tap) to the next.
 struct StepArgs {
   const float* x0;     // (B, C)
-  const float* taps;   // (L, k-1, B, C)
-  const float* cond;   // (L, B, G)
+  const float* taps;   // (L, k-1, Bs, C)
+  const float* cond;   // (L, Bs, G)
   const float* wtap;   // (L, k, C, G)
   const float* bias;   // (L, G)
   const float* wskip;  // (L, G/2, S)
@@ -117,10 +123,11 @@ struct StepArgs {
   const float* bout;   // (L, C)
   float* x_out;        // (B, C)
   float* skip;         // (B, S)
-  float* x_all;        // (L, B, C)
+  float* x_all;        // (L, Bs, C)
   float* part_gate;    // (splits_g, B, G)
   float* part_proj;    // (2, splits_p, B, S + C): by layer parity
   int L, k, B, C, G, S;
+  int Bs;
   int legacy;
   // the static map from block to weight slice
   int tiles_g, splits_g, rows_g;
@@ -251,11 +258,11 @@ __device__ __forceinline__ float4 ldg4_scalar(const float* p) {
 // stack's output.
 __device__ __forceinline__ float4 layer_input4(const StepArgs& a, int l, int b,
                                                int c) {
-  const int B = a.B, C = a.C, W = a.S + a.C;
+  const int C = a.C, W = a.S + a.C;
   const float4 xin =
       l == 1 ? ldg4_scalar(a.x0 + b * C + c)
              : __ldcg(reinterpret_cast<const float4*>(
-                   a.x_all + (static_cast<int64_t>(l - 1) * B + b) * C + c));
+                   a.x_all + (static_cast<int64_t>(l - 1) * a.Bs + b) * C + c));
   const float4 bo = ldg4_scalar(a.bout + static_cast<int64_t>(l - 1) * C + c);
   const float4 v = sum_slices4<kProjBatch>(
       proj_partials(a, l - 1) + static_cast<int64_t>(b) * W + a.S + c,
@@ -428,7 +435,7 @@ __device__ __forceinline__ void stage_gate(const StepArgs& a, int l,
                                            const GateSlice& gs, float* in_s) {
   constexpr int IS = InStride<BT>::v;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int B = a.B, C = a.C, k = a.k;
+  const int B = a.B, Bs = a.Bs, C = a.C, k = a.k;
   for (int b = warp; b < BT; b += kWarps) {
     for (int r = 4 * lane; r < gs.padded; r += 128) {
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -437,13 +444,13 @@ __device__ __forceinline__ void stage_gate(const StepArgs& a, int l,
           const int rg = gs.r0 + r, j = rg / C, c = rg - j * C;
           v = ldg4_scalar(
               a.taps +
-              ((static_cast<int64_t>(l) * (k - 1) + j) * B + b) * C + c);
+              ((static_cast<int64_t>(l) * (k - 1) + j) * Bs + b) * C + c);
         } else {
           const int c = gs.r0 + r - (k - 1) * C;
           v = l == 0 ? ldg4_scalar(a.x0 + b * C + c) : layer_input4(a, l, b, c);
           if (gs.writes_x_all)
             __stcg(reinterpret_cast<float4*>(
-                       a.x_all + (static_cast<int64_t>(l) * B + b) * C + c),
+                       a.x_all + (static_cast<int64_t>(l) * Bs + b) * C + c),
                    v);
         }
       }
@@ -618,7 +625,7 @@ __global__ void __launch_bounds__(kThreads, 1) step_kernel(const StepArgs a) {
         if (ok) {
           const int col = half * Gh + p_r0 + r;
           const float4 cd =
-              ldg4_scalar(a.cond + (static_cast<int64_t>(l) * B + b) * G + col);
+              ldg4_scalar(a.cond + (static_cast<int64_t>(l) * a.Bs + b) * G + col);
           const float4 bs =
               ldg4_scalar(a.bias + static_cast<int64_t>(l) * G + col);
           cb = add4(cd, bs);
@@ -773,10 +780,20 @@ int make_plan(StepArgs* a, Plan* p) {
   return 0;
 }
 
+// A batch of more than kMaxBatch streams runs as groups of kMaxBatch and a
+// last group of the rest, one launch each, in order on one stream. Streams
+// are independent through the whole stack, so the groups need nothing of
+// each other; they share the scratch (a launch finishes with its partial
+// sums before the next starts), and each group streams every weight again.
+// Plan 0 is a full group's (the whole batch when there is one group), plan 1
+// the last group's.
 struct Prepared {
-  StepArgs args;
-  Plan plan;
+  StepArgs args[2];
+  Plan plan[2];
+  int groups;
 };
+
+int group_count(int B) { return ceil_div(B, kMaxBatch); }
 
 }  // namespace
 
@@ -786,8 +803,10 @@ struct Prepared {
 // widths give more column tiles than the device runs blocks.
 extern "C" int wavenet_step_scratch_bytes(int L, int k, int B, int C, int G,
                                           int S, size_t* bytes) {
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
   StepArgs a = {};
-  a.L = L; a.k = k; a.B = B; a.C = C; a.G = G; a.S = S;
+  a.L = L; a.k = k; a.B = B < kMaxBatch ? B : kMaxBatch; a.C = C; a.G = G;
+  a.S = S; a.Bs = B;
   Plan p;
   const int err = make_plan(&a, &p);
   if (err != 0) return err;
@@ -816,52 +835,75 @@ extern "C" int wavenet_step_prepare(const float* wtap, const float* bias,
                         static_cast<const void*>(scratch)})
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return static_cast<int>(cudaErrorMisalignedAddress);
+  if (B < 1) return static_cast<int>(cudaErrorInvalidValue);
   Prepared* h = new (std::nothrow) Prepared();
   if (h == nullptr) return static_cast<int>(cudaErrorMemoryAllocation);
-  StepArgs& a = h->args;
-  a.wtap = wtap; a.bias = bias; a.wskip = wskip; a.bskip = bskip;
-  a.wout = wout; a.bout = bout;
-  a.x_out = x_out; a.skip = skip; a.x_all = x_all;
-  a.L = L; a.k = k; a.B = B; a.C = C; a.G = G; a.S = S; a.legacy = legacy;
-  const int err = make_plan(&a, &h->plan);
-  if (err != 0) {
-    delete h;
-    return err;
+  h->groups = group_count(B);
+  for (int i = 0; i < 2; ++i) {
+    StepArgs& a = h->args[i];
+    a.wtap = wtap; a.bias = bias; a.wskip = wskip; a.bskip = bskip;
+    a.wout = wout; a.bout = bout;
+    a.x_out = x_out; a.skip = skip; a.x_all = x_all;
+    a.L = L; a.k = k; a.C = C; a.G = G; a.S = S; a.legacy = legacy;
+    a.B = i == 0 && h->groups > 1 ? kMaxBatch
+                                  : B - (h->groups - 1) * kMaxBatch;
+    a.Bs = B;
+    const int err = make_plan(&a, &h->plan[i]);
+    if (err != 0) {
+      delete h;
+      return err;
+    }
+    a.part_gate = static_cast<float*>(scratch);
+    a.part_proj = a.part_gate + static_cast<size_t>(a.splits_g) * a.step_g;
   }
-  a.part_gate = static_cast<float*>(scratch);
-  a.part_proj = a.part_gate + static_cast<size_t>(a.splits_g) * a.step_g;
   *handle = h;
   return 0;
 }
 
 // One decode step through the whole stack on `stream`: ONE cooperative
-// kernel launch, no memset, no copy. Returns the launch's cudaError_t.
-// With `stamps` (grid * 2L * 4 * 2 uint64 on the device) every block also
-// records when each of its phases starts, has its inputs staged, has its
-// products done and has its partial sums stored: the global nanosecond
-// timer (coarse, common to all SMs) and the SM's cycle counter (fine).
+// kernel launch a group of kMaxBatch streams (wavenet_step_describe's
+// launches), no memset, no copy. Returns the first failed launch's
+// cudaError_t, or 0. With `stamps` (grid * 2L * 4 * 2 uint64 on the
+// device) every block of the FIRST group's launch also records when each
+// of its phases starts, has its inputs staged, has its products done and
+// has its partial sums stored: the global nanosecond timer (coarse, common
+// to all SMs) and the SM's cycle counter (fine).
 extern "C" int wavenet_step_run(void* handle, const float* x0,
                                 const float* taps, const float* cond,
                                 unsigned long long* stamps, void* stream) {
   Prepared* h = static_cast<Prepared*>(handle);
-  StepArgs a = h->args;
-  a.x0 = x0; a.taps = taps; a.cond = cond; a.stamps = stamps;
-  void* params[] = {&a};
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(h->plan.fn), dim3(h->plan.grid), dim3(kThreads),
-      params, h->plan.smem, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(err);
+  for (int g = 0; g < h->groups; ++g) {
+    const int i = g + 1 == h->groups ? 1 : 0;
+    StepArgs a = h->args[i];
+    const int64_t b0 = static_cast<int64_t>(g) * kMaxBatch;
+    a.x0 = x0 + b0 * a.C;
+    a.taps = taps + b0 * a.C;
+    a.cond = cond + b0 * a.G;
+    a.x_out += b0 * a.C;
+    a.skip += b0 * a.S;
+    a.x_all += b0 * a.C;
+    a.stamps = g == 0 ? stamps : nullptr;
+    void* params[] = {&a};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(h->plan[i].fn), dim3(h->plan[i].grid),
+        dim3(kThreads), params, h->plan[i].smem,
+        static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
-// The launch's shape, for reports: blocks, bytes of shared memory a block,
-// gate and projection slices (tiles x splits, rows a slice).
+// The first group's launch shape, for reports: blocks, bytes of shared
+// memory a block, gate and projection slices (tiles x splits, rows a
+// slice); then the launches a step (groups of kMaxBatch streams).
 extern "C" void wavenet_step_describe(void* handle, int* out) {
   const Prepared* h = static_cast<const Prepared*>(handle);
-  const StepArgs& a = h->args;
-  out[0] = h->plan.grid;
-  out[1] = static_cast<int>(h->plan.smem);
+  const StepArgs& a = h->args[0];
+  out[0] = h->plan[0].grid;
+  out[1] = static_cast<int>(h->plan[0].smem);
   out[2] = a.tiles_g; out[3] = a.splits_g; out[4] = a.rows_g;
   out[5] = a.tiles_p; out[6] = a.splits_p; out[7] = a.rows_p;
+  out[8] = h->groups;
 }
 
 extern "C" void wavenet_step_release(void* handle) {

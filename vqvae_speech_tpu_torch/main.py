@@ -12,6 +12,9 @@ Modes:
     python -m vqvae_speech_tpu_torch.main --export_to_features
     python -m vqvae_speech_tpu_torch.main --compute_dataset_stats
     python -m vqvae_speech_tpu_torch.main              # train, auto-resume
+    python -m vqvae_speech_tpu_torch.main --experiments_configuration_path \
+        spec.json  # a spec naming configurations/vctk_wavenet.yaml trains
+                   # WaveNet-VQ-VAE (decoder_type: wavenet)
     python -m vqvae_speech_tpu_torch.main --evaluate --compute_alignments \
         --compute_clustering_metrics --no_figures
     python -m vqvae_speech_tpu_torch.main --plot_experiments_losses

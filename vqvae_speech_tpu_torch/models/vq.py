@@ -13,7 +13,12 @@ src/models/vector_quantizer.py and vector_quantizer_ema.py):
   and EMA statistics are buffers, and an update REPLACES them with new
   tensors, so a ``new_state`` handed out by one call is not changed by the
   next (the JAX package returns fresh arrays),
-* perplexity = exp(entropy of code usage), from the kernel's counts / N.
+* perplexity = exp(entropy of code usage), from the kernel's counts / N,
+* below f32 (a bf16 forward, latents and, for the gradient variant, the
+  codebook cast): the search runs in f32 on f32 copies of the rounded
+  latents and codebook, as the JAX package's Pallas path upcasts them
+  (``ops/vq.py:172``); the quantized rows come back in the latents' dtype,
+  and the EMA statistics stay f32.
 
 Input is (B, C, T); the returned VQOutput keeps the JAX package's layouts:
 quantized (B, T, C), encodings and distances (B, T', K), indices (N, 1).
@@ -130,7 +135,7 @@ class VectorQuantizer(nn.Module):
         D = self.codebook.shape[1]
         searched_codebook = self.codebook.detach()
         flat = reference_flatten(z_bct, D)
-        res = vq_search(flat, self.codebook)
+        res = vq_search(flat.float(), self.codebook.float())
 
         new_state = None
         if self.ema:
@@ -139,8 +144,8 @@ class VectorQuantizer(nn.Module):
                     self._ema_update(res.counts, res.dw)
             new_state = self.ema_state()
             # quantize with the (possibly updated) codebook; a row gather is
-            # exactly onehot @ codebook
-            quant_flat = self.codebook[res.indices.long()]
+            # exactly onehot @ codebook, rounded to the latents' dtype
+            quant_flat = self.codebook[res.indices.long()].to(flat.dtype)
         else:
             quant_flat = res.quantized.to(flat.dtype)
         quantized = reference_unflatten(quant_flat, B, C, T)   # (B, C, T)

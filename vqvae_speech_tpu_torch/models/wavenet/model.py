@@ -16,8 +16,17 @@ src/wavenet_vocoder/wavenet.py:87-264, modules.py:87-217):
 Every conv carries the weight-norm pair ``{v, g}`` and a bias, as the JAX
 package's ``_conv_init`` makes them. Activations are (B, C, T) inside;
 ``forward``, ``upsample_lc`` and ``expand_global`` keep the JAX (B, T, C)
-layout at their edges. The forward is the eval forward: training-time
-dropout is not ported yet, and a module in training mode raises.
+layout at their edges.
+
+In training mode the forward applies dropout (``cfg.dropout``) to each
+residual layer's input, ``where(mask, x / keep, 0)`` with ``keep = 1 -
+dropout``, as ``_residual_glu_apply`` does; the masks are fed
+(``dropout_masks``, one a layer, so that a test can hand over the JAX
+package's draws) or drawn from ``dropout_generator``; with neither, as
+with JAX's ``rng=None``, nothing is dropped. The module runs in the dtype of
+its parameters and inputs: below f32 (the bf16 decoder of WaveNet-VQ-VAE
+training) Python constants are rounded to that dtype before they multiply
+and the sigmoid is ``1/(1+exp(-x))``, as JAX rounds them.
 """
 import math
 from dataclasses import dataclass
@@ -27,7 +36,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from vqvae_speech_tpu_torch.models.clarinet.modules import scaled, sigmoid
 from vqvae_speech_tpu_torch.nn import Conv1d
+from vqvae_speech_tpu_torch.nn.conv import with_bias
 
 _SQRT_HALF = math.sqrt(0.5)
 
@@ -79,6 +90,7 @@ class ResidualConv1dGLU(nn.Module):
         kw = dict(use_weight_norm=True, generator=generator)
         gate_out = cfg.gate_channels // 2
         self.pad = (cfg.kernel_size - 1) * dilation
+        self.keep = 1.0 - cfg.dropout
         self.conv = Conv1d(cfg.residual_channels, cfg.gate_channels,
                            cfg.kernel_size, dilation=dilation, **kw)
         self.conv1x1c = (Conv1d(cfg.cin_channels, cfg.gate_channels, 1, **kw)
@@ -88,17 +100,22 @@ class ResidualConv1dGLU(nn.Module):
         self.conv1x1_skip = Conv1d(gate_out, cfg.skip_out_channels, 1, **kw)
         self.conv1x1_out = Conv1d(gate_out, cfg.residual_channels, 1, **kw)
 
-    def forward(self, x, c=None, g=None):
-        """c: (B, cin, T) or None; g: (B, gin, 1) or None."""
+    def forward(self, x, c=None, g=None, keep_mask=None):
+        """c: (B, cin, T) or None; g: (B, gin, 1) or None; keep_mask:
+        (B, C, T) bool, the dropout's kept elements, or None."""
         residual = x
+        if keep_mask is not None:
+            x = torch.where(keep_mask,
+                            x / torch.tensor(self.keep, dtype=x.dtype), 0.0)
         x = self.conv(F.pad(x, (self.pad, 0)))
         if c is not None:
             x = x + self.conv1x1c(c)
         if g is not None:
             x = x + self.conv1x1g(g)
         a, b = x.chunk(2, dim=1)
-        h = torch.tanh(a) * torch.sigmoid(b)
-        return (self.conv1x1_out(h) + residual) * _SQRT_HALF, self.conv1x1_skip(h)
+        h = torch.tanh(a) * sigmoid(b)
+        return (scaled(self.conv1x1_out(h) + residual, _SQRT_HALF),
+                self.conv1x1_skip(h))
 
 
 class UpsampleStage(nn.Module):
@@ -123,9 +140,9 @@ class UpsampleStage(nn.Module):
     def forward(self, x):
         # a transposed conv needs no kernel flip; the JAX package's subpixel
         # correlation flips along frequency to compute the same thing
-        return F.relu(F.conv_transpose2d(x, self.weight(), self.b,
-                                         stride=(1, self.scale),
-                                         padding=(self.freq_pad, 0)))
+        return F.relu(with_bias(F.conv_transpose2d, x, self.weight(), self.b,
+                                stride=(1, self.scale),
+                                padding=(self.freq_pad, 0)))
 
 
 class WaveNet(nn.Module):
@@ -177,16 +194,39 @@ class WaveNet(nn.Module):
             return self.embed_speakers[g.reshape(B).long()][:, :, None]
         return g.reshape(B, 1, -1).transpose(1, 2)
 
-    def forward(self, x, c=None, g=None, softmax: bool = False):
+    def dropout_masks(self, shape, generator: torch.Generator,
+                      device=None) -> list:
+        """One keep mask a layer, (B, T, C) bool in the JAX layout, each
+        element kept with probability ``1 - cfg.dropout``, drawn from
+        ``generator`` (on ``device``, which must be the generator's)."""
+        keep = 1.0 - self.cfg.dropout
+        return [torch.rand(shape, generator=generator, device=device) < keep
+                for _ in range(self.cfg.layers)]
+
+    def forward(self, x, c=None, g=None, softmax: bool = False, *,
+                dropout_masks=None,
+                dropout_generator: Optional[torch.Generator] = None):
         """x: (B, T, in) one-hot audio; c: (B, Tc, cin) local conditioning
         (upsampled and trimmed to T here if configured); g: (B,) speaker ids
         or (B, 1, gin) features. Returns (B, T, out_channels)
-        (``wavenet_apply``, eval)."""
-        if self.training:
-            raise NotImplementedError(
-                "training-time dropout is not ported to PyTorch yet; "
-                "call .eval()")
+        (``wavenet_apply``).
+
+        In training mode with ``cfg.dropout > 0``, ``dropout_masks`` (one
+        (B, T, residual_channels) bool tensor a layer, True = kept) or
+        draws from ``dropout_generator`` drop each layer's input."""
         B, T = x.shape[0], x.shape[1]
+        masks = [None] * self.cfg.layers
+        if self.training and self.cfg.dropout > 0:
+            if dropout_masks is None and dropout_generator is not None:
+                dropout_masks = self.dropout_masks(
+                    (B, T, self.cfg.residual_channels), dropout_generator,
+                    dropout_generator.device)
+            if dropout_masks is not None:
+                if len(dropout_masks) != self.cfg.layers:
+                    raise ValueError(f"{len(dropout_masks)} dropout masks "
+                                     f"for {self.cfg.layers} layers")
+                masks = [m.to(x.device, torch.bool).transpose(1, 2)
+                         for m in dropout_masks]
         g_b = self.expand_global(g, B)
         if c is not None and self.cfg.upsample_conditional_features:
             c = self.upsample_lc(c)
@@ -197,14 +237,14 @@ class WaveNet(nn.Module):
         c_bct = None if c is None else c.transpose(1, 2)
         h = self.first_conv(x.transpose(1, 2))
         skips = None
-        for layer in self.conv_layers:
-            h, s = layer(h, c_bct, g_b)
+        for layer, mask in zip(self.conv_layers, masks):
+            h, s = layer(h, c_bct, g_b, mask)
             if skips is None:
                 skips = s
             else:
                 skips = skips + s
                 if self.cfg.legacy:
-                    skips = skips * _SQRT_HALF
+                    skips = scaled(skips, _SQRT_HALF)
         out = F.relu(skips)
         out = F.relu(self.last_conv_1(out))
         out = self.last_conv_2(out).transpose(1, 2)

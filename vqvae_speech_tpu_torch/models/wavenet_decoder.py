@@ -4,8 +4,11 @@ Counterpart of ``vqvae_speech_tpu/models/wavenet_decoder.py`` (reference
 src/models/wavenet_decoder.py:38-88): a kernel-2 conv with padding 0 mixes
 neighbouring latents (T_lat -> T_lat - 1), and the WaveNet takes the mixed
 latents as local conditioning (upsampled x384) and the speaker id as global
-conditioning. Training-time jitter is not ported yet: a module in training
-mode raises NotImplementedError.
+conditioning. In training mode a ``use_jitter`` configuration jitters the
+latents first (``nn.layers.jitter``, the reference's inverted probability
+and detached replacements, as ``wavenet_decoder_apply`` calls it), then the
+WaveNet applies its dropout; the draws of both are fed or drawn from
+generators (JAX splits its key as the jitter's first, then the WaveNet's).
 """
 from typing import Optional
 
@@ -13,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from vqvae_speech_tpu_torch.models.wavenet.model import WaveNet, WaveNetConfig
-from vqvae_speech_tpu_torch.nn import Conv1d
+from vqvae_speech_tpu_torch.nn import Conv1d, jitter
 
 # Reference wavenet_decoder.py:76 passes [2,2,2,2,2,12] with a "# 768"
 # comment, but the product is 384; the code's behaviour is what is kept.
@@ -42,6 +45,9 @@ class WaveNetDecoder(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = wavenet_config_from(configuration, num_speakers)
+        self.use_jitter = bool(configuration.get("use_jitter"))
+        self.jitter_probability = configuration.get("jitter_probability",
+                                                    0.12)
         self.conv_1 = Conv1d(
             configuration["embedding_dim"],
             configuration["local_condition_dim"], 2,
@@ -53,11 +59,24 @@ class WaveNetDecoder(nn.Module):
         """The k2 mixer: (B, T_lat, D) -> (B, T_lat - 1, local_condition_dim)."""
         return self.conv_1(latents.transpose(1, 2)).transpose(1, 2)
 
-    def forward(self, y, local_condition, global_condition):
+    def forward(self, y, local_condition, global_condition, *,
+                jitter_masks=None,
+                jitter_generator: Optional[torch.Generator] = None,
+                dropout_masks=None,
+                dropout_generator: Optional[torch.Generator] = None):
         """y: (B, T, quantize) one-hot audio; local_condition: (B, T_lat, D)
-        latents; global_condition: (B,) speaker ids -> (B, T, quantize)."""
-        if self.training:
-            raise NotImplementedError(
-                "training-time jitter is not ported to PyTorch yet; "
-                "call .eval()")
-        return self.wavenet(y, self.mix(local_condition), global_condition)
+        latents; global_condition: (B,) speaker ids -> (B, T, quantize).
+
+        In training: ``jitter_masks`` = (replace, direction) or draws from
+        ``jitter_generator`` jitter the latents (``use_jitter``), and
+        ``dropout_masks`` or ``dropout_generator`` feed the WaveNet's
+        dropout (``WaveNet.forward``)."""
+        if self.training and self.use_jitter:
+            replace, direction = jitter_masks or (None, None)
+            local_condition = jitter(
+                local_condition.transpose(1, 2), self.jitter_probability,
+                replace=replace, direction=direction,
+                generator=jitter_generator).transpose(1, 2)
+        return self.wavenet(y, self.mix(local_condition), global_condition,
+                            dropout_masks=dropout_masks,
+                            dropout_generator=dropout_generator)

@@ -3,10 +3,17 @@
 Counterpart of ``vqvae_speech_tpu/models/wavenet_vqvae.py`` (reference
 src/models/wavenet_vq_vae.py:36-127). The pre-VQ conv is kernel 1 with
 padding 0 (the ConvVQVAE's is k3/p1), so ``ConvVQVAE.latents`` is not
-reused. ``forward`` is the teacher-forced eval forward
-(``wavenet_vqvae_apply(training=False)``), with the reference's (C, T, B)
-VQ flatten over the whole batch. ``local_conditioning`` is the synthesis
-front end: every item's codes on batch-1 semantics, then the k2 mixer.
+reused. ``forward`` is ``wavenet_vqvae_apply``: the teacher-forced forward,
+with the reference's (C, T, B) VQ flatten over the whole batch; in training
+mode the quantizer updates its EMA state and the decoder jitters and drops
+out (draws fed or from generators). ``decoder_compute_dtype=torch.bfloat16``
+runs the decoder on a bf16 cast of its parameters, of the teacher-forcing
+input and of the quantized latents (autograd through the cast, so the
+gradients reach the f32 parameters as f32); the encoder and the VQ stay f32
+and the logits come back f32. With ``codebook_revival`` the module holds the
+revival extension's usage EMA (``revival_usage``, the JAX
+``state["revival"]``). ``local_conditioning`` is the synthesis front end:
+every item's codes on batch-1 semantics, then the k2 mixer.
 """
 from typing import NamedTuple, Optional
 
@@ -18,6 +25,7 @@ from vqvae_speech_tpu_torch.models.encoder import ConvolutionalEncoder
 from vqvae_speech_tpu_torch.models.vq import VectorQuantizer
 from vqvae_speech_tpu_torch.models.wavenet_decoder import WaveNetDecoder
 from vqvae_speech_tpu_torch.nn import Conv1d
+from vqvae_speech_tpu_torch.nn.cast import cast_call
 from vqvae_speech_tpu_torch.ops.vq import vq_search
 
 
@@ -27,7 +35,7 @@ class WaveNetVQVAEOutput(NamedTuple):
     losses: dict
     perplexity: torch.Tensor
     encoding_indices: torch.Tensor  # (N, 1) reference-layout flat indices
-    new_state: dict                 # {"vq": EMA state or {}}
+    new_state: dict                 # {"vq": EMA state or {}, ["revival"]}
     pre_vq_latents: torch.Tensor    # (B, T', D), detached
 
 
@@ -48,28 +56,47 @@ class WaveNetVQVAE(nn.Module):
                                   configuration["commitment_cost"],
                                   configuration["decay"], generator=generator)
         self.decoder = WaveNetDecoder(configuration, num_speakers, generator)
+        if configuration.get("codebook_revival", False):
+            K = configuration["num_embeddings"]
+            self.register_buffer("revival_usage", torch.full((K,), 1.0 / K))
+        else:
+            self.revival_usage = None
 
     def latents(self, feats: torch.Tensor) -> torch.Tensor:
         """Encoder + k1 pre-VQ conv: (B, T_feat, C_in) -> (B, D, T_lat)."""
         return self.pre_vq_conv(self.encoder(feats.transpose(1, 2)))
 
-    def forward(self, x_enc, x_dec_onehot, speaker_ids) -> WaveNetVQVAEOutput:
+    def forward(self, x_enc, x_dec_onehot, speaker_ids, *,
+                jitter_masks=None, dropout_masks=None,
+                jitter_generator: Optional[torch.Generator] = None,
+                dropout_generator: Optional[torch.Generator] = None,
+                decoder_compute_dtype: Optional[torch.dtype] = None
+                ) -> WaveNetVQVAEOutput:
         """x_enc: (B, T_feat, C_in) features; x_dec_onehot: (B, T_samp,
-        quantize) teacher-forcing inputs; speaker_ids: (B,)."""
-        if self.training:
-            raise NotImplementedError(
-                "the training forward is not ported to PyTorch yet; "
-                "call .eval()")
+        quantize) teacher-forcing inputs; speaker_ids: (B,). The draws and
+        ``decoder_compute_dtype`` are as the module docstring says."""
         z = self.latents(x_enc)
         vq_out = self.vq(z)
-        recon = self.decoder(x_dec_onehot, vq_out.quantized, speaker_ids)
+        x_dec, quantized = x_dec_onehot, vq_out.quantized
+        decode = dict(jitter_masks=jitter_masks,
+                      jitter_generator=jitter_generator,
+                      dropout_masks=dropout_masks,
+                      dropout_generator=dropout_generator)
+        if decoder_compute_dtype is not None:
+            x_dec = x_dec.to(decoder_compute_dtype)
+            quantized = quantized.to(decoder_compute_dtype)
+        recon = cast_call(self.decoder, decoder_compute_dtype,
+                          (x_dec, quantized, speaker_ids), decode)
+        new_state = {"vq": vq_out.new_state or {}}
+        if self.revival_usage is not None:
+            new_state["revival"] = {"usage": self.revival_usage}
         return WaveNetVQVAEOutput(
-            reconstructed_x=recon,
+            reconstructed_x=recon.float(),
             vq_loss=vq_out.vq_loss,
             losses=vq_out.losses,
             perplexity=vq_out.perplexity,
             encoding_indices=vq_out.indices,
-            new_state={"vq": vq_out.new_state or {}},
+            new_state=new_state,
             pre_vq_latents=z.detach().transpose(1, 2),
         )
 

@@ -7,6 +7,10 @@ pair: direction ``v`` and per-dim-0 magnitude ``g``, resolved on every
 forward to ``w = g * v / ||v||`` with the norm over the other two axes —
 (Cin, K) for a conv, (Cout, K) for a transposed conv, which is the JAX
 package's norm over (K, Cin) of its (K, Cin, Cout) storage.
+
+Below f32 (bf16 training, where the parameters arrive cast) the bias is
+added after the convolution's own rounding, as the JAX package adds it
+(``y + b``): a fused bias would round once where JAX rounds twice.
 """
 import math
 from typing import Optional
@@ -19,6 +23,16 @@ import torch.nn.functional as F
 def conv_weight(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Resolve weight norm: ``g * v / ||v||`` with the norm over dims 1, 2."""
     return g[:, None, None] * v / v.square().sum((1, 2), keepdim=True).sqrt()
+
+
+def with_bias(conv, x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor], **kwargs) -> torch.Tensor:
+    """``conv(x, weight, bias, **kwargs)``; below f32 the bias is added to
+    the convolution's rounded output instead."""
+    if bias is None or x.dtype == torch.float32:
+        return conv(x, weight, bias, **kwargs)
+    y = conv(x, weight, None, **kwargs)
+    return y + bias.reshape(-1, *([1] * (y.dim() - 2)))
 
 
 class _ConvBase(nn.Module):
@@ -55,9 +69,9 @@ class Conv1d(_ConvBase):
         self.stride, self.padding, self.dilation = stride, padding, dilation
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.resolved_weight(), self.bias,
-                        stride=self.stride, padding=self.padding,
-                        dilation=self.dilation)
+        return with_bias(F.conv1d, x, self.resolved_weight(), self.bias,
+                         stride=self.stride, padding=self.padding,
+                         dilation=self.dilation)
 
 
 class ConvTranspose1d(_ConvBase):
@@ -73,5 +87,5 @@ class ConvTranspose1d(_ConvBase):
         self.stride, self.padding = stride, padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.resolved_weight(), self.bias,
-                                  stride=self.stride, padding=self.padding)
+        return with_bias(F.conv_transpose1d, x, self.resolved_weight(),
+                         self.bias, stride=self.stride, padding=self.padding)

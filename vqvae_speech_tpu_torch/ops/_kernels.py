@@ -188,7 +188,9 @@ def _bind_wavenet_step(lib: ctypes.CDLL) -> None:
     lib.wavenet_step_release.restype = None
 
 
-WAVENET_STEP_MAX_BATCH = 32
+# streams a launch of the step kernel computes; a larger batch is launched
+# in groups of this many, each streaming the weights again
+WAVENET_STEP_GROUP = 32
 _STEP_WEIGHTS = ("wtap", "bias", "wskip", "bskip", "wout", "bout")
 
 
@@ -210,8 +212,11 @@ class PreparedWaveNetStep:
     step to step is checked, planned and allocated here, ONCE.
 
     ``step(x0, taps, cond)`` then checks its three tensors, passes their
-    pointers and launches the one cooperative kernel on the current stream;
-    it returns (x (B, C), skip (B, S), x_all (L, B, C)).
+    pointers and launches the cooperative kernel on the current stream,
+    once for every group of ``WAVENET_STEP_GROUP`` streams
+    (``launches_per_step``; the groups read the batch in place, through its
+    stride); it returns (x (B, C), skip (B, S), x_all (L, B, C)). Any
+    ``batch`` >= 1 is taken.
 
     The three outputs and the scratch are allocated once and REUSED by every
     call: a call overwrites what the previous call returned. That is safe
@@ -245,9 +250,8 @@ class PreparedWaveNetStep:
                 raise ValueError(f"wavenet_step_cuda: {name} has shape "
                                  f"{tuple(weights[name].shape)}, expected "
                                  f"{shape}")
-        if not 1 <= B <= WAVENET_STEP_MAX_BATCH:
-            raise ValueError(f"wavenet_step_cuda: batch {B} outside 1.."
-                             f"{WAVENET_STEP_MAX_BATCH}")
+        if B < 1:
+            raise ValueError(f"wavenet_step_cuda: batch {B} < 1")
         if L < 1 or k < 1 or G % 8 or C % 4 or S % 4 or min(C, G, S) < 1:
             raise ValueError("wavenet_step_cuda: needs L, k >= 1, G % 8 == 0, "
                              f"C % 4 == 0 and S % 4 == 0; got L={L} k={k} "
@@ -274,6 +278,7 @@ class PreparedWaveNetStep:
                 self.skip.data_ptr(), self.x_all.data_ptr(),
                 self._scratch.data_ptr(), ctypes.byref(handle)), dims)
         self._handle = handle
+        self.launches_per_step = self.describe()["launches"]
 
     @staticmethod
     def _raise(err, dims):
@@ -290,19 +295,20 @@ class PreparedWaveNetStep:
                                f"(L, k, B, C, G, S) = {dims}")
 
     def describe(self) -> dict:
-        """The launch's shape: blocks, shared-memory bytes a block, and the
-        (tiles, slices, rows a slice) of the gate and the projection."""
-        out = (ctypes.c_int * 8)()
+        """The first group's launch shape: blocks, shared-memory bytes a
+        block, the (tiles, slices, rows a slice) of the gate and the
+        projection; and ``launches``, the launches a step."""
+        out = (ctypes.c_int * 9)()
         self._lib.wavenet_step_describe(self._handle, out)
         return dict(zip(("blocks", "smem_bytes", "gate_tiles", "gate_slices",
                          "gate_rows", "proj_tiles", "proj_slices",
-                         "proj_rows"), out))
+                         "proj_rows", "launches"), out))
 
     def __call__(self, x0, taps, cond, stamps=None):
         """One step. ``stamps``, an int64 CUDA tensor of (blocks, 2L, 4, 2),
         receives every block's stamps of each phase (start, inputs staged,
-        products done, partial sums stored), each as (global nanosecond
-        timer, the SM's cycle counter)."""
+        products done, partial sums stored) of the first group's launch,
+        each as (global nanosecond timer, the SM's cycle counter)."""
         dev = self.device
         if stamps is not None and (
                 stamps.dtype != torch.int64 or stamps.device != dev
@@ -326,7 +332,7 @@ class PreparedWaveNetStep:
         if err != 0:
             raise RuntimeError("wavenet_step_cuda: launch failed with CUDA "
                                f"error {err}")
-        wavenet_step_cuda.launches += 1
+        wavenet_step_cuda.launches += self.launches_per_step
         return self.x_out, self.skip, self.x_all
 
     def _launch(self, x0, taps, cond, stamps):

@@ -73,7 +73,6 @@ from vqvae_speech_tpu_torch.models.wavenet.mixture import (
     logistic_uniform,
 )
 from vqvae_speech_tpu_torch.ops import num_frames, speech_features, vq_search
-from vqvae_speech_tpu_torch.ops._kernels import WAVENET_STEP_MAX_BATCH
 from vqvae_speech_tpu_torch.utils import resolve_device
 
 
@@ -220,7 +219,8 @@ class BucketedSynthesisServer:
     ----------
     params, cfg : a ``wavenet_init``-shaped numpy tree and its WaveNetConfig.
     frame_buckets : conditioning lengths (frames) each launch is padded to.
-    max_batch : streams per launch (the kernel takes up to 32).
+    max_batch : streams per launch (any number: the kernel computes them in
+        groups of 32, one launch a group).
     sample : categorical sampling (a ``torch.Generator`` seeded per launch)
         instead of greedy argmax.
     compute_dtype : None or torch.float32 (f32: the layer stack through the
@@ -521,7 +521,7 @@ class ContinuousSynthesisServer:
         slots' conditioning buffer (slots, max_frames * upsample, L, G).
     compute_dtype, weight_quant : as ``BucketedSynthesisServer``'s. At f32
         every step's layer stack is one call of the decode-step kernel on a
-        GPU, which takes at most 32 slots; the bf16 and int8 decodes run
+        GPU (one launch a group of 32 slots); the bf16 and int8 decodes run
         layer by layer.
     device : where the model runs ("cuda", "cpu"); no default.
     """
@@ -537,10 +537,6 @@ class ContinuousSynthesisServer:
         fused = compute_dtype != torch.bfloat16 and weight_quant is None
         check_decode_options(compute_dtype, weight_quant, fused)
         self._device = resolve_device(device)
-        if fused and self._device.type == "cuda" and not (
-                1 <= int(slots) <= WAVENET_STEP_MAX_BATCH):
-            raise ValueError(f"slots={slots}: the f32 decode-step kernel "
-                             f"takes 1..{WAVENET_STEP_MAX_BATCH} streams")
         self._cfg = cfg
         self._slots = int(slots)
         self._chunk = int(chunk_size)

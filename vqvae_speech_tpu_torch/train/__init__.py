@@ -25,6 +25,12 @@ from vqvae_speech_tpu_torch.train.trainer import (
     make_optimizer,
     make_train_step,
 )
+from vqvae_speech_tpu_torch.train.wavenet_trainer import (
+    WaveNetTrainer,
+    WaveNetTrainState,
+    create_wavenet_train_state,
+    make_wavenet_train_step,
+)
 
 __all__ = ["find_checkpoints", "latest_checkpoint_epoch", "load_checkpoint",
            "merge_checkpoint_losses", "prune_checkpoints", "save_checkpoint",
@@ -34,4 +40,5 @@ __all__ = ["find_checkpoints", "latest_checkpoint_epoch", "load_checkpoint",
            "Experiments", "apply_revival", "revival_settings", "Amsgrad",
            "AmsgradState", "ConvolutionalTrainer", "TrainState",
            "create_train_state", "make_grad_stats_fn", "make_optimizer",
-           "make_train_step"]
+           "make_train_step", "WaveNetTrainer", "WaveNetTrainState",
+           "create_wavenet_train_state", "make_wavenet_train_step"]

@@ -24,9 +24,13 @@ cross-experiment evolution and stability plots in ``Experiments.evaluate``;
 ``figures=False`` writes the number files alone (the GPU machine has no
 matplotlib).
 
-Not ported: ``decoder_type: wavenet`` (the WaveNet trainer, ROADMAP item
-10) and data parallelism (``use_data_parallel``, item 14) raise here;
-``compute_dtype`` (items 11.4 and 12.6) raises in the step.
+``decoder_type: wavenet`` builds ``train.wavenet_trainer.WaveNetTrainer``
+(``num_speakers`` defaulting to 128), which starts from
+``convert.numpy_wavenet_vqvae_params`` and resumes from the newest
+checkpoint itself, as the JAX package's does.
+
+Not ported: data parallelism (``use_data_parallel``, ROADMAP item 14)
+raises here.
 """
 import json
 import os
@@ -48,6 +52,7 @@ from vqvae_speech_tpu_torch.train.config import (
     merge_experiment_configuration,
 )
 from vqvae_speech_tpu_torch.train.trainer import ConvolutionalTrainer
+from vqvae_speech_tpu_torch.train.wavenet_trainer import WaveNetTrainer
 from vqvae_speech_tpu_torch.utils.logger import ConsoleLogger
 
 class Experiment:
@@ -89,14 +94,6 @@ class Experiment:
 
     def _refuse_unported(self):
         cfg = self.configuration
-        decoder_type = cfg.get("decoder_type", "deconvolutional")
-        if decoder_type == "wavenet":
-            raise NotImplementedError(
-                "decoder_type 'wavenet' needs the WaveNet trainer, which is "
-                "not ported yet (ROADMAP item 10)")
-        if decoder_type != "deconvolutional":
-            raise NotImplementedError(
-                f"decoder_type {cfg['decoder_type']!r} has no trainer pipeline")
         if cfg.get("use_data_parallel"):
             raise NotImplementedError(
                 "use_data_parallel: data-parallel training over a mesh is not "
@@ -107,8 +104,20 @@ class Experiment:
         the experiment's."""
         self._refuse_unported()
         cfg = self.configuration
+        device = self.device if device is None else device
+        decoder_type = cfg.get("decoder_type", "deconvolutional")
+        if decoder_type not in ("deconvolutional", "wavenet"):
+            raise NotImplementedError(
+                f"decoder_type {cfg['decoder_type']!r} has no trainer pipeline")
         if training_loader is None:
             training_loader = self._build_loader()
+        if decoder_type == "wavenet":
+            # an extension beyond the reference, whose PipelineFactory
+            # raises for any non-deconvolutional decoder
+            return WaveNetTrainer(
+                cfg, training_loader, self.experiments_path, self.name,
+                num_speakers=cfg.get("num_speakers", 128), seed=self.seed,
+                device=device)
 
         params, model_state = numpy_params(cfg, self.seed)
         start_epoch = 0
@@ -127,8 +136,7 @@ class Experiment:
         return ConvolutionalTrainer(
             cfg, params, model_state, training_loader,
             self.experiments_path, self.name, seed=self.seed,
-            start_epoch=start_epoch, opt_state=opt_state,
-            device=self.device if device is None else device)
+            start_epoch=start_epoch, opt_state=opt_state, device=device)
 
     def train(self, training_loader=None):
         ConsoleLogger.status(f"Running the experiment called '{self.name}'")

@@ -17,8 +17,12 @@ from the second step whenever |g1| > |g2|. Its state is optax's
 ``(count, mu, nu, nu_max)``, so checkpoints carry over in both directions
 (``convert.export_jax_opt_state`` / ``load_jax_opt_state``).
 
-Not ported here: ``compute_dtype`` (bf16 forward and backward with f32 master
-weights) and ``mesh`` (data parallelism); both raise.
+``compute_dtype: bfloat16`` in the configuration runs the forward and the
+backward on a bf16 cast of the floating parameters and of
+``input_features`` (``nn.cast.cast_call``, so autograd through the cast delivers f32 gradients to the f32 masters, as
+JAX's does); the amsgrad state, the losses, the metrics and the EMA state
+stay f32, and the codebook search runs in f32 on the rounded latents
+(``models/vq.py``). Not ported: ``mesh`` (data parallelism), which raises.
 """
 import dataclasses
 import os
@@ -38,6 +42,7 @@ from vqvae_speech_tpu_torch.convert import (
 )
 from vqvae_speech_tpu_torch.data.prefetch import prefetch_to_device
 from vqvae_speech_tpu_torch.models.conv_vqvae import ConvVQVAE
+from vqvae_speech_tpu_torch.nn.cast import cast_call
 from vqvae_speech_tpu_torch.ops.vq import reference_flatten
 from vqvae_speech_tpu_torch.train.checkpoint import save_checkpoint
 from vqvae_speech_tpu_torch.train.revival import apply_revival, revival_settings
@@ -131,9 +136,28 @@ def create_train_state(model, optimizer: Amsgrad, *, device, seed: int = 1234,
     return TrainState(model, opt_state, torch.Generator().manual_seed(seed))
 
 
-def _loss(model, batch, jitter_masks, generator):
-    out = model(batch["input_features"], batch.get("speaker_id"),
-                jitter_masks=jitter_masks, jitter_generator=generator)
+_COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype_of(config: dict) -> Optional[torch.dtype]:
+    """The configuration's ``compute_dtype`` (a dtype name or None) as a
+    torch dtype, or None."""
+    name = config.get("compute_dtype")
+    if name is None:
+        return None
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype {name!r}: expected one of "
+                         f"{sorted(_COMPUTE_DTYPES)}")
+    return _COMPUTE_DTYPES[name]
+
+
+def _loss(model, batch, jitter_masks, generator, compute_dtype=None):
+    x = batch["input_features"]
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    out = cast_call(model, compute_dtype, (x, batch.get("speaker_id")),
+                    dict(jitter_masks=jitter_masks,
+                         jitter_generator=generator))
     recon = torch.mean(
         (out.reconstructed_x.float() - batch["output_features"].float()) ** 2)
     return out.vq_loss.float() + recon, recon, out
@@ -147,12 +171,7 @@ def _check_batch_device(batch, device) -> None:
                 f"{device}; move the batch to the model's device")
 
 
-def _refuse_unported(config: dict, mesh) -> None:
-    if config.get("compute_dtype") is not None:
-        raise NotImplementedError(
-            "compute_dtype (bf16 training with f32 master weights) is not "
-            "ported: it lands with the port's bf16 paths (ROADMAP items 11.4 "
-            "and 12.6)")
+def _refuse_unported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "data-parallel training over a mesh is not ported (ROADMAP item "
@@ -171,9 +190,12 @@ def make_train_step(config: dict, optimizer: Amsgrad, mesh=None):
     ``perplexity``, the VQ terms and, with revival, ``revived_codes``) as 0-d
     f32 tensors left on the device: reading one is the caller's sync.
     ``jitter_masks`` = (replace, direction) and ``revival_perm`` stand in for
-    the step's own draws (tests feed the JAX package's).
+    the step's own draws (tests feed the JAX package's). With
+    ``compute_dtype`` in the configuration the forward and backward run in
+    that dtype (see the module docstring); the metrics are f32 either way.
     """
-    _refuse_unported(config, mesh)
+    _refuse_unported(mesh)
+    compute_dtype = compute_dtype_of(config)
     revival, rev_decay, rev_threshold = revival_settings(config)
 
     def step(state: TrainState, batch, *, jitter_masks=None,
@@ -181,7 +203,8 @@ def make_train_step(config: dict, optimizer: Amsgrad, mesh=None):
         model = state.model
         params = list(model.parameters())
         _check_batch_device(batch, params[0].device)
-        loss, recon, out = _loss(model, batch, jitter_masks, state.rng)
+        loss, recon, out = _loss(model, batch, jitter_masks, state.rng,
+                                 compute_dtype)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
@@ -208,8 +231,9 @@ def make_grad_stats_fn(config: dict):
     reference src/evaluation/gradient_stats.py:38-52), as two trees with the
     JAX package's param-tree names. Changes neither parameters nor the
     optimizer; an EMA model's buffers do take the forward's update, so pass a
-    model whose state may move or restore it afterwards."""
-    _refuse_unported(config, None)
+    model whose state may move or restore it afterwards. The statistics are
+    taken in f32 whatever the configuration's ``compute_dtype``, as the JAX
+    package takes them."""
 
     def fn(state: TrainState, batch, *, jitter_masks=None):
         model = state.model
