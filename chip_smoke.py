@@ -164,17 +164,47 @@
    plain, the golden request against the JAX package's bf16 server's wave
    (tests/data/torch_port_vocoder_golden_bf16.npz), times, and the bf16
    whole-T entry point on the student's first chain loaded at bf16.
+8. Vocoder training phase: the three trainers of train/vocoder.py at the
+   papers' widths (the dataclasses' defaults; numpy-seeded trees with the
+   JAX inits' distributions, the flow after its data-dependent ActNorm
+   init) at the reference operating points (teacher and student 8 x 6400
+   samples, the flow 2 x 15872) on VCTK p300 crops at 22050 Hz and their
+   log-mels: first one f32 step of each at 1 x 2048 on the card and on the
+   CPU from the same tree (the student on the same z), the loss and the
+   gradients (from the first moment) held to VOCODER_CHECK_*; then in f32
+   (TF32 off) and at compute_dtype bfloat16, 2 + 5 steps: finite losses,
+   ms a step and samples/s, and over a profiled step the idle share and
+   the top device kernels.
+9. Teacher generate phase: the decode-step kernel at the ClariNet
+   teacher's shape (L=24, k=3, B=1, C=128, G=2 x 256, S=128) against its
+   plain chain, bit-equal over two runs, timed beside it with its bound;
+   then gaussian_wavenet_generate at paper width for 512 steps through the
+   kernel (one launch a step, counted) and through the plain stack on the
+   same noise, the waves within TEACHER_GENERATE_TOL, ms a step of each.
+10. Vocoder CLI phase: in process, python -m vqvae_speech_tpu_torch.
+   vocoder_main's main() in a temporary directory on an LJSpeech-layout
+   tree of the first 25 wavs of each speaker of the tracked VCTK subset
+   (200 wavs, resampled to 22050 Hz by the loader; 190 train, 10 test):
+   preprocess, one epoch each of train-teacher, train-student and
+   train-flow at full width and batch 8 (the flow's new best writes its
+   sample through the fused non-causal chain), the teacher resumed to a
+   second epoch, then synthesize-teacher (the decode-step kernel once a
+   sample), synthesize-student (7 tiled chain launches) and
+   synthesize-flow (48 non-causal chain launches) from a 20-frame mel:
+   the JAX package's file names, finite loss histories, the resumed
+   counts, the launch counts and 16-bit waves of 20 x 256 samples.
 
 Exits non-zero on any failure, and without a CUDA device. The last two lines
 of output are a JSON object of per-kernel results (the five f32 entry
-points and the three bf16 ones) and the JSON status line.
+points and the three bf16 ones; the decode-step kernel's entry also gives
+its numbers at the teacher's shape) and the JSON status line.
 Imports nothing of JAX.
 
     python3 chip_smoke.py --phases step_kernel,synthesis
 
 runs only the named phases (kernel, slice, pth_import, train, experiment,
 evaluate, wavenet_train, step_kernel, synthesis, continuous, chain_kernel,
-vocoder), for work on one
+vocoder, vocoder_train, teacher_generate, vocoder_cli), for work on one
 kernel or slice; such a run prints neither of the two JSON lines. The
 evaluate phase run without the experiment phase first trains jitter12 for
 one epoch through the CLI. A run fails if it imported JAX, the JAX package,
@@ -3290,9 +3320,464 @@ def _serve_kind(gpu, kind, params, cfg, common, mels, key, chains, wrappers,
     return counts[key]
 
 
+# ---------------- vocoder training, the teacher's AR synthesis, the CLI ----------------
+
+# the reference operating points (scripts/bench_vocoder_train_tpu.py:1-4):
+# teacher and student batch 8 x 6400 samples, the flow 2 x 15872; learning
+# rates as there
+VOCODER_TRAIN = {"teacher": (8, 6400, 1e-3), "student": (8, 6400, 5e-4),
+                 "flow": (2, 15872, 1e-3)}
+VOCODER_TRAIN_WARMUP, VOCODER_TRAIN_STEPS = 2, 5
+VOCODER_PROFILED_STEPS = 1
+# one step of each trainer on the card against the same step on the CPU
+VOCODER_CHECK = (1, 2048)
+# the loss within 1e-4 relative; the gradients (recovered from the first
+# moment after the step: 0.1 x the clipped gradient) within 1e-3 of their
+# global norm and each leaf within 2e-2 of its own largest element (or of
+# 1e-4 of the largest element of all, if that is larger): cuDNN's
+# and the CPU's f32 sums part most on the sums over time that cancel (the
+# conditioning path, the upsampler: 1.8e-3 of a leaf's largest between two
+# CPU implementations, tests/test_torch_vocoder_trainer.py)
+VOCODER_CHECK_LOSS_RTOL, VOCODER_CHECK_GRAD_NORM, VOCODER_CHECK_GRAD_LEAF = (
+    1e-4, 1e-3, 2e-2)
+# the teacher's synthesis at paper width through K2 against the plain stack
+TEACHER_STEPS = 512
+TEACHER_GENERATE_TOL = 1e-4
+# the CLI: an LJSpeech-layout tree of the first 25 wavs of each speaker of
+# the tracked VCTK subset (200 wavs at 16 kHz, resampled to 22050 Hz by the
+# loader), batch 8, one epoch each, the teacher resumed to a second; a
+# 20-frame mel synthesized by each
+VOCODER_CLI_WAVS = 25
+VOCODER_CLI_FRAMES = 20
+
+
+def vocoder_train_batch(B, T, device):
+    """B VCTK p300 waves at 22050 Hz (the port's loader, tiled), cropped to
+    T samples, with their normalized log-mel, T / 256 frames: {x (B, T, 1),
+    c (B, T/256, 80)} on ``device``."""
+    import torch
+    from vqvae_speech_tpu_torch.data.audio import load_and_preprocess
+    from vqvae_speech_tpu_torch.ops.mel import normalized_log_mel
+
+    xs, cs = [], []
+    for i in range(B):
+        w, _ = load_and_preprocess(
+            os.path.join(WAVE_DIR, f"p300_{i:03d}.wav"), VOCODER_RATE)
+        w = np.tile(w, -(-T // len(w)))[:T].astype(np.float32)
+        xs.append(torch.from_numpy(w))
+        cs.append(normalized_log_mel(torch.from_numpy(w))[:T // VOCODER_HOP])
+    return {"x": torch.stack(xs)[..., None].to(device),
+            "c": torch.stack(cs).to(device)}
+
+
+_VOCODER_TREES = {}
+
+
+def _vocoder_tree(kind):
+    """A trainer's initial tree at paper width, as the CLI draws it (drawn
+    once a run: the flow's 181 M parameters take seconds)."""
+    if kind not in _VOCODER_TREES:
+        _VOCODER_TREES[kind] = _draw_vocoder_tree(kind)
+    return _VOCODER_TREES[kind]
+
+
+def _draw_vocoder_tree(kind):
+    from vqvae_speech_tpu_torch import convert
+    from vqvae_speech_tpu_torch.models.clarinet import (
+        GaussianWaveNetConfig,
+        StudentConfig,
+    )
+    from vqvae_speech_tpu_torch.models.flowavenet import FlowavenetConfig
+
+    if kind == "teacher":
+        return convert.numpy_gaussian_wavenet_params(GaussianWaveNetConfig(),
+                                                     SEED)
+    if kind == "student":
+        return convert.numpy_student_init(StudentConfig(), SEED)
+    return convert.numpy_flowavenet_init(FlowavenetConfig(), SEED)
+
+
+def _vocoder_step(kind, lr, dtype, device, teacher_tree):
+    """(optimizer, step) of one trainer at paper width, as the CLI builds
+    them."""
+    from vqvae_speech_tpu_torch.models.clarinet import (
+        GaussianWaveNetConfig,
+        StudentConfig,
+    )
+    from vqvae_speech_tpu_torch.models.flowavenet import FlowavenetConfig
+    from vqvae_speech_tpu_torch.train import vocoder
+
+    if kind == "teacher":
+        opt = vocoder.make_vocoder_optimizer(lr, clip_norm=10.0)
+        return opt, vocoder.make_teacher_train_step(
+            GaussianWaveNetConfig(), opt, compute_dtype=dtype)
+    if kind == "student":
+        opt = vocoder.make_vocoder_optimizer(lr, clip_norm=10.0)
+        return opt, vocoder.make_student_train_step(
+            GaussianWaveNetConfig(), StudentConfig(), teacher_tree, opt,
+            compute_dtype=dtype, device=device)
+    opt = vocoder.make_vocoder_optimizer(lr, clip_norm=1.0,
+                                         halve_every=200_000)
+    return opt, vocoder.make_flow_train_step(FlowavenetConfig(), opt,
+                                             compute_dtype=dtype)
+
+
+def _flow_init(tree, batch, device):
+    """The flow's data-dependent ActNorm init on ``batch``."""
+    from vqvae_speech_tpu_torch import convert
+    from vqvae_speech_tpu_torch.models.flowavenet import (
+        FlowavenetConfig,
+        actnorm_initialize,
+    )
+
+    return actnorm_initialize(convert.tensor_tree(tree, device),
+                              FlowavenetConfig(), batch["x"], batch["c"])
+
+
+def _first_gradients(state):
+    """The first step's (clipped) gradient leaves: 10 x the first moment."""
+    from vqvae_speech_tpu_torch.train.vocoder import tree_leaves
+
+    return [10.0 * m.detach().double().cpu() for m in tree_leaves(
+        state.opt_state.mu)]
+
+
+def _vocoder_step_on_both(kind, lr, teacher_tree, batch, z):
+    """One step of a trainer on the card and on the CPU from the same tree
+    and batch (and z): (loss card, loss CPU, gradient norm distance, worst
+    leaf distance)."""
+    import torch
+    from vqvae_speech_tpu_torch.train import vocoder
+
+    out = {}
+    tree = _vocoder_tree(kind)
+    if kind == "student":
+        # the serving-scale weights (each flow's last gain cut to a tenth):
+        # at the init's the four flows compound exp(logs), the loss is
+        # ~5.7e5, and the card's step and the CPU's parted by 1.3e-3 of the
+        # gradient's norm there (run R1)
+        from vqvae_speech_tpu_torch.convert import numpy_student_params
+        from vqvae_speech_tpu_torch.models.clarinet import StudentConfig
+
+        tree = numpy_student_params(StudentConfig(), SEED)
+    if kind == "flow":       # initialised once, on the CPU, for both
+        tree = _flow_init(tree, batch, "cpu")
+    for device in ("cuda", "cpu"):
+        b = {k: v.to(device) for k, v in batch.items()}
+        opt, step = _vocoder_step(kind, lr, None, device, teacher_tree)
+        state = vocoder.create_vocoder_state(tree, opt, device=device,
+                                             seed=SEED)
+        kw = {"z": z.to(device)} if kind == "student" else {}
+        state, res = step(state, b, **kw)
+        loss = res[0] if isinstance(res, tuple) else res
+        out[device] = (loss.item(), _first_gradients(state))
+        del state, step, b
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    norm = torch.sqrt(sum((g ** 2).sum() for g in gp)).item()
+    dist = torch.sqrt(sum(((a - b) ** 2).sum() for a, b in zip(gc, gp))
+                      ).item() / norm
+    floor = 1e-4 * max(b.abs().max().item() for b in gp)
+    leaf = max((a - b).abs().max().item() / max(b.abs().max().item(), floor)
+               for a, b in zip(gc, gp))
+    return lc, lp, dist, leaf
+
+
+def vocoder_train_phase(gpu):
+    """The three vocoder trainers at paper width on the card, f32 (TF32
+    off) and bf16, at the reference operating points; one step of each held
+    against the same step on the CPU."""
+    import torch
+    from vqvae_speech_tpu_torch import convert
+    from vqvae_speech_tpu_torch.models.clarinet import GaussianWaveNetConfig
+    from vqvae_speech_tpu_torch.train import vocoder
+
+    teacher_tree = convert.numpy_gaussian_wavenet_params(
+        GaussianWaveNetConfig(), SEED + 1)
+    # one step each, card against CPU, f32
+    B, T = VOCODER_CHECK
+    small = vocoder_train_batch(B, T, "cpu")
+    z = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (B, T, 1)).astype(np.float32))
+    for kind, (_, _, lr) in VOCODER_TRAIN.items():
+        t0 = time.perf_counter()
+        lc, lp, dist, leaf = _vocoder_step_on_both(kind, lr, teacher_tree,
+                                                   small, z)
+        if not (abs(lc - lp) <= VOCODER_CHECK_LOSS_RTOL * abs(lp)
+                and dist <= VOCODER_CHECK_GRAD_NORM
+                and leaf <= VOCODER_CHECK_GRAD_LEAF):
+            raise AssertionError(
+                f"vocoder train [{kind}]: the card's step is off the CPU's: "
+                f"loss {lc} vs {lp}, gradient distance {dist:.3e} of the "
+                f"norm, worst leaf {leaf:.3e} of its largest")
+        print(f"vocoder train [{kind}]: one f32 step at {B} x {T} on the "
+              f"card and on the CPU from the same tree: loss {lc:.6f} / "
+              f"{lp:.6f}, gradients {dist:.2e} of their norm apart, worst "
+              f"leaf {leaf:.2e} of its largest element "
+              f"({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+
+    ms = {}
+    for kind, (B, T, lr) in VOCODER_TRAIN.items():
+        batch = vocoder_train_batch(B, T, "cuda")
+        tree = _vocoder_tree(kind)
+        if kind == "flow":
+            tree = _flow_init(tree, batch, "cuda")
+        for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            opt, step = _vocoder_step(kind, lr, dtype, "cuda", teacher_tree)
+            state = vocoder.create_vocoder_state(tree, opt, device="cuda",
+                                                 seed=SEED)
+            losses = []
+            for _ in range(VOCODER_TRAIN_WARMUP):
+                state, res = step(state, batch)
+                losses.append(res[0] if isinstance(res, tuple) else res)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(VOCODER_TRAIN_STEPS):
+                state, res = step(state, batch)
+                losses.append(res[0] if isinstance(res, tuple) else res)
+            torch.cuda.synchronize()
+            sec = (time.perf_counter() - t0) / VOCODER_TRAIN_STEPS
+            losses = torch.stack(losses).cpu()
+            if not bool(torch.isfinite(losses).all()):
+                raise AssertionError(f"vocoder train [{kind} {name}]: "
+                                     f"non-finite loss {losses}")
+            ms[(kind, name)] = sec * 1e3
+            n = VOCODER_PROFILED_STEPS
+            window, busy = _device_profile(
+                lambda: [step(state, batch) for _ in range(n)])
+            total = sum(busy.values())
+            print(f"vocoder train [{kind} {name}]: batch {B} x {T}, "
+                  f"{VOCODER_TRAIN_WARMUP} + {VOCODER_TRAIN_STEPS} steps, "
+                  f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {sec * 1e3:.2f} "
+                  f"ms a step ({B * T / sec:.0f} samples/s; host clock "
+                  f"ending in a sync); {n} profiled steps: window "
+                  f"{window / n * 1e3:.2f} ms a step, device busy "
+                  f"{total / n / 1e3:.2f} ms, idle share "
+                  f"{1 - total / 1e6 / window:.3f} [{gpu}]")
+            for key, us in sorted(busy.items(), key=lambda kv: -kv[1])[:6]:
+                print(f"  {us / n / 1e3:10.3f} ms a step ({us / total:.3f})"
+                      f"  {key[:90]}")
+            del state, step
+            torch.cuda.empty_cache()
+    print("vocoder train: bf16 against f32 ms a step: " + ", ".join(
+        f"{k} {ms[(k, 'bf16')]:.2f} / {ms[(k, 'f32')]:.2f}"
+        for k in VOCODER_TRAIN) + f" [{gpu}]")
+    return ms
+
+
+def teacher_generate_phase(gpu):
+    """K2 at the ClariNet teacher's shape against the plain stack, then the
+    teacher's synthesis at paper width through K2 and through the plain
+    stack on the same noise; returns (K2 launches, max abs error, ms, plain
+    ms, bound)."""
+    import torch
+    from vqvae_speech_tpu_torch.convert import (
+        load_gaussian_wavenet_params,
+        numpy_gaussian_wavenet_params,
+    )
+    from vqvae_speech_tpu_torch.models.clarinet import (
+        GaussianWaveNetConfig,
+        gaussian_wavenet_generate,
+    )
+    from vqvae_speech_tpu_torch.models.clarinet.wavenet import (
+        pack_layer_stack,
+    )
+    from vqvae_speech_tpu_torch.ops import (
+        glu_stack_step_torch,
+        prepare_glu_stack_step,
+    )
+    from vqvae_speech_tpu_torch.ops._kernels import wavenet_step_cuda
+
+    cfg = GaussianWaveNetConfig()
+    params = load_gaussian_wavenet_params(
+        numpy_gaussian_wavenet_params(cfg, SEED), cfg, "cuda")
+    w = pack_layer_stack(params)
+    L, k, C, G = w[0].shape
+    S = w[2].shape[2]
+    rng = np.random.default_rng(SEED)
+
+    def unit(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda()
+
+    x0, taps, cond = unit(1, C), unit(L, k - 1, 1, C), unit(L, 1, G)
+    step = prepare_glu_stack_step(*w, batch=1)
+    got = [t.clone() for t in step(x0, taps, cond)]
+    again = step(x0, taps, cond)
+    want = glu_stack_step_torch(x0, taps, cond, *w)
+    torch.cuda.synchronize()
+    err = max((g - p).abs().max().item() for g, p in zip(got, want))
+    for g, g2, p in zip(got, again, want):
+        torch.testing.assert_close(g, p, rtol=1e-4, atol=1e-4)
+        if not torch.equal(g, g2):
+            raise AssertionError("teacher K2: two runs differ")
+    ms = _per_launch_ms(lambda: step(x0, taps, cond))
+    plain_ms = _per_launch_ms(lambda: glu_stack_step_torch(x0, taps, cond,
+                                                           *w))
+    bound = wavenet_step_bound(L, k, 1, C, G, S)
+    weight_mb = 4 * sum(t.numel() for t in (w[0], w[2], w[4])) / 1e6
+    print(f"teacher K2: L={L} k={k} B=1 C={C} G={G} S={S}: max_abs_err "
+          f"{err:.3e} against glu_stack_step_torch, two runs bit-equal; "
+          f"kernel {ms:.4f} ms a step, plain {plain_ms:.4f} ms (mean of 100 "
+          f"back-to-back launches, CUDA events); bound {bound[0]:.4f} ms "
+          f"({bound[1]}: {weight_mb:.1f} MB of weights) [{gpu}]")
+
+    # the synthesis: a VCTK request's first frames, the same noise both ways
+    mel = torch.from_numpy(vocoder_requests("cpu")[0][None, :2]).cuda()
+    noise = unit(TEACHER_STEPS, 1)
+    wavenet_step_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wave = gaussian_wavenet_generate(params, cfg, TEACHER_STEPS, mel,
+                                     noise=noise)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = wavenet_step_cuda.launches
+    if launches != TEACHER_STEPS:
+        raise AssertionError(f"teacher generate: {launches} K2 launches in "
+                             f"{TEACHER_STEPS} steps")
+    t0 = time.perf_counter()
+    plain = gaussian_wavenet_generate(params, cfg, TEACHER_STEPS, mel,
+                                      noise=noise, plain=True)
+    torch.cuda.synchronize()
+    plain_sec = time.perf_counter() - t0
+    gen_err = (wave - plain).abs().max().item()
+    if not (gen_err <= TEACHER_GENERATE_TOL and torch.isfinite(wave).all()
+            and wave.std().item() > 0.01):
+        raise AssertionError(f"teacher generate: K2 wave off the plain "
+                             f"stack's by {gen_err:.3e} (std "
+                             f"{wave.std().item():.3e})")
+    print(f"teacher generate: paper width, {TEACHER_STEPS} steps at batch 1 "
+          f"on the same noise: {launches} K2 launches, wave within "
+          f"{gen_err:.3e} of the plain stack's (tolerance "
+          f"{TEACHER_GENERATE_TOL}); {sec / TEACHER_STEPS * 1e3:.3f} ms a "
+          f"step through K2, {plain_sec / TEACHER_STEPS * 1e3:.3f} ms through "
+          f"the plain stack (host clock ending in a sync) [{gpu}]")
+    return launches, err, ms, plain_ms, bound
+
+
+def _vocoder_cli_corpus(root):
+    """An LJSpeech-layout tree (wavs/ of links, metadata.csv) of the first
+    VOCODER_CLI_WAVS wavs of each speaker of the tracked VCTK subset."""
+    wav48 = os.path.join(CORPUS_ROOT, "VCTK-Corpus", "wav48")
+    os.makedirs(os.path.join(root, "wavs"))
+    lines = []
+    for speaker in sorted(os.listdir(wav48)):
+        for name in sorted(os.listdir(os.path.join(
+                wav48, speaker)))[:VOCODER_CLI_WAVS]:
+            stem = name[:-len(".wav")]
+            os.symlink(os.path.join(wav48, speaker, name),
+                       os.path.join(root, "wavs", name))
+            lines.append(f"{stem}|text|text")
+    with open(os.path.join(root, "metadata.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return len(lines)
+
+
+def vocoder_cli_phase(gpu):
+    """The port's vocoder CLI in process at paper width on the card:
+    preprocess, one epoch of each trainer at batch 8 (the teacher resumed to
+    two), then synthesis by each from a 20-frame mel; returns the launches
+    of K2, K3 and K4 in it."""
+    import tempfile
+
+    from scipy.io import wavfile
+    from vqvae_speech_tpu_torch.ops import _kernels
+    from vqvae_speech_tpu_torch.train.vocoder import load_vocoder_checkpoint
+    from vqvae_speech_tpu_torch.vocoder_main import main as vocoder_main
+
+    wrappers = {"step": _kernels.wavenet_step_cuda,
+                "tiled": _kernels.fused_block_chain_tiled_cuda,
+                "nc": _kernels.fused_block_chain_nc_cuda}
+    counts = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_vocoder_cli_")
+
+    def run(*argv):
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        if vocoder_main(list(argv)) != 0:
+            raise AssertionError(f"vocoder cli: {argv[0]} failed")
+        return (time.perf_counter() - t0,
+                {k: w.launches for k, w in wrappers.items()})
+
+    try:
+        lj, data, ckpt = (os.path.join(work, d) for d in ("lj", "data", "ck"))
+        n = _vocoder_cli_corpus(lj)
+        sec, _ = run("preprocess", "--in_dir", lj, "--out_dir", data)
+        print(f"vocoder cli: preprocess {n} wavs in {sec:.1f} s")
+        common = ["--data_root", data, "--checkpoint_dir", ckpt,
+                  "--batch_size", "8", "--device", "cuda"]
+        teacher = os.path.join(ckpt, "teacher_best.pkl")
+        for argv in (["train-teacher", "--epochs", "1"],
+                     ["train-teacher", "--epochs", "2", "--resume",
+                      os.path.join(ckpt, "teacher_0.pkl")],
+                     ["train-student", "--epochs", "1",
+                      "--teacher_checkpoint", teacher],
+                     ["train-flow", "--epochs", "1"]):
+            sec, launched = run(*argv, *common)
+            if argv[0] == "train-flow":
+                counts["nc"] = counts.get("nc", 0) + launched["nc"]
+            print(f"vocoder cli: {' '.join(argv[:3])} {sec:.1f} s "
+                  f"(launches {launched})")
+        files = set(os.listdir(ckpt))
+        for name, epochs in (("teacher", 2), ("student", 1), ("flow", 1)):
+            want = {f"{name}_best.pkl", f"{name}.npy", f"{name}_train.npy",
+                    *(f"{name}_{e}.pkl" for e in range(epochs))}
+            if not want <= files:
+                raise AssertionError(f"vocoder cli: {sorted(want - files)} "
+                                     "missing")
+            losses = np.load(os.path.join(ckpt, f"{name}_train.npy"))
+            if losses.shape != (epochs,) or not np.isfinite(losses).all():
+                raise AssertionError(f"vocoder cli: {name} losses {losses}")
+        resumed = load_vocoder_checkpoint(os.path.join(ckpt, "teacher_1.pkl"))
+        steps = resumed["step"]
+        if int(resumed["opt_state"][1][0]) != steps or steps % 2:
+            raise AssertionError("vocoder cli: the resumed teacher's counts")
+        if "generate_flow_0.wav" not in files:
+            raise AssertionError("vocoder cli: no on_best sample of the flow")
+        sizes = {n: os.path.getsize(os.path.join(ckpt, f"{n}_best.pkl"))
+                 for n in ("teacher", "student", "flow")}
+        mel_path = os.path.join(work, "mel.npy")
+        np.save(mel_path, np.load(os.path.join(
+            data, "ljspeech-mel-00001.npy"))[:VOCODER_CLI_FRAMES])
+        for kind, wrapper, per in (("teacher", "step", 256),
+                                   ("student", "tiled", None),
+                                   ("flow", "nc", None)):
+            out = os.path.join(work, f"{kind}.wav")
+            argv = [f"synthesize-{kind}", "--checkpoint",
+                    os.path.join(ckpt, f"{kind}_best.pkl"),
+                    "--mel_path", mel_path, "--out_wav", out,
+                    "--device", "cuda"]
+            if kind == "student":
+                argv += ["--teacher_checkpoint", teacher]
+            sec, launched = run(*argv)
+            counts[wrapper] = counts.get(wrapper, 0) + launched[wrapper]
+            want = {"step": VOCODER_CLI_FRAMES * 256, "tiled": 7,
+                    "nc": 48}[wrapper]
+            rate, wave = wavfile.read(out)
+            if (launched[wrapper] != want or rate != VOCODER_RATE
+                    or wave.shape != (VOCODER_CLI_FRAMES * 256,)
+                    or not wave.std() > 0):
+                raise AssertionError(
+                    f"vocoder cli: synthesize-{kind}: {launched} launches "
+                    f"(want {want} of {wrapper}), wave {wave.shape} at "
+                    f"{rate} Hz")
+            print(f"vocoder cli: synthesize-{kind} of {VOCODER_CLI_FRAMES} "
+                  f"frames in {sec:.2f} s: {launched[wrapper]} launches of "
+                  f"{wrappers[wrapper].__name__}, {wave.shape[0]} samples "
+                  f"[{gpu}]")
+        print(f"vocoder cli: checkpoints {sizes} bytes; the resumed teacher "
+              f"at step {steps}")
+    finally:
+        shutil.rmtree(work)
+    return counts
+
+
 PHASES = ("kernel", "slice", "pth_import", "train", "experiment", "evaluate",
           "wavenet_train", "step_kernel", "synthesis", "continuous",
-          "chain_kernel", "vocoder")
+          "chain_kernel", "vocoder", "vocoder_train", "teacher_generate",
+          "vocoder_cli")
 # what a run may not import: the card's machine has none of them, and the
 # port needs none
 FORBIDDEN_IMPORTS = ("jax", "vqvae_speech_tpu", "sklearn", "matplotlib")
@@ -3377,7 +3862,10 @@ def main():
                     ("synthesis", synthesis_phase, (gpu,)),
                     ("continuous", continuous_phase, (gpu,)),
                     ("chain_kernel", chain_kernel_phase, (gpu,)),
-                    ("vocoder", vocoder_phase, (gpu,))):
+                    ("vocoder", vocoder_phase, (gpu,)),
+                    ("vocoder_train", vocoder_train_phase, (gpu,)),
+                    ("teacher_generate", teacher_generate_phase, (gpu,)),
+                    ("vocoder_cli", vocoder_cli_phase, (gpu,))):
                 if name in only:
                     phase(fn, *args)
             _check_imports()
@@ -3404,6 +3892,10 @@ def main():
     cont_step_launches, cont_vq_launches = phase(continuous_phase, gpu)
     chains = phase(chain_kernel_phase, gpu)
     chain_launches = phase(vocoder_phase, gpu)
+    phase(vocoder_train_phase, gpu)
+    (teacher_launches, teacher_err, teacher_ms, teacher_plain_ms,
+     teacher_bound) = phase(teacher_generate_phase, gpu)
+    cli_launches = phase(vocoder_cli_phase, gpu)
     _check_imports()
     _print_retaken()
 
@@ -3436,15 +3928,24 @@ def main():
              device_ms=vq_device_ms),
         line("wavenet_step", "wavenet_step.cu",
              "vqvae_speech_tpu/ops/wavenet_step.py:35",
-             step_launches + cont_step_launches,
+             step_launches + cont_step_launches + teacher_launches
+             + cli_launches["step"],
              dict(max_abs_err=step_err, ms=step_ms, plain_ms=step_plain_ms,
-                  bound_ms=step_bound[0], bound_by=step_bound[1])),
+                  bound_ms=step_bound[0], bound_by=step_bound[1]),
+             # the ClariNet teacher's shape (L=24, k=3, B=1, C=128, G=512,
+             # S=128): its generate and the CLI's synthesize-teacher
+             teacher=dict(max_abs_err=teacher_err, ms=teacher_ms,
+                          plain_ms=teacher_plain_ms,
+                          bound_ms=teacher_bound[0],
+                          bound_by=teacher_bound[1],
+                          launches=teacher_launches + cli_launches["step"])),
         line("fused_block_chain_tiled", "fused_resblock.cu",
              "vqvae_speech_tpu/ops/fused_resblock.py:95",
-             chain_launches["tiled"], chains["tiled"]),
+             chain_launches["tiled"] + cli_launches["tiled"],
+             chains["tiled"]),
         line("fused_block_chain_nc", "fused_resblock.cu",
              "vqvae_speech_tpu/ops/fused_resblock.py:215",
-             chain_launches["nc"], chains["nc"]),
+             chain_launches["nc"] + cli_launches["nc"], chains["nc"]),
         line("fused_block_chain", "fused_resblock.cu",
              "vqvae_speech_tpu/ops/fused_resblock.py:65",
              chain_launches["chain"], chains["chain"]),

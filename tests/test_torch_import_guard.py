@@ -309,3 +309,55 @@ def test_wavenet_training_bf16_and_pth_import_without_jax_or_yaml(tmp_path):
             REPO_ROOT, "configurations", "vctk_features.yaml")))
         .replace("{{", "{").replace("}}", "}"), tmp_path)
     assert out.split()[-3:] == ["trained", "1", "[]"]
+
+
+def test_the_vocoder_cli_trains_and_synthesizes_without_jax(tmp_path):
+    """The vocoder slice (train/vocoder.py, data/ljspeech.py,
+    models/clarinet/loss.py, vocoder_main.py) with JAX, optax and PyYAML
+    unimportable: preprocess an LJSpeech-layout tree, one epoch of each
+    trainer at --tiny, a resume, then synthesis from each checkpoint."""
+    out = _run("""
+        import os
+        import numpy as np
+        import torch
+        from scipy.io import wavfile
+        from vqvae_speech_tpu_torch.vocoder_main import main
+
+        torch.set_num_threads(1)     # the --tiny widths: as fast, and the
+                                     # test processes share the cores
+        os.makedirs("lj/wavs")
+        rng = np.random.default_rng(0)
+        with open("lj/metadata.csv", "w") as f:
+            for i in range(4):
+                t = np.arange(22050) / 22050.0
+                sig = 0.5 * np.sin(2 * np.pi * (200 + 50 * i) * t)
+                sig += 0.01 * rng.standard_normal(len(t))
+                wavfile.write(f"lj/wavs/LJ001-{i:04d}.wav", 22050,
+                              (sig * 32767).astype(np.int16))
+                f.write(f"LJ001-{i:04d}|text|text {i}\\n")
+        assert main(["preprocess", "--in_dir", "lj", "--out_dir", "data"]) == 0
+        common = ["--data_root", "data", "--checkpoint_dir", "ck",
+                  "--batch_size", "2", "--tiny", "--device", "cpu"]
+        assert main(["train-teacher", "--epochs", "1"] + common) == 0
+        assert main(["train-teacher", "--epochs", "2",
+                     "--resume", "ck/teacher_0.pkl"] + common) == 0
+        assert main(["train-student", "--epochs", "1",
+                     "--teacher_checkpoint", "ck/teacher_best.pkl"]
+                    + common) == 0
+        assert main(["train-flow", "--epochs", "1"] + common) == 0
+        np.save("mel.npy", np.load("data/ljspeech-mel-00001.npy")[:2])
+        for kind in ("teacher", "student", "flow"):
+            args = [f"synthesize-{kind}", "--checkpoint",
+                    f"ck/{kind}_best.pkl", "--mel_path", "mel.npy",
+                    "--out_wav", f"{kind}.wav", "--tiny", "--device", "cpu"]
+            if kind == "student":
+                args += ["--teacher_checkpoint", "ck/teacher_best.pkl"]
+            assert main(args) == 0
+            assert wavfile.read(f"{kind}.wav")[1].shape == (512,)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "optax", "yaml", "vqvae_speech_tpu")
+                     and sys.modules[m] is not None)
+        print("vocoders", sorted(os.listdir("ck"))[:3], bad)
+    """, tmp_path)
+    last = out.splitlines()[-1].split()
+    assert last[0] == "vocoders" and last[-1] == "[]"

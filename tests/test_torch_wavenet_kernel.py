@@ -82,6 +82,7 @@ def assert_kernel_matches_plain(args, legacy):
     (20, 3, 64, 768, 768, 256, True),    # two full groups
     (20, 3, 100, 768, 768, 256, True),   # 32, 32, 32 and 4
     (3, 3, 70, 20, 136, 12, False),      # ragged tiles in groups
+    (24, 3, 1, 128, 512, 128, False),    # the ClariNet teacher's generate
 ])
 def test_kernel_matches_plain(cuda, L, k, B, C, G, S, legacy):
     args = stack_inputs(L, k, B, C, G, S, seed=L + k + B, device=cuda)
@@ -386,3 +387,37 @@ def test_bucketed_server_at_max_batch_64_runs_the_kernel(cuda):
         assert wavenet_step_cuda.launches == steps * (max_batch // 32)
     for a, b in zip(waves[64], waves[32]):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_teacher_generate_through_the_kernel(cuda):
+    """The ClariNet teacher's synthesis (``gaussian_wavenet_generate``) at
+    the paper's width (24 layers, k=3, C=128, 2 x 256 gate, S=128), batch 1,
+    256 steps on the same noise: one kernel launch a step, and the wave
+    within 1e-4 of the plain stack's (``plain=True``) on the same CUDA
+    weights (each sample feeds the next steps; the sums run in another
+    order)."""
+    from vqvae_speech_tpu_torch.convert import (
+        load_gaussian_wavenet_params,
+        numpy_gaussian_wavenet_params,
+    )
+    from vqvae_speech_tpu_torch.models.clarinet import (
+        GaussianWaveNetConfig,
+        gaussian_wavenet_generate,
+    )
+
+    cfg = GaussianWaveNetConfig()
+    params = load_gaussian_wavenet_params(
+        numpy_gaussian_wavenet_params(cfg, 0), cfg, cuda)
+    rng = np.random.default_rng(0)
+    c = torch.from_numpy(rng.random((1, 1, 80)).astype(np.float32)).to(cuda)
+    noise = torch.from_numpy(rng.standard_normal((256, 1)).astype(
+        np.float32)).to(cuda)
+    before = wavenet_step_cuda.launches
+    got = gaussian_wavenet_generate(params, cfg, 256, c, noise=noise)
+    assert wavenet_step_cuda.launches == before + 256
+    want = gaussian_wavenet_generate(params, cfg, 256, c, noise=noise,
+                                     plain=True)
+    assert wavenet_step_cuda.launches == before + 256
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert got.std() > 0.01

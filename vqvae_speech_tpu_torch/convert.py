@@ -17,14 +17,20 @@ tensor trees, not modules: ``load_gaussian_wavenet_params``,
 ``load_student_params`` and ``load_flowavenet_params`` turn a JAX tree into
 the same tree of tensors on a device, with every conv's weight norm resolved
 to ``{"w": (Cout, Cin, K), "b"}`` and each resblock chain's weights stacked
-for the fused chain under ``"chains"``. With ``compute_dtype=torch.bfloat16``
-they load the tree as the JAX package's bf16 models see it: every leaf cast
-to bf16 FIRST, the weight norm then resolved in bf16 op by op (the square
-in bf16, its sum in f32, the norm rounded to bf16), which equals JAX's eager
-``conv_weight`` on the cast tree in every element; resolving in f32 and
-casting after differs in ~45% of them. ``numpy_gaussian_wavenet_params``,
-``numpy_student_params`` and ``numpy_flowavenet_params`` build random trees
-in the JAX layout that both packages load.
+for the fused chain under ``"chains"``. They call the ``resolve_*``
+functions, which do the same with plain differentiable ops on a tree of
+tensors: training keeps its parameters as a JAX-layout tree of f32 leaves
+(``tensor_tree``; ``numpy_tree`` is the way back) and resolves it inside
+autograd on every forward. With ``compute_dtype=torch.bfloat16`` every leaf
+is cast to bf16 FIRST and the weight norm then resolved in bf16 op by op
+(the square in bf16, its sum in f32, the norm rounded to bf16), which equals
+JAX's eager ``conv_weight`` on the cast tree in every element; resolving in
+f32 and casting after differs in ~45% of them.
+``numpy_gaussian_wavenet_params``, ``numpy_student_params`` and
+``numpy_flowavenet_params`` build random trees in the JAX layout that both
+packages load (the student's and the flow's changed where a serving test
+needs them to reach the wave); ``numpy_student_init`` and
+``numpy_flowavenet_init`` follow the JAX inits' distributions, for training.
 """
 import math
 from typing import NamedTuple
@@ -359,6 +365,48 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device, dtype or torch.float32)
 
 
+def tensor_tree(tree, device, requires_grad: bool = False):
+    """A JAX-layout tree (dicts and lists of numpy arrays or tensors) as f32
+    tensors on ``device`` with the same structure; with ``requires_grad``
+    each leaf is a leaf tensor that takes gradients (the trainable form of a
+    vocoder's parameters). Tensors given are copied, never shared."""
+    if isinstance(tree, dict):
+        return {k: tensor_tree(v, device, requires_grad)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tensor_tree(v, device, requires_grad) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().to(device, torch.float32, copy=True)
+    else:
+        t = _tensor(tree, device)
+    return t.requires_grad_(requires_grad)
+
+
+def numpy_tree(tree):
+    """A tensor tree as the JAX package's host tree: the same nesting of
+    dicts and lists, every leaf a numpy array (a copy: never a view of a
+    CPU tensor that a training step updates in place)."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [numpy_tree(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True).numpy()
+    return np.asarray(tree)
+
+
+def _move(tree, device):
+    if isinstance(tree, dict):
+        return {k: _move(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_move(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    return t if dtype is None or t.dtype == dtype else t.to(dtype)
+
+
 def _weight_norm(v: torch.Tensor, g: torch.Tensor, dims) -> torch.Tensor:
     """g * v / ||v||, the norm over ``dims``, in v's dtype. Below f32 each
     op rounds as JAX's do: v**2 in that dtype, summed in f32 (``jnp.sum``
@@ -371,115 +419,109 @@ def _weight_norm(v: torch.Tensor, g: torch.Tensor, dims) -> torch.Tensor:
     return g * v / norm
 
 
-def _resolved_conv(p: dict, device, dtype=None) -> dict:
+# The resolvers map a JAX-layout tree of TENSORS to the trees the vocoders'
+# functions take, with plain differentiable ops: training calls them inside
+# autograd on every forward (the gradients reach the f32 leaves), serving
+# once at load (the ``load_*`` functions). With ``compute_dtype`` every leaf
+# is cast first and the weight norm resolved after, as the JAX package's
+# bf16 models do.
+
+
+def resolve_conv(p: dict, compute_dtype=None) -> dict:
     """A JAX conv ``{v, g, b}`` or ``{w, b}`` (kernel (K, Cin, Cout)) as
     ``{"w": (Cout, Cin, K), "b"}`` with ``w = g * v / ||v||``, the norm over
-    (K, Cin) (``nn/conv.py::conv_weight``), every leaf cast to ``dtype``
-    (None: f32) before the norm is resolved."""
+    (K, Cin) (``nn/conv.py::conv_weight``)."""
     if "v" in p:
-        w = _weight_norm(_tensor(p["v"], "cpu", dtype),
-                         _tensor(p["g"], "cpu", dtype), (0, 1))
+        w = _weight_norm(_cast(p["v"], compute_dtype),
+                         _cast(p["g"], compute_dtype), (0, 1))
     else:
-        w = _tensor(p["w"], "cpu", dtype)
-    return {"w": w.permute(2, 1, 0).contiguous().to(device),
-            "b": _tensor(p["b"], device, dtype)}
+        w = _cast(p["w"], compute_dtype)
+    return {"w": w.permute(2, 1, 0).contiguous(),
+            "b": _cast(p["b"], compute_dtype)}
+
+
+def resolve_upsample(stages, compute_dtype=None) -> list:
+    """ClariNet upsampling stages ``{v (3, 2s, 1, 1), g (1,), b (1,)}`` with
+    the weight norm taken over the WHOLE kernel, as ConvTranspose2d weights
+    (1, 1, 3, 2s)."""
+    out = []
+    for p in stages:
+        v = _cast(p["v"], compute_dtype)
+        w = _weight_norm(v, _cast(p["g"], compute_dtype)[0],
+                         tuple(range(v.dim())))
+        out.append({"w": w[:, :, 0, 0][None, None].contiguous(),
+                    "b": _cast(p["b"], compute_dtype)})
+    return out
 
 
 _RESBLOCK_CONVS = ("filter_conv", "gate_conv", "res_conv", "skip_conv",
                    "filter_conv_c", "gate_conv_c")
 
 
-def load_upsample_params(stages, device, compute_dtype=None) -> list:
-    """ClariNet upsampling stages ``{v (3, 2s, 1, 1), g (1,), b (1,)}`` with
-    the weight norm taken over the WHOLE kernel, as ConvTranspose2d weights
-    (1, 1, 3, 2s), in ``compute_dtype`` (None: f32; cast before the norm is
-    resolved, as JAX does)."""
-    out = []
-    for p in stages:
-        v = _tensor(p["v"], "cpu", compute_dtype)
-        w = _weight_norm(v, _tensor(p["g"], "cpu", compute_dtype)[0],
-                         tuple(range(v.dim())))
-        out.append({"w": w[:, :, 0, 0][None, None].contiguous().to(device),
-                    "b": _tensor(p["b"], device, compute_dtype)})
+def _resolve_net(tree: dict, total_layers: int, num_layers: int, head,
+                 compute_dtype, chains: bool) -> dict:
+    """A resblock net (the Gaussian WaveNet, a coupling or prior net): the
+    front conv, every resblock's convs, the ``head`` convs and, with
+    ``chains``, each run of ``num_layers`` blocks stacked for the fused
+    chain under ``"chains"`` (weights in ``compute_dtype``, biases f32)."""
+    if len(tree["res_blocks"]) != total_layers:
+        raise ValueError(f"{len(tree['res_blocks'])} resblocks in the "
+                         f"params, {total_layers} in the config")
+    blocks = [{n: resolve_conv(p[n], compute_dtype) for n in _RESBLOCK_CONVS}
+              for p in tree["res_blocks"]]
+    out = {"front_conv": resolve_conv(tree["front_conv"], compute_dtype),
+           "res_blocks": blocks}
+    for name in head:
+        out[name] = resolve_conv(tree[name], compute_dtype)
+    if chains:
+        out["chains"] = [
+            stack_block_weights(blocks[at:at + num_layers], compute_dtype)
+            for at in range(0, total_layers, num_layers)]
     return out
 
 
-def _resolved_resblocks(tree, total_layers, num_layers, device,
-                        prepare_chains=False, compute_dtype=None):
-    """(res_blocks, chains): every resblock's convs resolved in
-    ``compute_dtype``, and each run of ``num_layers`` blocks stacked for the
-    fused chain (weights in ``compute_dtype``, biases f32) and, with
-    ``prepare_chains``, bound to the chain kernel once
-    (``ops.fused_resblock.prepare_block_chain``: on a CUDA device about
-    twice the chains' weights of device memory more at f32, as much at bf16;
-    a no-op on the CPU)."""
-    if len(tree) != total_layers:
-        raise ValueError(f"{len(tree)} resblocks in the params, "
-                         f"{total_layers} in the config")
-    blocks = [{n: _resolved_conv(p[n], device, compute_dtype)
-               for n in _RESBLOCK_CONVS} for p in tree]
-    chains = [stack_block_weights(blocks[at:at + num_layers], compute_dtype)
-              for at in range(0, total_layers, num_layers)]
-    if prepare_chains:
-        chains = [prepare_block_chain(c) for c in chains]
-    return blocks, chains
+def resolve_gaussian_wavenet(tree: dict, cfg: GaussianWaveNetConfig,
+                             compute_dtype=None, chains: bool = False) -> dict:
+    """A ``gaussian_wavenet_init``-shaped tensor tree as the tree
+    ``gaussian_wavenet_core`` and ``gaussian_wavenet_generate`` take (and,
+    with ``chains``, ``gaussian_wavenet_core_fused``)."""
+    out = _resolve_net(tree, cfg.total_layers, cfg.num_layers,
+                       ("final_conv_1", "final_conv_2"), compute_dtype, chains)
+    out["upsample_conv"] = resolve_upsample(tree["upsample_conv"],
+                                            compute_dtype)
+    return out
 
 
-def load_gaussian_wavenet_params(tree: dict, cfg: GaussianWaveNetConfig,
-                                 device, prepare_chains=False,
-                                 compute_dtype=None) -> dict:
-    """A ``gaussian_wavenet_init``-shaped tree as tensors on ``device`` in
-    ``compute_dtype`` (None: f32); ``prepare_chains`` as in
-    ``_resolved_resblocks``, for the fused path."""
-    blocks, chains = _resolved_resblocks(tree["res_blocks"], cfg.total_layers,
-                                         cfg.num_layers, device,
-                                         prepare_chains, compute_dtype)
-
-    def conv(name):
-        return _resolved_conv(tree[name], device, compute_dtype)
-
-    return {"front_conv": conv("front_conv"),
-            "res_blocks": blocks, "chains": chains,
-            "final_conv_1": conv("final_conv_1"),
-            "final_conv_2": conv("final_conv_2"),
-            "upsample_conv": load_upsample_params(tree["upsample_conv"], device,
-                                                  compute_dtype)}
-
-
-def load_student_params(tree: dict, cfg: StudentConfig, device,
-                        prepare_chains=False, compute_dtype=None) -> dict:
-    """A ``wavenet_student_init``-shaped tree as tensors on ``device`` in
-    ``compute_dtype`` (None: f32); ``prepare_chains`` binds every chain to
-    the chain kernel at load."""
+def resolve_student(tree: dict, cfg: StudentConfig, compute_dtype=None,
+                    chains: bool = False) -> dict:
+    """A ``wavenet_student_init``-shaped tensor tree as the tree
+    ``wavenet_student_apply`` takes."""
     if len(tree["iafs"]) != cfg.num_flow:
         raise ValueError(f"{len(tree['iafs'])} flows in the params, "
                          f"{cfg.num_flow} in the config")
-    return {"iafs": [load_gaussian_wavenet_params(p, cfg.flow_config(i), device,
-                                                  prepare_chains, compute_dtype)
+    return {"iafs": [resolve_gaussian_wavenet(p, cfg.flow_config(i),
+                                              compute_dtype, chains)
                      for i, p in enumerate(tree["iafs"])]}
 
 
-def _load_coupling_net(tree: dict, cfg: CouplingNetConfig, device,
-                       prepare_chains=False, compute_dtype=None) -> dict:
-    blocks, chains = _resolved_resblocks(tree["res_blocks"], cfg.total_layers,
-                                         cfg.num_layers, device,
-                                         prepare_chains, compute_dtype)
-    return {"front_conv": _resolved_conv(tree["front_conv"], device,
-                                         compute_dtype),
-            "res_blocks": blocks, "chains": chains,
-            "final_conv_1": _resolved_conv(tree["final_conv_1"], device,
-                                           compute_dtype),
-            "final_zero_conv": {n: _tensor(tree["final_zero_conv"][n], device,
-                                           compute_dtype)
-                                for n in ("w", "b", "scale")}}
+def resolve_coupling_net(tree: dict, cfg: CouplingNetConfig,
+                         compute_dtype=None, chains: bool = False) -> dict:
+    """A ``coupling_net_init``-shaped tensor tree as the tree
+    ``coupling_net_apply`` takes."""
+    out = _resolve_net(tree, cfg.total_layers, cfg.num_layers,
+                       ("final_conv_1",), compute_dtype, chains)
+    out["final_zero_conv"] = {n: _cast(tree["final_zero_conv"][n],
+                                       compute_dtype)
+                              for n in ("w", "b", "scale")}
+    return out
 
 
-def load_flowavenet_params(tree: dict, cfg: FlowavenetConfig, device,
-                           prepare_chains=False, compute_dtype=None) -> dict:
-    """A ``flowavenet_init``-shaped tree as tensors on ``device`` in
-    ``compute_dtype`` (None: f32); ``prepare_chains`` binds every coupling
-    chain to the chain kernel at load (the priors' nets are not fused and
-    stay as they are)."""
+def resolve_flowavenet(tree: dict, cfg: FlowavenetConfig, compute_dtype=None,
+                       chains: bool = False) -> dict:
+    """A ``flowavenet_init``-shaped tensor tree as the tree
+    ``flowavenet_reverse`` takes: the ActNorms cast, every coupling and
+    prior net resolved (``"chains"`` for the couplings only: the priors are
+    never fused)."""
     if len(tree["blocks"]) != cfg.n_block:
         raise ValueError(f"{len(tree['blocks'])} blocks in the params, "
                          f"{cfg.n_block} in the config")
@@ -493,19 +535,89 @@ def load_flowavenet_params(tree: dict, cfg: FlowavenetConfig, device,
                              "config")
         net_cfg = _flow_net_cfg(cfg, sq, sqc)
         block = {"flows": [
-            {"actnorm": {n: _tensor(f["actnorm"][n], device, compute_dtype)
+            {"actnorm": {n: _cast(f["actnorm"][n], compute_dtype)
                          for n in ("loc", "scale")},
-             "coupling": _load_coupling_net(f["coupling"], net_cfg, device,
-                                            prepare_chains, compute_dtype)}
+             "coupling": resolve_coupling_net(f["coupling"], net_cfg,
+                                              compute_dtype, chains)}
             for f in src["flows"]]}
         if cfg.split_at(i):
-            block["prior"] = _load_coupling_net(
-                src["prior"], _prior_net_cfg(sq, sqc), device,
-                compute_dtype=compute_dtype)
+            block["prior"] = resolve_coupling_net(
+                src["prior"], _prior_net_cfg(sq, sqc), compute_dtype)
         blocks.append(block)
     return {"blocks": blocks,
-            "upsample_conv": load_upsample_params(tree["upsample_conv"], device,
-                                                  compute_dtype)}
+            "upsample_conv": resolve_upsample(tree["upsample_conv"],
+                                              compute_dtype)}
+
+
+def _prepared(tree):
+    """Every ``"chains"`` list of a resolved tree bound to the chain kernel
+    (``ops.fused_resblock.prepare_block_chain``: on a CUDA device about
+    twice the chains' weights of device memory more at f32, as much at bf16;
+    a no-op on the CPU)."""
+    if isinstance(tree, list):
+        return [_prepared(t) for t in tree]
+    if not isinstance(tree, dict):
+        return tree
+    return {k: ([prepare_block_chain(c) for c in v] if k == "chains"
+                else _prepared(v)) for k, v in tree.items()}
+
+
+def _load(resolve, tree, cfg, device, prepare_chains, compute_dtype):
+    """Resolve a numpy (or tensor) tree on the CPU with its chains stacked,
+    move it to ``device`` and, with ``prepare_chains``, bind its chains."""
+    with torch.no_grad():
+        out = _move(resolve(tensor_tree(tree, "cpu"), cfg, compute_dtype,
+                            chains=True), device)
+    return _prepared(out) if prepare_chains else out
+
+
+def _resolved_conv(p: dict, device, dtype=None) -> dict:
+    """One JAX conv of numpy arrays, resolved in ``dtype`` (None: f32) on
+    the CPU and moved to ``device``."""
+    with torch.no_grad():
+        return _move(resolve_conv(tensor_tree(p, "cpu"), dtype), device)
+
+
+def load_upsample_params(stages, device, compute_dtype=None) -> list:
+    """ClariNet upsampling stages (numpy) resolved in ``compute_dtype``
+    (None: f32) as ConvTranspose2d weights on ``device``."""
+    with torch.no_grad():
+        return _move(resolve_upsample(tensor_tree(stages, "cpu"),
+                                      compute_dtype), device)
+
+
+def load_gaussian_wavenet_params(tree: dict, cfg: GaussianWaveNetConfig,
+                                 device, prepare_chains=False,
+                                 compute_dtype=None) -> dict:
+    """A ``gaussian_wavenet_init``-shaped tree as tensors on ``device`` in
+    ``compute_dtype`` (None: f32), each chain stacked under ``"chains"``;
+    ``prepare_chains`` binds every chain to the chain kernel at load."""
+    return _load(resolve_gaussian_wavenet, tree, cfg, device, prepare_chains,
+                 compute_dtype)
+
+
+def load_student_params(tree: dict, cfg: StudentConfig, device,
+                        prepare_chains=False, compute_dtype=None) -> dict:
+    """A ``wavenet_student_init``-shaped tree as tensors on ``device`` in
+    ``compute_dtype`` (None: f32); ``prepare_chains`` binds every chain to
+    the chain kernel at load."""
+    return _load(resolve_student, tree, cfg, device, prepare_chains,
+                 compute_dtype)
+
+
+def _load_coupling_net(tree: dict, cfg: CouplingNetConfig, device,
+                       prepare_chains=False, compute_dtype=None) -> dict:
+    return _load(resolve_coupling_net, tree, cfg, device, prepare_chains,
+                 compute_dtype)
+
+
+def load_flowavenet_params(tree: dict, cfg: FlowavenetConfig, device,
+                           prepare_chains=False, compute_dtype=None) -> dict:
+    """A ``flowavenet_init``-shaped tree as tensors on ``device`` in
+    ``compute_dtype`` (None: f32); ``prepare_chains`` binds every coupling
+    chain to the chain kernel at load (the priors' nets are not fused)."""
+    return _load(resolve_flowavenet, tree, cfg, device, prepare_chains,
+                 compute_dtype)
 
 
 # -------------------- random trees without JAX --------------------
@@ -756,14 +868,15 @@ def numpy_student_params(cfg: StudentConfig, seed: int) -> dict:
     return {"iafs": iafs}
 
 
-def _coupling_net_tree(rng, cfg: CouplingNetConfig) -> dict:
-    """flowavenet/model.py:coupling_net_init, but with a NON-zero zero conv
-    (w ~ N(0, 0.05^2 / in), b ~ N(0, 0.01^2), scale ~ N(0, 0.1^2)): at the
-    init's zeros every coupling is the identity and the coupling nets never
-    reach the wave. Small enough that 48 couplings of exp(log_s) stay near
-    1."""
+def _coupling_net_tree(rng, cfg: CouplingNetConfig,
+                       zero_init: bool = False) -> dict:
+    """flowavenet/model.py:coupling_net_init, but (unless ``zero_init``) with
+    a NON-zero zero conv (w ~ N(0, 0.05^2 / in), b ~ N(0, 0.01^2), scale ~
+    N(0, 0.1^2)): at the init's zeros every coupling is the identity and the
+    coupling nets never reach the wave. Small enough that 48 couplings of
+    exp(log_s) stay near 1."""
     S = cfg.skip_channels
-    return {
+    tree = {
         "front_conv": _clarinet_conv(rng, cfg.in_channels,
                                      cfg.residual_channels, 3),
         "res_blocks": [
@@ -772,14 +885,22 @@ def _coupling_net_tree(rng, cfg: CouplingNetConfig) -> dict:
                            cfg.cin_channels)
             for _ in range(cfg.total_layers)],
         "final_conv_1": _clarinet_conv(rng, S, S, 1),
-        "final_zero_conv": {
+    }
+    # drawn last: a seed gives the trees it gave before zero_init existed
+    if zero_init:
+        tree["final_zero_conv"] = {
+            "w": np.zeros((1, S, cfg.out_channels), np.float32),
+            "b": np.zeros((cfg.out_channels,), np.float32),
+            "scale": np.zeros((cfg.out_channels,), np.float32)}
+    else:
+        tree["final_zero_conv"] = {
             "w": (rng.standard_normal((1, S, cfg.out_channels))
                   * 0.05 / math.sqrt(S)).astype(np.float32),
             "b": (0.01 * rng.standard_normal((cfg.out_channels,))
                   ).astype(np.float32),
             "scale": (0.1 * rng.standard_normal((cfg.out_channels,))
-                      ).astype(np.float32)},
-    }
+                      ).astype(np.float32)}
+    return tree
 
 
 def numpy_flowavenet_params(cfg: FlowavenetConfig, seed: int) -> dict:
@@ -801,6 +922,38 @@ def numpy_flowavenet_params(cfg: FlowavenetConfig, seed: int) -> dict:
             for _ in range(cfg.n_flow)]}
         if cfg.split_at(i):
             block["prior"] = _coupling_net_tree(rng, _prior_net_cfg(sq, sqc))
+        blocks.append(block)
+    return {"blocks": blocks,
+            "upsample_conv": _upsample_tree(rng, cfg.upsample_scales)}
+
+
+def numpy_student_init(cfg: StudentConfig, seed: int) -> dict:
+    """A tree with ``wavenet_student_init``'s structure, shapes and init
+    distributions (no gain cut: the start of a training run), made with
+    ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return {"iafs": [_gaussian_wavenet_tree(rng, cfg.flow_config(i))
+                     for i in range(cfg.num_flow)]}
+
+
+def numpy_flowavenet_init(cfg: FlowavenetConfig, seed: int) -> dict:
+    """A tree with ``flowavenet_init``'s structure, shapes and init
+    distributions: identity ActNorms (loc 0, scale 1; training starts with
+    ``actnorm_initialize``) and zero convs at zero, made with
+    ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    blocks = []
+    for i, (in_ch, cin_ch) in enumerate(_block_channels(cfg)):
+        sq, sqc = in_ch * 2, cin_ch * 2
+        net_cfg = _flow_net_cfg(cfg, sq, sqc)
+        block = {"flows": [
+            {"actnorm": {"loc": np.zeros((sq,), np.float32),
+                         "scale": np.ones((sq,), np.float32)},
+             "coupling": _coupling_net_tree(rng, net_cfg, zero_init=True)}
+            for _ in range(cfg.n_flow)]}
+        if cfg.split_at(i):
+            block["prior"] = _coupling_net_tree(
+                rng, _prior_net_cfg(sq, sqc), zero_init=True)
         blocks.append(block)
     return {"blocks": blocks,
             "upsample_conv": _upsample_tree(rng, cfg.upsample_scales)}

@@ -42,11 +42,30 @@ def scaled(x, factor):
     return x * torch.tensor(factor, dtype=x.dtype)
 
 
+class _ExpandedSigmoid(torch.autograd.Function):
+    """``1 / (1 + exp(-x))`` op by op, with the logistic's own derivative
+    ``g * (y * (1 - y))`` (JAX's rule for ``lax.logistic``): autograd
+    through the expansion would give 0 * inf = NaN where exp(-x)
+    overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
 def sigmoid(x):
-    """torch.sigmoid at f32; at bf16 XLA's expansion, step by step."""
+    """torch.sigmoid at f32; at bf16 XLA's expansion, step by step (and its
+    gradient the logistic's)."""
     if x.dtype == torch.float32:
         return torch.sigmoid(x)
-    return 1 / (1 + torch.exp(-x))
+    return _ExpandedSigmoid.apply(x)
 
 
 def conv_apply(p, x, kernel_size, dilation=1, causal=True, mode="SAME"):

@@ -1,22 +1,29 @@
-"""FloWaveNet: the flow-based parallel vocoder's one-pass synthesis.
+"""FloWaveNet: the flow-based parallel vocoder (exact MLE + one-pass
+synthesis).
 
-Counterpart of the reverse half of ``vqvae_speech_tpu/models/flowavenet/
-model.py`` (reference src/flow_wavenet/model.py:35-289 and
-src/flow_wavenet/modules.py):
+Counterpart of ``vqvae_speech_tpu/models/flowavenet/model.py`` (reference
+src/flow_wavenet/model.py:35-289 and src/flow_wavenet/modules.py):
 
+* ActNorm ``scale * (x + loc)`` with logdet, its data-dependent init, and
+  its reverse ``y / scale - loc``,
 * AffineCoupling: a non-causal WaveNet with a zero-init output conv maps
-  (in_a, c_a) -> (log_s, t); reverse: ``in_b = out_b * exp(log_s) + t``,
-* ActNorm reverse ``y / scale - loc``, change_order half-swap between flows,
+  (in_a, c_a) -> (log_s, t); forward ``out_b = (in_b - t) * exp(-log_s)``
+  with logdet ``-sum(log_s)``, reverse ``in_b = out_b * exp(log_s) + t``,
+* change_order half-swap between flows,
 * Block: time-squeeze x2 -> n_flow flows -> optional multi-scale split with
   a WaveNet Gaussian prior,
-* ``flowavenet_reverse`` inverts everything for single-pass synthesis,
+* ``flowavenet_forward`` -> (log_p, logdet) per dim for MLE training,
+  ``flowavenet_reverse`` inverts everything for single-pass synthesis,
 * ConvTranspose2d (3, 2s) LC upsampling (scales [16, 16] = hop 256).
 
 Activations keep the JAX package's channels-last (B, T, C) layout, so
-squeeze and unsqueeze are the same reshapes. Parameters are the tensor
-trees of ``convert.load_flowavenet_params``. The MLE forward
-(``flowavenet_forward``) and ``actnorm_initialize`` are not ported yet.
+squeeze and unsqueeze are the same reshapes. ``flowavenet_reverse`` takes
+the resolved trees of ``convert.load_flowavenet_params``;
+``flowavenet_forward`` and ``actnorm_initialize`` take the JAX-layout tensor
+tree (``convert.tensor_tree``), as JAX's do, and resolve it themselves
+(the forward inside autograd, so the gradients reach its leaves).
 """
+import math
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -95,8 +102,26 @@ def coupling_net_apply(params, cfg: CouplingNetConfig, x, c, use_fused=False):
     return _zero_conv_apply(params["final_zero_conv"], out)
 
 
+def actnorm_forward(p, x):
+    """x: (B, T, C) -> (scale*(x+loc), logdet) with
+    logdet = B*T*sum(log|scale|) (reference model.py:64-79)."""
+    B, T = x.shape[0], x.shape[1]
+    logdet = torch.sum(torch.log(torch.abs(p["scale"]))) * B * T
+    return p["scale"] * (x + p["loc"]), logdet
+
+
 def actnorm_reverse(p, y):
     return y / p["scale"] - p["loc"]
+
+
+def _data_dependent_actnorm(x):
+    """Per-channel -mean and 1/(std+1e-6) from a data batch
+    (reference model.py:45-62; std is the unbiased torch .std())."""
+    flat = x.reshape(-1, x.shape[-1])
+    mean = flat.mean(0)
+    n = flat.shape[0]
+    std = torch.sqrt(torch.sum(torch.square(flat - mean), 0) / (n - 1))
+    return {"loc": -mean, "scale": 1.0 / (std + 1e-6)}
 
 
 def _change_order(x, c):
@@ -161,6 +186,21 @@ def _prior_net_cfg(sq, sqc):
         in_channels=sq // 2, out_channels=sq, num_blocks=1, num_layers=2,
         residual_channels=256, gate_channels=256, skip_channels=256,
         cin_channels=sqc, causal=False)
+
+
+def _coupling_forward(p, net_cfg, x, c, affine):
+    in_a, in_b = x.chunk(2, dim=-1)
+    c_a, _ = c.chunk(2, dim=-1)
+    net_out = coupling_net_apply(p, net_cfg, in_a, c_a)
+    if affine:
+        log_s, t = net_out.chunk(2, dim=-1)
+        out_b = (in_b - t) * torch.exp(-log_s)
+        # the logdet is summed in f32 whatever the compute dtype
+        logdet = torch.sum(-log_s.float())
+    else:
+        out_b = in_b + net_out
+        logdet = x.new_zeros((), dtype=torch.float32)
+    return torch.cat([in_a, out_b], -1), logdet
 
 
 def _coupling_reverse(p, net_cfg, y, c, affine, use_fused=False):
@@ -230,3 +270,93 @@ def flowavenet_reverse(params, cfg: FlowavenetConfig, z, c,
             x = actnorm_reverse(flow["actnorm"], x)
         x, c = _unsqueeze(x), _unsqueeze(c)
     return x.float()
+
+
+def flowavenet_forward(params, cfg: FlowavenetConfig, x, c,
+                       compute_dtype=None):
+    """x: (B, T, 1); c: (B, Tc, cin) -> (log_p, logdet) per dim, f32 0-d
+    tensors (reference model.py:245-257). ``params`` is the JAX-layout
+    tensor tree; its weight norms are resolved here, in autograd.
+
+    ``compute_dtype=torch.bfloat16`` is the JAX package's mixed-precision
+    MLE: the tree (cast first, then resolved), x and c in bf16, so the
+    upsampler, the couplings and the priors run in bf16, while the
+    log-density math stays f32: the ActNorm logdet comes from the UNCAST
+    f32 scales at the squeezed length of each block, the coupling logdet
+    sums f32-cast ``log_s``, and the Gaussian log-probs cast their inputs up
+    first."""
+    from vqvae_speech_tpu_torch.convert import resolve_flowavenet
+
+    check_compute_dtype(compute_dtype)
+    cast = compute_dtype == torch.bfloat16
+    B, T = x.shape[0], x.shape[1]
+    fparams = resolve_flowavenet(params, cfg, compute_dtype if cast else None)
+    if cast:
+        x, c = x.to(compute_dtype), c.to(compute_dtype)
+    c = flowavenet_upsample(fparams, c, cfg)
+    out = x
+    logdet_sum = torch.zeros((), device=x.device)
+    log_p_sum = torch.zeros((), device=x.device)
+    for i, block in enumerate(fparams["blocks"]):
+        in_ch, cin_ch = _block_channels(cfg)[i]
+        sq, sqc = in_ch * 2, cin_ch * 2
+        net_cfg = _flow_net_cfg(cfg, sq, sqc)
+        out, c = _squeeze(out), _squeeze(c)
+        # the ActNorm logdet: a function of the f32 master scales and the
+        # SQUEEZED length at this depth (reference model.py:64-79, 245-257)
+        T_sq = out.shape[1]
+        for flow32 in params["blocks"][i]["flows"]:
+            logdet_sum = logdet_sum + B * T_sq * torch.sum(
+                torch.log(torch.abs(flow32["actnorm"]["scale"]))).float()
+        for flow in block["flows"]:
+            out = flow["actnorm"]["scale"] * (out + flow["actnorm"]["loc"])
+            out, det_c = _coupling_forward(flow["coupling"], net_cfg, out, c,
+                                           cfg.affine)
+            out, c = _change_order(out, c)
+            logdet_sum = logdet_sum + det_c
+        if cfg.split_at(i):
+            out, z = out.chunk(2, dim=-1)
+            mean, log_sd = coupling_net_apply(
+                block["prior"], _prior_net_cfg(sq, sqc), out, c).chunk(2, dim=-1)
+            z32, mean32, log_sd32 = z.float(), mean.float(), log_sd.float()
+            log_p_sum = log_p_sum + torch.sum(
+                -0.5 * math.log(2 * math.pi) - log_sd32
+                - 0.5 * torch.square(z32 - mean32) / torch.exp(2 * log_sd32))
+    out32 = out.float()
+    log_p_sum = log_p_sum + 0.5 * torch.sum(
+        -math.log(2.0 * math.pi) - torch.square(out32))
+    return log_p_sum / (B * T), logdet_sum / (B * T)
+
+
+def actnorm_initialize(params, cfg: FlowavenetConfig, x, c):
+    """Data-dependent ActNorm init (PARITY #30): run the forward once in f32,
+    replacing each ActNorm's ``loc`` / ``scale`` with the batch statistics of
+    its input (the reference's initialize-on-first-forward,
+    model.py:45-62). ``params`` is the JAX-layout tensor tree; returns a new
+    tree that shares every leaf but the ActNorms (new tensors on x's
+    device)."""
+    from vqvae_speech_tpu_torch.convert import resolve_flowavenet
+
+    with torch.no_grad():
+        fparams = resolve_flowavenet(params, cfg)
+        c_up = flowavenet_upsample(fparams, c, cfg)
+        out = x
+        blocks = []
+        for i, block in enumerate(fparams["blocks"]):
+            in_ch, cin_ch = _block_channels(cfg)[i]
+            sq, sqc = in_ch * 2, cin_ch * 2
+            net_cfg = _flow_net_cfg(cfg, sq, sqc)
+            out, c_up = _squeeze(out), _squeeze(c_up)
+            flows = []
+            for src, flow in zip(params["blocks"][i]["flows"],
+                                 block["flows"]):
+                actnorm = _data_dependent_actnorm(out)
+                flows.append(dict(src, actnorm=actnorm))
+                out, _ = actnorm_forward(actnorm, out)
+                out, _ = _coupling_forward(flow["coupling"], net_cfg, out,
+                                           c_up, cfg.affine)
+                out, c_up = _change_order(out, c_up)
+            if cfg.split_at(i):
+                out, _ = out.chunk(2, dim=-1)
+            blocks.append(dict(params["blocks"][i], flows=flows))
+    return dict(params, blocks=blocks)

@@ -15,7 +15,10 @@ nu_max), EmptyState())`` built from the stand-ins below, which the pickle
 names as optax's own classes (``optax._src.transform.ScaleByAmsgradState``,
 ``optax._src.base.EmptyState``). So the file is a JAX checkpoint: the JAX
 package's plain ``load_checkpoint`` gives back optax's NamedTuples and its
-trainer resumes from it.
+trainer resumes from it. The vocoders' checkpoints (``train/vocoder.py``)
+hold the state of optax's ``chain(clip_by_global_norm, scale_by_adam,
+scale_by_schedule)``, ``(EmptyState(), ScaleByAdamState(count, mu, nu),
+ScaleByScheduleState(count))``, and are written by ``dump_pickle``.
 
 **Reading.** ``params`` and ``model_state`` of a JAX-written checkpoint are
 plain dicts of numpy arrays, but its ``opt_state`` holds optax NamedTuples,
@@ -48,6 +51,22 @@ class ScaleByAmsgradState(NamedTuple):
     nu: Any
     nu_max: Any
     pickled_as = ("optax._src.transform", "ScaleByAmsgradState")
+
+
+class ScaleByAdamState(NamedTuple):
+    """Stands in for optax's class of this name (the same fields); pickled
+    under optax's module and name."""
+    count: Any
+    mu: Any
+    nu: Any
+    pickled_as = ("optax._src.transform", "ScaleByAdamState")
+
+
+class ScaleByScheduleState(NamedTuple):
+    """Stands in for optax's class of this name (the schedule's own step
+    count); pickled under optax's module and name."""
+    count: Any
+    pickled_as = ("optax._src.transform", "ScaleByScheduleState")
 
 
 class EmptyState(NamedTuple):
@@ -85,6 +104,17 @@ def _to_host(tree):
     return np.asarray(tree)
 
 
+def dump_pickle(payload, path: str) -> str:
+    """Write ``payload`` to ``path`` as the JAX package would pickle it
+    (protocol 4, its default before Python 3.14), the stand-ins above under
+    optax's names; atomic: a crash leaves no torn file."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        _OptaxNamingPickler(f, protocol=4).dump(payload)
+    os.replace(tmp, path)
+    return path
+
+
 def save_checkpoint(experiments_path: str, experiment_name: str, epoch: int,
                     params, model_state, opt_state,
                     train_res_recon_error=None, train_res_perplexity=None):
@@ -99,14 +129,8 @@ def save_checkpoint(experiments_path: str, experiment_name: str, epoch: int,
         "train_res_recon_error": train_res_recon_error or [],
         "train_res_perplexity": train_res_perplexity or [],
     }
-    path = os.path.join(experiments_path,
-                        f"{experiment_name}_{epoch + 1}_checkpoint.pkl")
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        # protocol 4, the JAX package's (pickle's default before 3.14)
-        _OptaxNamingPickler(f, protocol=4).dump(payload)
-    os.replace(tmp, path)  # atomic publish: no torn checkpoints on crash
-    return path
+    return dump_pickle(payload, os.path.join(
+        experiments_path, f"{experiment_name}_{epoch + 1}_checkpoint.pkl"))
 
 
 def find_checkpoints(experiments_path: str, experiment_name: str):
