@@ -193,21 +193,43 @@
    synthesize-flow (48 non-causal chain launches) from a 20-frame mel:
    the JAX package's file names, finite loss histories, the resumed
    counts, the launch counts and 16-bit waves of 20 x 256 samples.
+11. Demos phase (after the evaluate phase, on the experiment phase's
+   directory): each demo's first search through the VQ kernel at D=2
+   against the plain search (indices up to near-ties, counts exact, dw
+   within DEMO_DW_TOL), the kernel at D=2 timed at the demos' shapes beside
+   its bound; then with the kernel's count from 0 for each: the examples'
+   encode_wav main() on a VCTK p300 wav with the epoch-3 jitter12
+   checkpoint (one launch; codes against the same example on the CPU, near
+   ties only), the three 2-D demos at their own sizes (clustering: 500
+   points, K=8, 100 epochs; repulsion plain and improved: 200 epochs;
+   balanced: 2000 points, 40 codes, 300 epochs) and the adaptive loop of
+   tests/test_vq_adaptive.py (600 points, K_max 30, 200 epochs), one launch
+   an epoch and one for each final assignment, each held to the JAX tests'
+   quality checks (ARI from eval/clustering_metrics.py, active counts,
+   perplexity, codes used) and timed; one clustering epoch in a trace
+   window (utils/profiling.trace) whose Chrome trace holds the kernel; the
+   native ingest (csrc/ingest.cpp, g++) built and loaded, its WSOLA timed
+   against numpy's and held to WSOLA_TOL; a SpectrogramDataset with
+   augmentation over four tracked wavs and a NoiseInjector over two; and
+   serve_vocoder --kind iaf_student at paper width on checkpoints the
+   port's VocoderTrainer writes from seeded trees (8 mels, max_batch 8, no
+   fused chain: 3 launches, finite waves, the wav files).
 
 Exits non-zero on any failure, and without a CUDA device. The last two lines
 of output are a JSON object of per-kernel results (the five f32 entry
-points and the three bf16 ones; the decode-step kernel's entry also gives
-its numbers at the teacher's shape) and the JSON status line.
+points and the three bf16 ones; the VQ kernel's entry also gives its
+numbers at the demos' width D=2, the decode-step kernel's at the teacher's
+shape) and the JSON status line.
 Imports nothing of JAX.
 
     python3 chip_smoke.py --phases step_kernel,synthesis
 
 runs only the named phases (kernel, slice, pth_import, train, experiment,
 evaluate, wavenet_train, step_kernel, synthesis, continuous, chain_kernel,
-vocoder, vocoder_train, teacher_generate, vocoder_cli), for work on one
-kernel or slice; such a run prints neither of the two JSON lines. The
-evaluate phase run without the experiment phase first trains jitter12 for
-one epoch through the CLI. A run fails if it imported JAX, the JAX package,
+vocoder, vocoder_train, teacher_generate, vocoder_cli, demos), for work on
+one kernel or slice; such a run prints neither of the two JSON lines. The
+evaluate or demos phase run without the experiment phase first trains
+jitter12 for one epoch through the CLI. A run fails if it imported JAX, the JAX package,
 scikit-learn or matplotlib.
 """
 import concurrent.futures
@@ -3774,10 +3796,451 @@ def vocoder_cli_phase(gpu):
     return counts
 
 
+# the demos phase: the three 2-D demos of vqvae_speech_tpu_torch/examples/ at
+# their own defaults (500 ring points and K=8 for 100 and 200 epochs; 2000
+# points and 40 codes for 300 epochs), the adaptive loop of
+# tests/test_vq_adaptive.py (600 points, K_max 30, 200 epochs), encode_wav on
+# the experiment phase's checkpoint, serve_vocoder at paper width, and the
+# host modules; K1 at D=2 timed on each demo's first search
+DEMO_WAV = os.path.join(WAVE_DIR, "p300_000.wav")
+DEMO_DW_TOL = dict(rtol=1e-5, atol=1e-5)
+# the native WSOLA against the numpy one: JAX's own bound
+# (tests/test_aux.py); the C++ window is computed in f32, numpy's in f64
+WSOLA_TOL = dict(rtol=1e-4, atol=1e-5)
+SERVE_VOCODER_LAUNCHES = 3   # VOCODER_FRAMES in buckets 32, 64, 128
+
+
+def _demo_first_search(name, flat, codebook):
+    """K1 against vq_search_torch on a demo's first search: the indices up
+    to near-ties, the counts of the kernel's own indices exact, its dw within
+    DEMO_DW_TOL; returns dw's max abs error."""
+    import torch
+    from vqvae_speech_tpu_torch.ops import vq_search, vq_search_torch
+
+    got, want = vq_search(flat, codebook), vq_search_torch(flat, codebook)
+    torch.cuda.synchronize()
+    n_diff = _near_ties(flat, codebook, got.indices, want.indices,
+                        NEAR_TIE_SAME_INPUT)
+    K = codebook.shape[0]
+    onehot = torch.nn.functional.one_hot(got.indices.long(), K).float()
+    torch.testing.assert_close(got.quantized, codebook[got.indices.long()],
+                               rtol=0, atol=0)
+    torch.testing.assert_close(got.counts, onehot.sum(0), rtol=0, atol=0)
+    plain_dw = onehot.t() @ flat
+    torch.testing.assert_close(got.dw, plain_dw, **DEMO_DW_TOL)
+    err = (got.dw - plain_dw).abs().max().item()
+    print(f"demos {name}: first search N={flat.shape[0]} K={K} D=2, K1 "
+          f"against the plain search: near-tie rows {n_diff}, counts exact, "
+          f"dw max abs err {err:.3e}")
+    return err
+
+
+def _adaptive_init(data, device):
+    """tests/test_vq_adaptive.py's start: K_max 30, 20 active, the codebook
+    in the data's range from a numpy seed."""
+    import torch
+    from vqvae_speech_tpu_torch.examples import seeded_generator
+    from vqvae_speech_tpu_torch.models import vq_adaptive
+
+    state = vq_adaptive.adaptive_vq_init(30, 2, initial_num_embeddings=20,
+                                         device=device,
+                                         generator=seeded_generator(SEED))
+    state["codebook"] = torch.from_numpy(
+        data.mean(0) + data.std(0) * np.random.default_rng(SEED)
+        .standard_normal((30, 2)).astype(np.float32)).to(device)
+    return state
+
+
+def _adaptive_loop(data, device):
+    """tests/test_vq_adaptive.py's loop: 200 epochs, a prune and merge pass
+    every 50; returns (state, the last loss)."""
+    import torch
+    from vqvae_speech_tpu_torch.models import vq_adaptive
+
+    state = _adaptive_init(data, device)
+    points = torch.from_numpy(data).to(device)
+    for epoch in range(200):
+        out = vq_adaptive.adaptive_vq_apply(state, points, training=True)
+        state = out.new_state
+        if (epoch + 1) % 50 == 0:
+            state = vq_adaptive.adaptive_prune_and_merge(
+                state, min_usage_threshold=0.01, merge_distance_threshold=0.8)
+    return state, float(out.vq_loss)
+
+
+def _encode_wav_check(gpu, work):
+    """encode_wav's main() on the card from ``work`` (the experiment's
+    checkpoint and normalizer), its codes against the same example on the
+    CPU (near-ties on the card's latents only). Returns K1's launches."""
+    import contextlib
+    import io
+
+    import torch
+    from vqvae_speech_tpu_torch.data import load_normalizer
+    from vqvae_speech_tpu_torch.examples import encode_wav as example
+    from vqvae_speech_tpu_torch.ops import _kernels, reference_flatten
+    from vqvae_speech_tpu_torch.train import (
+        latest_checkpoint_epoch,
+        load_checkpoint,
+        load_configuration,
+    )
+    from vqvae_speech_tpu_torch.train.config import frozen_configuration_path
+
+    with open(os.path.join(work, EXPERIMENTS_SPEC)) as f:
+        exp_path = json.load(f)["experiments_path"]
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        out = os.path.join(work, "codes.npy")
+        _kernels.vq_search_cuda.launches = 0
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc = example.main(["--wav", DEMO_WAV, "--experiments_path",
+                               exp_path, "--experiment_name", EXPERIMENT,
+                               "--out", out])
+        sec = time.perf_counter() - t0
+        launches = _kernels.vq_search_cuda.launches
+        if rc != 0 or launches != 1:
+            raise AssertionError(f"encode_wav: exit {rc}, {launches} K1 "
+                                 "launches (one expected)")
+        card = np.load(out)
+        cfg = load_configuration(frozen_configuration_path(exp_path,
+                                                           EXPERIMENT))
+        epoch, path = latest_checkpoint_epoch(exp_path, EXPERIMENT)
+        ckpt = load_checkpoint(path)
+        normalizer = load_normalizer(cfg["normalizer_path"])
+        cpu, _ = example.encode_wav(DEMO_WAV, cfg, example.load_model(
+            cfg, ckpt, "cpu"), normalizer)
+        model = example.load_model(cfg, ckpt, "cuda")
+        again, feats = example.encode_wav(DEMO_WAV, cfg, model, normalizer)
+    finally:
+        os.chdir(here)
+    if not np.array_equal(again, card) or card.shape != cpu.shape:
+        raise AssertionError("encode_wav: the card's codes differ between "
+                             "main() and encode_wav(), or from the CPU's "
+                             f"shape {cpu.shape}")
+    with torch.no_grad():
+        z = model.latents(torch.from_numpy(feats[None]).cuda())
+    codebook = model.vq.codebook.detach()
+    flat = reference_flatten(z, codebook.shape[1])
+    n_diff = _near_ties(flat, codebook, torch.from_numpy(card).cuda(),
+                        torch.from_numpy(cpu).cuda(), NEAR_TIE_GOLDEN)
+    print(f"demos encode_wav: {os.path.basename(DEMO_WAV)} with the epoch "
+          f"{epoch} {EXPERIMENT} checkpoint, {card.size} codes in "
+          f"{sec:.3f} s (main(), model load included), {launches} K1 launch; "
+          f"against the CPU run: {n_diff} differ (each a near-tie on the "
+          f"card's latents); printed {printed.getvalue().split()[:5]} "
+          f"[{gpu}]")
+    return launches
+
+
+def _host_modules_check(gpu, work):
+    """native.py built and loaded, WSOLA native against numpy, a
+    SpectrogramDataset with augmentation and a NoiseInjector over tracked
+    wavs."""
+    from vqvae_speech_tpu_torch import native
+    from vqvae_speech_tpu_torch.data.audio import load_wav
+    from vqvae_speech_tpu_torch.data.noise_injector import (
+        NoiseInjector,
+        wsola_time_stretch,
+    )
+    from vqvae_speech_tpu_torch.data.spectrogram_dataset import (
+        SpectrogramDataset,
+    )
+
+    if not native.available():
+        raise AssertionError("native: csrc/ingest.cpp did not build or load "
+                             "(g++)")
+    x = load_wav(DEMO_WAV)
+    got = wsola_time_stretch(x, 0.9, use_native=True)
+    want = wsola_time_stretch(x, 0.9)
+    if got.shape != want.shape:
+        raise AssertionError(f"wsola: native {got.shape}, numpy {want.shape}")
+    np.testing.assert_allclose(got, want, **WSOLA_TOL)
+    native_ms = 1e3 * _median_seconds(
+        lambda: wsola_time_stretch(x, 0.9, use_native=True), 5)
+    numpy_ms = 1e3 * _median_seconds(lambda: wsola_time_stretch(x, 0.9), 5)
+    print(f"demos native: csrc/ingest.cpp built (g++) and loaded; WSOLA at "
+          f"tempo 0.9 on {os.path.basename(DEMO_WAV)} "
+          f"({x.size} samples -> {got.size}): native {native_ms:.3f} ms, "
+          f"numpy {numpy_ms:.3f} ms (median of 5, host clock), max abs "
+          f"difference {np.abs(got - want).max():.3e} "
+          f"({int((got != want).sum())} of {got.size} samples differ, "
+          f"tolerance {WSOLA_TOL}) [{gpu}]")
+
+    lines = []
+    for i in range(4):
+        name = f"p300_{i:03d}"
+        txt = os.path.join(CORPUS_ROOT, "VCTK-Corpus", "txt", "p300",
+                           name + ".txt")
+        lines.append(f"{os.path.join(WAVE_DIR, name + '.wav')},{txt}")
+    manifest = os.path.join(work, "manifest.csv")
+    with open(manifest, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    ds = SpectrogramDataset(manifest, augment=True,
+                            rng=np.random.default_rng(SEED))
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(len(ds))]
+    ds_s = time.perf_counter() - t0
+    for spect, text in items:
+        if spect.shape[0] != 161 or not np.isfinite(spect).all() or not text:
+            raise AssertionError(f"spectrogram dataset: {spect.shape}, "
+                                 f"{text!r}")
+    noise_dir = os.path.join(work, "noise")
+    os.makedirs(noise_dir)
+    for i in (4, 5):
+        os.symlink(os.path.join(WAVE_DIR, f"p300_{i:03d}.wav"),
+                   os.path.join(noise_dir, f"p300_{i:03d}.wav"))
+    injector = NoiseInjector(noise_dir, rng=np.random.default_rng(SEED))
+    noisy = injector.inject_noise(x.copy())
+    ratio = np.sqrt(np.mean((noisy - x) ** 2) / np.mean(x ** 2))
+    if noisy.shape != x.shape or not np.isfinite(noisy).all() or ratio > 0.5001:
+        raise AssertionError(f"noise injector: {noisy.shape}, added rms "
+                             f"ratio {ratio}")
+    print(f"demos host: SpectrogramDataset(augment=True) over 4 tracked wavs "
+          f"in {ds_s:.3f} s, spectrograms {[s.shape for s, _ in items]}; "
+          f"NoiseInjector over {len(injector.paths)} wavs: added rms "
+          f"{ratio:.3f} of the clean rms (level drawn in [0, 0.5))")
+
+
+def _serve_vocoder_check(gpu, work):
+    """serve_vocoder --kind iaf_student at paper width on checkpoints the
+    port's vocoder trainer writes from seeded trees: one finite wave a mel,
+    the launches of the server, no fused chain."""
+    import contextlib
+    import io
+
+    from scipy.io import wavfile
+    from vqvae_speech_tpu_torch.convert import (
+        numpy_gaussian_wavenet_params,
+        numpy_student_init,
+    )
+    from vqvae_speech_tpu_torch.examples import serve_vocoder
+    from vqvae_speech_tpu_torch.models.clarinet import (
+        GaussianWaveNetConfig,
+        StudentConfig,
+    )
+    from vqvae_speech_tpu_torch.ops import _kernels
+    from vqvae_speech_tpu_torch.train.vocoder import (
+        VocoderTrainer,
+        create_vocoder_state,
+        make_vocoder_optimizer,
+    )
+
+    ck = os.path.join(work, "vocoder_checkpoints")
+    paths = {}
+    for name, tree in (
+            ("teacher", numpy_gaussian_wavenet_params(GaussianWaveNetConfig(),
+                                                      SEED + 1)),
+            ("student", numpy_student_init(StudentConfig(), SEED))):
+        state = create_vocoder_state(tree, make_vocoder_optimizer(1e-3, 1.0),
+                                     device="cpu")
+        paths[name] = VocoderTrainer(None, state, None, ck, name).save(0, 0.0)
+    mels = vocoder_requests("cuda")
+    mel_paths = []
+    for i, mel in enumerate(mels):
+        mel_paths.append(os.path.join(work, f"mel_{i}.npy"))
+        np.save(mel_paths[-1], mel)
+    out_dir = os.path.join(work, "synth")
+    argv = ["--kind", "iaf_student", "--checkpoint", paths["student"],
+            "--teacher_checkpoint", paths["teacher"], "--mels", *mel_paths,
+            "--out_dir", out_dir]
+    chains = (_kernels.fused_block_chain_tiled_cuda,
+              _kernels.fused_block_chain_cuda)
+    before = [c.launches for c in chains]
+    server = serve_vocoder.build_server(serve_vocoder.parse_args(argv))
+    t0 = time.perf_counter()
+    results = server.synthesize([np.load(p) for p in mel_paths], seed=SEED)
+    sec = time.perf_counter() - t0
+    for mel, r in zip(mels, results):
+        if (r.wave.shape != (mel.shape[0] * VOCODER_HOP,)
+                or not np.isfinite(r.wave).all()):
+            raise AssertionError(f"serve_vocoder: a wave of {r.wave.shape}, "
+                                 f"finite {np.isfinite(r.wave).all()}")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = serve_vocoder.main(argv)
+    launches = server.stats["launches"]
+    if (rc != 0 or launches != SERVE_VOCODER_LAUNCHES
+            or f"launches: {SERVE_VOCODER_LAUNCHES}" not in printed.getvalue()
+            or [c.launches for c in chains] != before):
+        raise AssertionError(f"serve_vocoder: exit {rc}, launches {launches}, "
+                             f"chain kernels {before} -> "
+                             f"{[c.launches for c in chains]}")
+    for i, mel in enumerate(mels):
+        rate, wave = wavfile.read(os.path.join(out_dir, f"mel_{i}.wav"))
+        if rate != 22050 or wave.shape != (mel.shape[0] * VOCODER_HOP,):
+            raise AssertionError(f"serve_vocoder: file {i} {rate} Hz "
+                                 f"{wave.shape}")
+    samples = sum(r.wave.size for r in results)
+    print(f"demos serve_vocoder: iaf_student at paper width (checkpoints "
+          f"written by the port's VocoderTrainer from seeded trees), "
+          f"{len(mels)} mels of {VOCODER_FRAMES} frames, max_batch 8, no "
+          f"fused chain: {launches} launches, {samples} samples in "
+          f"{sec:.3f} s ({samples / sec:.0f} samples/s, the first call "
+          f"included), every wave finite; main() wrote {len(mels)} wavs "
+          f"[{gpu}]")
+
+
+def demos_phase(gpu, work):
+    """The demos and the remaining host modules on the card (see the module
+    docstring); returns (K1's launches on their path, the D=2 record for the
+    kernels line)."""
+    import importlib.util
+
+    import torch
+    from vqvae_speech_tpu_torch.eval.clustering_metrics import (
+        adjusted_rand_score,
+    )
+    from vqvae_speech_tpu_torch.examples import vq_2d_clustering as clustering
+    from vqvae_speech_tpu_torch.examples import vq_2d_repulsion as repulsion
+    from vqvae_speech_tpu_torch.examples import vq_balanced_2d as balanced
+    from vqvae_speech_tpu_torch.models import vq_adaptive
+    from vqvae_speech_tpu_torch.ops import _kernels, vq_search, vq_search_torch
+    from vqvae_speech_tpu_torch.utils.profiling import trace
+
+    dev = torch.device("cuda")
+    ring, ring_labels = clustering.generate_2d_clusters()
+    many, many_labels = balanced.generate_2d_clusters(
+        n_points=2000, n_clusters=40, noise=0.25)
+    blobs, _ = clustering.generate_2d_clusters(n_points=600, n_clusters=5,
+                                               noise=0.2)
+    init = "k-means (scikit-learn)" if importlib.util.find_spec(
+        "sklearn") else "8 random rows (no scikit-learn)"
+    adaptive0 = _adaptive_init(blobs, dev)
+    firsts = (
+        ("clustering and repulsion", ring,
+         clustering.initial_codebook(ring, 8, SEED)),
+        ("improved", ring, repulsion.kmeans_init(ring, 8)),
+        ("balanced", many, balanced.initial_codebook(many, 40, SEED)),
+        ("adaptive", blobs,
+         adaptive0["codebook"][adaptive0["active"]].cpu()))
+    # K1 at D=2 on each demo's own first search: held against the plain
+    # search, then timed on the same inputs; the d2 record is the balanced
+    # demo's (its points and initial codebook)
+    timed = {}
+    for name, data, cb in firsts:
+        flat = torch.from_numpy(data).to(dev)
+        cb = torch.as_tensor(np.asarray(cb), dtype=torch.float32).to(dev)
+        err = _demo_first_search(name, flat, cb)
+        (N, _), K = flat.shape, cb.shape[0]
+        ms = _median_ms(lambda: vq_search(flat, cb))
+        plain_ms = _median_ms(lambda: vq_search_torch(flat, cb))
+        bound = vq_search_bound(N, K, 2)
+        plan = _kernels.vq_search_plan(N, K, 2, dev)
+        # the kernel's own time: 20 launches in a guarded profiler window
+        _, us = _device_profile(lambda: [vq_search(flat, cb)
+                                         for _ in range(20)],
+                                kernel="vq_search", launches=lambda: 20)
+        device_ms = sum(v for k, v in us.items() if "vq_search" in k) / 2e4
+        timed[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound[0], bound_by=bound[1],
+                           device_ms=device_ms, shape=dict(N=N, K=K, D=2))
+        print(f"demos K1 {name} N={N} K={K} D=2: {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms (median of 50, CUDA events), device time "
+              f"{device_ms:.4f} ms a launch (torch.profiler, 20 launches), "
+              f"bound {bound[0]:.6f} ms ({bound[1]}), {plan['blocks']} "
+              f"blocks, {plan['device_kernels']} device kernel(s) a search, "
+              f"dw max abs error {err:.3e} [{gpu}]")
+    d2 = timed["balanced"]
+
+    # the path: each entry point once, K1's launches counted from 0
+    launches = {"encode_wav": _encode_wav_check(gpu, work)}
+    seconds = {}
+
+    def run(name, fn, expected):
+        _kernels.vq_search_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = _kernels.vq_search_cuda.launches
+        if launches[name] != expected:
+            raise AssertionError(f"demos {name}: {launches[name]} K1 "
+                                 f"launches, {expected} expected")
+        return out
+
+    state, assign, hist = run("clustering", lambda: clustering.train_direct_vq(
+        ring, device="cuda"), 101)
+    ari = adjusted_rand_score(ring_labels, assign)
+    if not (hist[-1]["loss"] < hist[0]["loss"] and ari > 0.5):
+        raise AssertionError(f"clustering: loss {hist[0]['loss']} -> "
+                             f"{hist[-1]['loss']}, ARI {ari}")
+    print(f"demos clustering: 500 points, K=8, 100 epochs, ARI {ari:.4f}, "
+          f"loss {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+
+    state, assign, hist, _ = run("repulsion", lambda: (
+        repulsion.train_repulsion_vq(ring, device="cuda")), 201)
+    ari = adjusted_rand_score(ring_labels, assign)
+    cb = state["codebook"].cpu().numpy()
+    dist = np.linalg.norm(cb[:, None] - cb[None, :], axis=-1)
+    np.fill_diagonal(dist, np.inf)
+    if not (ari > 0.5 and dist.min() > 0.05):
+        raise AssertionError(f"repulsion: ARI {ari}, closest codes "
+                             f"{dist.min()}")
+    print(f"demos repulsion: 200 epochs, ARI {ari:.4f}, closest codes "
+          f"{dist.min():.4f} apart")
+
+    state, assign, hist, resets = run("improved", lambda: (
+        repulsion.train_repulsion_vq(ring, improved=True, device="cuda")), 201)
+    ari = adjusted_rand_score(ring_labels, assign)
+    if not (ari > 0.5 and hist[-1]["loss"] < hist[0]["loss"] * 5):
+        raise AssertionError(f"improved: ARI {ari}, loss {hist[0]['loss']} "
+                             f"-> {hist[-1]['loss']}")
+    print(f"demos improved: init {init}, 200 epochs, ARI {ari:.4f}, "
+          f"{resets} codes reset, loss {hist[0]['loss']:.4f} -> "
+          f"{hist[-1]['loss']:.4f}")
+
+    state, assign, hist = run("balanced", lambda: balanced.train_balanced(
+        many, device="cuda"), 301)
+    used = int((state["usage_count"] > 0).sum())
+    # tests/test_demos.py: perplexity > 10 and 18 of 20 codes used; here 90%
+    # of the demo's 40
+    if not (hist[-1]["perplexity"] > 10.0 and used >= 36):
+        raise AssertionError(f"balanced: perplexity "
+                             f"{hist[-1]['perplexity']}, {used} codes used")
+    print(f"demos balanced: 2000 points, 40 codes, 300 epochs, perplexity "
+          f"{hist[-1]['perplexity']:.3f}, {used} codes used, ARI "
+          f"{adjusted_rand_score(many_labels, assign):.4f}")
+
+    state, loss = run("adaptive", lambda: _adaptive_loop(blobs, dev), 200)
+    n = vq_adaptive.active_codes_count(state)
+    if not (3 <= n <= 12 and np.isfinite(loss)):
+        raise AssertionError(f"adaptive: {n} active codes, loss {loss}")
+    print(f"demos adaptive: 600 points, K_max 30, 200 epochs, {n} active "
+          f"codes, loss {loss:.4f}")
+    print(f"demos seconds a run: "
+          f"{ {k: round(v, 4) for k, v in seconds.items()} }, K1 launches "
+          f"{launches} [{gpu}]")
+
+    # one demo epoch in a trace window: the Chrome trace holds K1
+    vq = clustering.ema_quantizer(firsts[0][2], torch.zeros(8),
+                                  firsts[0][2], 0.99, dev)
+    points = clustering.points_bct(ring, dev)
+    with trace(os.path.join(work, "trace")) as window:
+        with torch.no_grad():
+            vq(points)
+    with open(window.path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    ran = sum(e.count for e in window.events if "vq_search" in e.key)
+    if ran < 1 or not any("vq_search" in n for n in names):
+        raise AssertionError(f"trace: {ran} K1 launches among the window's "
+                             f"device events, kernels in the file {names}")
+    print(f"demos trace: one clustering epoch, {os.path.basename(window.path)}"
+          f" ({os.path.getsize(window.path)} bytes) with {len(names)} kernel "
+          f"events, K1 among them")
+
+    _host_modules_check(gpu, work)
+    _serve_vocoder_check(gpu, work)
+    return sum(launches.values()), d2
+
+
 PHASES = ("kernel", "slice", "pth_import", "train", "experiment", "evaluate",
           "wavenet_train", "step_kernel", "synthesis", "continuous",
           "chain_kernel", "vocoder", "vocoder_train", "teacher_generate",
-          "vocoder_cli")
+          "vocoder_cli", "demos")
 # what a run may not import: the card's machine has none of them, and the
 # port needs none
 FORBIDDEN_IMPORTS = ("jax", "vqvae_speech_tpu", "sklearn", "matplotlib")
@@ -3848,7 +4311,8 @@ def main():
     work = tempfile.mkdtemp(prefix="chip_smoke_experiment_")
     try:
         if set(only) != set(PHASES):
-            if "evaluate" in only and "experiment" not in only:
+            if ({"evaluate", "demos"} & set(only)
+                    and "experiment" not in only):
                 phase(_train_one_epoch, work)
             for name, fn, args in (
                     ("kernel", kernel_phase, ()),
@@ -3857,6 +4321,7 @@ def main():
                     ("train", train_phase, (gpu,)),
                     ("experiment", experiment_phase, (gpu, work)),
                     ("evaluate", evaluate_phase, (gpu, work)),
+                    ("demos", demos_phase, (gpu, work)),
                     ("wavenet_train", wavenet_train_phase, (gpu,)),
                     ("step_kernel", step_kernel_phase, (gpu,)),
                     ("synthesis", synthesis_phase, (gpu,)),
@@ -3884,6 +4349,7 @@ def main():
               f"batch 2 and {train_ms:.3f} ms at batch 64 (train phase, "
               f"gradient VQ) [{gpu}]")
         evaluate_vq_launches = phase(evaluate_phase, gpu, work)
+        demos_vq_launches, vq_d2 = phase(demos_phase, gpu, work)
     finally:
         shutil.rmtree(work)
     wavenet_vq_launches, _ = phase(wavenet_train_phase, gpu)
@@ -3920,12 +4386,16 @@ def main():
         line("vq_search", "vq_search.cu", "vqvae_speech_tpu/ops/vq.py:91",
              encode_vq_launches + pth_vq_launches + train_vq_launches
              + experiment_vq_launches + evaluate_vq_launches
-             + wavenet_vq_launches + synth_vq_launches + cont_vq_launches,
+             + wavenet_vq_launches + synth_vq_launches + cont_vq_launches
+             + demos_vq_launches,
              dict(max_abs_err=vq_err, ms=vq_ms, plain_ms=vq_plain_ms,
                   bound_ms=vq_bound[0], bound_by=vq_bound[1]),
              # ms is by CUDA events, which at this size time the host's
              # launch; device_ms is the kernel's own time in the train steps
-             device_ms=vq_device_ms),
+             device_ms=vq_device_ms,
+             # the 2-D demos' width (the balanced demo's shape), whose
+             # launches are part of the total
+             d2=vq_d2),
         line("wavenet_step", "wavenet_step.cu",
              "vqvae_speech_tpu/ops/wavenet_step.py:35",
              step_launches + cont_step_launches + teacher_launches

@@ -44,6 +44,14 @@ def test_every_module_imports_without_jax_or_yaml(tmp_path):
                       "sklearn", "matplotlib", "umap")
                      and sys.modules[m] is not None)
         assert "vqvae_speech_tpu_torch.eval.evaluator" in names
+        for name in ("native", "data.noise_injector",
+                     "data.spectrogram_dataset", "models.vq_adaptive",
+                     "models.vq_balanced", "models.vq_repulsion",
+                     "utils.errors", "utils.workspace", "utils.profiling",
+                     "examples.vq_2d_clustering", "examples.vq_2d_repulsion",
+                     "examples.vq_balanced_2d", "examples.encode_wav",
+                     "examples.serve_vocoder"):
+            assert "vqvae_speech_tpu_torch." + name in names, name
         print(len(names), "modules", bad)
     """, tmp_path)
     count, _, bad = out.split(maxsplit=2)
@@ -361,3 +369,54 @@ def test_the_vocoder_cli_trains_and_synthesizes_without_jax(tmp_path):
     """, tmp_path)
     last = out.splitlines()[-1].split()
     assert last[0] == "vocoders" and last[-1] == "[]"
+
+
+def test_the_demos_and_host_modules_run_without_jax_or_sklearn(tmp_path):
+    """What differs without JAX, scikit-learn and matplotlib: the improved
+    repulsion demo takes its random-rows init (kmeans_init's branch without
+    scikit-learn) and resets codes, a demo's main() refuses before any work,
+    the C++ ingest builds and loads, and a trace and a file logger write.
+    The quantizers' and augmentation's values are held against JAX in
+    test_torch_demo_quantizers.py, test_torch_demos.py and
+    test_torch_noise_injector.py."""
+    out = _run("""
+        import os
+        import numpy as np
+        import torch
+        from vqvae_speech_tpu_torch import native
+        from vqvae_speech_tpu_torch.examples import vq_balanced_2d
+        from vqvae_speech_tpu_torch.examples.vq_2d_clustering import (
+            generate_2d_clusters)
+        from vqvae_speech_tpu_torch.examples.vq_2d_repulsion import (
+            kmeans_init, train_repulsion_vq)
+        from vqvae_speech_tpu_torch.utils.logger import create_file_logger
+        from vqvae_speech_tpu_torch.utils.profiling import annotate, trace
+
+        torch.set_num_threads(1)
+        data, labels = generate_2d_clusters(n_points=200, n_clusters=5)
+        rows = kmeans_init(data, 8)
+        assert all(any((r == d).all() for d in data) for r in rows)
+        _, a, _, resets = train_repulsion_vq(
+            data, n_epochs=6, improved=True, reset_interval=3,
+            reset_threshold=0.5, device="cpu")
+        assert a.shape == (200,) and resets > 0
+        try:
+            vq_balanced_2d.main(["--device", "cpu", "--output", "x.png"])
+            raise AssertionError("a figure without matplotlib")
+        except ImportError as e:
+            assert "matplotlib" in str(e)
+
+        assert native.available()
+        with trace("tr") as t:
+            with annotate("x"):
+                torch.ones(4).sum()
+        assert os.path.isfile(t.path)
+        create_file_logger("guard", "log").info("x")
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                     ("jax", "jaxlib", "optax", "yaml", "vqvae_speech_tpu",
+                      "sklearn", "matplotlib")
+                     and sys.modules[m] is not None)
+        print("demos", resets, bad)
+    """, tmp_path)
+    last = out.splitlines()[-1].split()
+    assert last[0] == "demos" and last[-1] == "[]"

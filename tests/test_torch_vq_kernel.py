@@ -89,6 +89,58 @@ def test_kernel_matches_plain_over_the_grid(cuda, N, K, D):
     assert int(got.indices.min()) >= 0 and int(got.indices.max()) < K
 
 
+def _statistics_of_own_indices(got, flat, K):
+    """The kernel's counts exact and its dw within rtol/atol 1e-5 of the
+    plain sums over the kernel's own indices."""
+    onehot = torch.nn.functional.one_hot(got.indices.long(), K).float()
+    torch.testing.assert_close(got.counts, onehot.sum(0), rtol=0, atol=0)
+    torch.testing.assert_close(got.dw, onehot.t() @ flat, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 8, 30, 40])
+@pytest.mark.parametrize("N", [1, 64, 300, 600, 2000])
+def test_kernel_matches_plain_at_d2(cuda, N, K):
+    """The 2-D demos' width (examples/, models/vq_balanced.py,
+    models/vq_adaptive.py): 8-byte rows, the scalar path with a row stride
+    of D+1; one block writes its statistics straight out at N <= 64, more
+    blocks sum partials after the grid barrier."""
+    flat, cb = _inputs(N, K, 2, seed=N + K, device=cuda)
+    _assert_matches_plain(flat, cb)
+    got = vq_search(flat, cb)
+    _statistics_of_own_indices(got, flat, K)
+    assert int(got.counts.sum().item()) == N
+    assert vq_search_plan(N, K, 2, cuda)["device_kernels"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [300, 600, 2000])
+def test_kernel_on_gathered_active_codes_at_d2(cuda, N):
+    """The adaptive quantizer's masked search: active subsets of a 30-row
+    codebook gathered in ascending order, the indices mapped back, against
+    the argmin over the whole codebook with +inf on inactive codes (the JAX
+    package's form); a differing row must be a near-tie."""
+    rng = np.random.default_rng(N)
+    flat, cb = _inputs(N, 30, 2, seed=N, device=cuda)
+    for n_active in (1, 5, 17, 29, 30):
+        active = torch.from_numpy(np.sort(rng.choice(30, n_active,
+                                                     replace=False))).to(cuda)
+        sub = cb[active]
+        _assert_matches_plain(flat, sub)
+        got = vq_search(flat, sub)
+        _statistics_of_own_indices(got, flat, n_active)
+        mapped = active[got.indices.long()]
+        masked = torch.full((30,), float("inf"), device=cuda)
+        masked[active] = 0.0
+        want = torch.argmin(vq_distances(flat, cb) + masked, dim=1)
+        diff = (mapped != want).nonzero().flatten()
+        d = vq_distances(flat[diff], cb)
+        gap = (d.gather(1, mapped[diff, None]) - d.gather(1, want[diff, None]))
+        assert bool((gap.abs() <= 1e-5 * (flat[diff].square().sum(
+            1, keepdim=True) + 1)).all())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,fused", [(126, True), (127, False), (400, False),
                                      (401, False), (900, False)])

@@ -1,9 +1,13 @@
-"""Console logging.
+"""Console + rotating file logging.
 
-A copy of ``ConsoleLogger`` from ``vqvae_speech_tpu/utils/logger.py`` (the
-port imports nothing of the JAX package): capability-parity with reference
-src/error_handling/console_logger.py:34-81 (ANSI-colored status levels).
+A copy of ``vqvae_speech_tpu/utils/logger.py`` (the port imports nothing of
+the JAX package): capability-parity with reference
+src/error_handling/console_logger.py:34-81 (ANSI-colored status levels) and
+src/error_handling/logger_factory.py:35-60 (rotating file logs).
 """
+import logging
+import os
+from logging.handlers import RotatingFileHandler
 
 _COLORS = {
     "status": "\033[94m",     # blue
@@ -46,3 +50,20 @@ class ConsoleLogger:
     def critical(cls, message):
         cls._emit("critical", message)
 
+
+
+def create_file_logger(name: str, log_dir: str = "log",
+                       max_bytes: int = 5 * 1024 * 1024,
+                       backup_count: int = 3) -> logging.Logger:
+    """Rotating file logger under ``log_dir`` (one file per logger name)."""
+    os.makedirs(log_dir, exist_ok=True)
+    logger = logging.getLogger(name)
+    if not logger.handlers:
+        handler = RotatingFileHandler(
+            os.path.join(log_dir, f"{name}.log"),
+            maxBytes=max_bytes, backupCount=backup_count)
+        handler.setFormatter(logging.Formatter(
+            "%(asctime)s %(levelname)s %(name)s: %(message)s"))
+        logger.addHandler(handler)
+        logger.setLevel(logging.INFO)
+    return logger

@@ -1,8 +1,10 @@
 """Device time and kernel counts of a call, from torch.profiler's CUDA
-activity, guarded against the device events the profiler loses; and
-``StepTimer``, the trainer's per-step timing (counterpart of the JAX
-package's ``utils/profiling.py:StepTimer``)."""
+activity, guarded against the device events the profiler loses; ``trace``
+and ``annotate``, a Chrome trace of a region and a named span in it; and
+``StepTimer``, the trainer's per-step timing (counterparts of the JAX
+package's ``utils/profiling.py``)."""
 import contextlib
+import os
 import time
 from collections import deque
 from typing import Callable, List, NamedTuple, Optional, Tuple
@@ -49,28 +51,33 @@ def _sentinels(launch: Callable[[], object], count: int, span: float) -> int:
     return n
 
 
-def one_window(fn: Callable[[], object], leads: int = LEADS,
-               span: float = SPAN, tail_share: float = TAIL_SHARE) -> Window:
-    """One profiler window around ``fn``, opened and closed by sentinel runs
-    of at least ``leads`` launches and ``span`` seconds (the closing one at
-    least ``tail_share`` of ``fn``'s time). No retake, no check:
-    ``device_events`` is the entry point; this one serves it and
-    scripts/profiler_window_probe.py."""
+@contextlib.contextmanager
+def _window(leads: int, span: float, tail_share: float, activities):
+    """A profiler window around the body, opened and closed by sentinel
+    runs; yields a dict that holds, once the body is done, the ``Window``
+    and the profiler (``"window"``, ``"prof"``). With host activity
+    recorded too, the host's operators (which carry the device time of the
+    kernels they launched) are left out of the events."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     mark = torch.full((8,), 0.5, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    got = {}
+    with profile(activities=activities) as prof:
         n_leads = _sentinels(mark.erfinv_, leads, span)
         t0 = time.perf_counter()
-        fn()
+        yield got
         torch.cuda.synchronize()
         window = time.perf_counter() - t0
         n_tails = _sentinels(mark.digamma_, leads,
                              max(span, tail_share * window))
+    host = ProfilerActivity.CPU in activities
     events, leads_seen, tails_seen = [], 0, 0
     for e in prof.key_averages():
         if not e.self_device_time_total > 0:
+            continue
+        if host and e.device_type == DeviceType.CPU:
             continue
         if _LEAD in e.key:
             leads_seen += e.count
@@ -79,7 +86,23 @@ def one_window(fn: Callable[[], object], leads: int = LEADS,
         else:
             events.append(DeviceEvent(e.key, e.self_device_time_total,
                                       e.count))
-    return Window(window, events, leads_seen, n_leads, tails_seen, n_tails)
+    got["window"] = Window(window, events, leads_seen, n_leads, tails_seen,
+                           n_tails)
+    got["prof"] = prof
+
+
+def one_window(fn: Callable[[], object], leads: int = LEADS,
+               span: float = SPAN, tail_share: float = TAIL_SHARE) -> Window:
+    """One profiler window around ``fn``, opened and closed by sentinel runs
+    of at least ``leads`` launches and ``span`` seconds (the closing one at
+    least ``tail_share`` of ``fn``'s time). No retake, no check:
+    ``device_events`` is the entry point; this one serves it and
+    scripts/profiler_window_probe.py."""
+    from torch.profiler import ProfilerActivity
+
+    with _window(leads, span, tail_share, [ProfilerActivity.CUDA]) as got:
+        fn()
+    return got["window"]
 
 
 def device_events(fn: Callable[[], object],
@@ -124,6 +147,57 @@ def device_events(fn: Callable[[], object],
         f"torch.profiler lost device events in {WINDOWS} windows running: "
         f"(lead sentinels seen, launched, tail sentinels seen, launched, "
         f"other device events, whether they added up) {seen}")
+
+
+class Trace:
+    """What ``trace`` recorded, filled in when its region ends: the Chrome
+    trace's ``path`` and, on a card, the region's device ``events``."""
+
+    def __init__(self):
+        self.path: Optional[str] = None
+        self.events: List[DeviceEvent] = []
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Write a Chrome trace (``trace_<ns>.json`` under ``logdir``, for
+    chrome://tracing or Perfetto) of the enclosed region; yields a
+    ``Trace``.
+
+    In a process with a card the window records CUDA activity and is opened
+    and closed by the sentinel runs of ``device_events``; a region whose
+    lead or tail sentinels the profiler lost raises on exit, since its
+    device records cannot be trusted (a region, unlike a function, cannot be
+    taken again). Without a card it records the host's activity alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    out = Trace()
+    path = os.path.join(logdir, f"trace_{time.time_ns()}.json")
+    if not torch.cuda.is_available():
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            yield out
+        prof.export_chrome_trace(path)
+        out.path = path
+        return
+    with _window(LEADS, SPAN, TAIL_SHARE,
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as got:
+        yield out
+    w = got["window"]
+    got["prof"].export_chrome_trace(path)
+    out.path, out.events = path, w.events
+    if not (w.leads_seen and w.tails_seen):
+        seen = (w.leads_seen, w.leads, w.tails_seen, w.tails, len(w.events))
+        RETAKEN.append(seen + (False,))
+        raise RuntimeError(
+            f"torch.profiler lost device events in the traced region ({path}):"
+            f" (lead sentinels seen, launched, tail sentinels seen, launched,"
+            f" other device events) {seen}")
+
+
+def annotate(name: str):
+    """Named region visible in profiler timelines."""
+    return torch.profiler.record_function(name)
 
 
 class StepTimer:
