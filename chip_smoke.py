@@ -2952,6 +2952,23 @@ def _gemm_yardstick(gpu, L=6, T=20480):
           f"with allow_tf32 (one TF32 product a f32 product; 3 x that is "
           f"{3 * times[True]:.4f} ms), {bf16_ms:.4f} ms in bf16; no bias, "
           f"activation or epilogue [{gpu}]")
+    # the same for flow blocks 0 and 7 in bf16: 2 x [(T, 3 x 256 + cin) @
+    # (., 512) + (T, 256) @ (256, 512)]
+    for block, Tb, cin in ((0, 10240, 80), (7, 80, 10240)):
+        mats = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                .cuda().bfloat16()
+                for shape in ((Tb, 768 + cin), (768 + cin, 512), (Tb, 256),
+                              (256, 512))]
+        def flow_products():
+            for _ in range(2):
+                torch.matmul(mats[0], mats[1])
+                torch.matmul(mats[2], mats[3])
+
+        flow_ms = _median_ms(flow_products, iters=20, warmup=3)
+        print(f"yardstick: flow block {block}'s products alone in bf16, 2 x "
+              f"[({Tb}, {768 + cin}) @ ({768 + cin}, 512) + ({Tb}, 256) @ "
+              f"(256, 512)] by torch.matmul: {flow_ms:.4f} ms; no bias, "
+              f"activation or epilogue [{gpu}]")
     return bf16_ms
 
 
@@ -2974,6 +2991,7 @@ def chain_kernel_phase(gpu):
     import torch
     from vqvae_speech_tpu_torch.ops import _kernels
     from vqvae_speech_tpu_torch.ops import fused_resblock as fused
+    from vqvae_speech_tpu_torch.utils.profiling import device_events
 
     f32_ms = {}
     calls = {
@@ -3060,6 +3078,10 @@ def chain_kernel_phase(gpu):
                   f"({tensor_ms / ms:.3f}; median of 20, CUDA events); "
                   f"forced row-tiled {forced['rows']:.4f} ms, forced split "
                   f"{forced['split']:.4f} ms (median of 10) [{gpu}]")
+    bf16_wrappers = {"tiled": _kernels.fused_block_chain_tiled_bf16_cuda,
+                     "chain": _kernels.fused_block_chain_bf16_cuda,
+                     "nc": _kernels.fused_block_chain_nc_bf16_cuda}
+    bf16_ms, bf16_device_ms = {}, {}
     with torch.inference_mode():
         for name, which, L, k, dil, T, C, G, S, cin in BF16_CHAIN_SHAPES:
             x, c, stacked = _bf16_chain(
@@ -3098,6 +3120,31 @@ def chain_kernel_phase(gpu):
                 lambda: fused.fused_block_chain_bf16_torch(
                     x, c, stacked, L, k, dil, causal=causal),
                 iters=20, warmup=3)
+            # both decompositions, each held to the plain chain and timed;
+            # the device kernels of one call counted and their device time
+            # read by torch.profiler (at a few rows the CUDA events of one
+            # call measure the host's enqueue as much as the device)
+            forced, device_launches, device_ms = {}, {}, {}
+            wrapper = bf16_wrappers[which]
+            for path in ("rows", "split"):
+                bf16_chain_check(
+                    f"bf16 {name} ({path})",
+                    wrapper(x, c, prepared, *extra, path=path), want, exact)
+                forced[path] = _median_ms(
+                    lambda: wrapper(x, c, prepared, *extra, path=path),
+                    iters=10, warmup=2)
+                _, events = device_events(
+                    lambda: wrapper(x, c, prepared, *extra, path=path))
+                mine = [e for e in events if "chain_kernel" in e.key]
+                device_launches[path] = sum(e.count for e in mine)
+                device_ms[path] = sum(e.us for e in mine) / 1e3
+            want_launches = {"rows": L, "split": 1}
+            if device_launches != want_launches:
+                raise AssertionError(f"bf16 {name}: device launches a chain "
+                                     f"{device_launches}, expected "
+                                     f"{want_launches}")
+            bf16_ms[name] = ms
+            bf16_device_ms[name] = device_ms["split" if split else "rows"]
             bound_ms, bound_by, bytes_ms, tensor_ms = chain_bound_bf16(
                 L, k, T, C, G, S, cin)
             row = out.setdefault(f"{which}_bf16", dict(
@@ -3120,7 +3167,19 @@ def chain_kernel_phase(gpu):
                   f"bound {bound_ms:.4f} ms by {bound_by} (bytes at bf16 "
                   f"{bytes_ms:.4f} ms, tensor bound at the dense bf16 peak "
                   f"{tensor_ms:.4f} ms; {bound_ms / ms:.3f} of the kernel's "
-                  f"time; median of 20, CUDA events) [{gpu}]")
+                  f"time; median of 20, CUDA events); forced row-tiled "
+                  f"{forced['rows']:.4f} ms in {device_launches['rows']} "
+                  f"device launches ({device_ms['rows']:.4f} ms of device "
+                  f"time), forced split {forced['split']:.4f} ms in "
+                  f"{device_launches['split']} ({device_ms['split']:.4f} ms; "
+                  f"median of 10, CUDA events; device time by torch.profiler, "
+                  f"one call) [{gpu}]")
+    flows = [n for n in bf16_ms if n.startswith("flow block")]
+    print(f"kernel fused_block_chain_bf16[nc]: the {len(flows)} flow block "
+          f"shapes take {sum(bf16_ms[n] for n in flows):.4f} ms in all by CUDA "
+          f"events, {sum(bf16_device_ms[n] for n in flows):.4f} ms of device "
+          f"time, as the shapes route them (each chain once, prepared "
+          f"weights) [{gpu}]")
     out["yardstick_bf16_ms"] = _gemm_yardstick(gpu)
     return out
 
@@ -3331,7 +3390,7 @@ def _serve_kind(gpu, kind, params, cfg, common, mels, key, chains, wrappers,
     window, busy_us = _device_profile(lambda: fused_server.synthesize([mel]))
     total_us = sum(busy_us.values())
     chain_us = sum(v for k, v in busy_us.items() if any(
-        n in k for n in ("gemm_kernel", "glu_kernel")))
+        n in k for n in ("gemm_kernel", "glu_kernel", "chain_kernel")))
     print(f"vocoder {tag} profile (one fused bucket-80 request, "
           f"torch.profiler CUDA activity): window {window * 1e3:.2f} ms, "
           f"device busy {total_us / 1e3:.2f} ms, idle share "

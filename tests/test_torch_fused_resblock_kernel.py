@@ -528,3 +528,124 @@ def test_bf16_kernels_count_launches_and_refuse_mixed_dtypes(cuda):
                                                    f32_weights)
     with pytest.raises(ValueError, match="float32 weights"):
         _kernels.fused_block_chain_tiled_cuda(x, c, stacked)
+
+
+# ---- the bf16 kernels' two decompositions (one cooperative launch a layer
+# on the row-tiled path, one a chain on the split path) ----
+
+BF16_WIDTHS = {
+    # the "deep dilations" shape: 16-byte rows, every source through TMA
+    "deep": dict(L=4, C=16, G=32, S=16, cin=8),
+    # rows of 40 and 38 bytes: x and c_up copied by the producer's threads
+    "ragged": dict(L=3, **RAGGED),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", sorted(BF16_WIDTHS))
+@pytest.mark.parametrize("path", ["auto", "rows", "split"])
+@pytest.mark.parametrize("k", [1, 2, 3])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 80, 81, 129, 5119])
+def test_bf16_decompositions_at_every_tile_edge(cuda, T, k, path, widths):
+    """The causal and the non-causal bf16 chain on each decomposition at row
+    counts around the 128-row tile, held by bf16_chain_check; bit-equal run
+    to run; one wrapper launch a chain and last_split as the path says."""
+    w = dict(BF16_WIDTHS[widths])
+    L = w.pop("L")
+    x, c, stacked = bf16_inputs(L, k, T, seed=T * 7 + k, device=cuda, **w)
+    prepared = fused.prepare_block_chain(stacked)
+    dil = tuple(2 ** i for i in range(L))
+    for wrapper, dilations in (
+            (_kernels.fused_block_chain_tiled_bf16_cuda, None),
+            (_kernels.fused_block_chain_nc_bf16_cuda, dil)):
+        extra = () if dilations is None else (dilations,)
+        before = wrapper.launches
+        runs = [wrapper(x, c, prepared, *extra, path=path) for _ in range(2)]
+        assert wrapper.launches == before + 2
+        if path != "auto":
+            assert _kernels._fused_chain_launch.last_split == (path == "split")
+        check_bf16(f"{wrapper.__name__} {path} T={T} k={k}", runs[0], x, c,
+                   stacked, L, k, dilations)
+        for u, v in zip(*runs):
+            assert torch.equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["rows", "split"])
+def test_bf16_chains_run_on_a_side_stream(cuda, path):
+    x, c, stacked = bf16_inputs(2, 3, 1280, 256, 256, 256, 640, seed=5,
+                                device=cuda)
+    prepared = fused.prepare_block_chain(stacked)
+    want = _kernels.fused_block_chain_nc_bf16_cuda(x, c, prepared, (1, 2),
+                                                   path=path)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        bound = fused.prepare_block_chain(stacked)
+        got = _kernels.fused_block_chain_nc_bf16_cuda(x, c, bound, (1, 2),
+                                                      path=path)
+    side.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_refuse_what_they_cannot_take(cuda):
+    x, c, stacked = bf16_inputs(2, 3, 80, 16, 32, 16, 8, seed=2, device=cuda)
+    prepared = fused.prepare_block_chain(stacked)
+    wrapper = _kernels.fused_block_chain_nc_bf16_cuda
+    with pytest.raises(ValueError, match="path"):
+        wrapper(x, c, prepared, (1, 2), path="fused")
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(x.t().contiguous().t(), c, prepared, (1, 2))
+    with pytest.raises(ValueError, match="bfloat16"):
+        wrapper(x, c.float(), prepared, (1, 2))
+    with pytest.raises(ValueError, match="positive dilations"):
+        wrapper(x, c, prepared, (1, 0))
+    with pytest.raises(ValueError, match="k <= 8"):
+        fused.prepare_block_chain(bf16_inputs(1, 9, 8, 8, 8, 8, 8, seed=0,
+                                              device=cuda)[2])
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wrapper(_offset_view(x), c, prepared, (1, 2))
+
+
+def test_scratch_plan_names_the_form():
+    """The scratch and path query passes the weights' form to the library
+    (the bf16 kernels size their scratch and choose their path by their own
+    rule) and is asked once a (T, path): checked on the CPU against a
+    stand-in for the library."""
+    import ctypes
+
+    calls = []
+
+    def plan(T, C, G, cin, L, k, path, bf16, floats, split):
+        calls.append((T, C, G, cin, L, k, path, bf16))
+        floats._obj.value = 1000 + bf16
+        split._obj.value = path == 2
+        return 0
+
+    class Lib:
+        fused_chain_scratch_floats = staticmethod(plan)
+
+    lib = type("Bound", (), {})()
+    for name in ("fused_chain_scratch_floats", "fused_chain_prepare_f32",
+                 "fused_chain_prepare_bf16", "fused_chain_matmul_f32",
+                 "fused_chain_matmul_bf16", "fused_chain_f32",
+                 "fused_chain_tiled_f32", "fused_chain_nc_f32",
+                 "fused_chain_bf16", "fused_chain_tiled_bf16",
+                 "fused_chain_nc_bf16"):
+        setattr(lib, name, type("Fn", (), {})())
+    _kernels._bind_fused_resblock(lib)
+    assert lib.fused_chain_scratch_floats.argtypes == (
+        [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_size_t),
+                              ctypes.POINTER(ctypes.c_int)])
+    for dtype, form in ((torch.bfloat16, 1), (torch.float32, 0)):
+        chain = _kernels.PreparedFusedChain.__new__(_kernels.PreparedFusedChain)
+        chain.dims = dict(L=2, k=3, C=16, G=32, S=16, cin=8)
+        chain.dtype, chain._lib, chain._plans = dtype, Lib(), {}
+        del calls[:]
+        assert chain._plan("name", 80, 2) == (1000 + form, True)
+        assert chain._plan("name", 80, 2) == (1000 + form, True)
+        assert chain._plan("name", 80, 1) == (1000 + form, False)
+        assert calls == [(80, 16, 32, 8, 2, 3, 2, form),
+                         (80, 16, 32, 8, 2, 3, 1, form)]

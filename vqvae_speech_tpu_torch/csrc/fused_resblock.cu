@@ -45,11 +45,12 @@
 // operands with f32 sums (preferred_element_type=f32), the gated output
 // rounded to bf16 before the projections, x carried between layers in bf16,
 // skip in f32, the biases f32. A product of two bf16 values is exact in f32,
-// so here a product is ONE wgmma.mma_async.m64n128k16.f32.bf16.bf16 in
-// place of the three TF32 ones, on weights prepared once in bf16, half the
-// bytes of one TF32 part; a chunk is 64 bf16 (the same 128-byte rows), and
-// the gated buffer and the x ping-pong hold bf16. The rounding to bf16 is to
-// nearest even (__floats2bfloat162_rn), as torch's and XLA's casts.
+// so a product is ONE wgmma.mma_async.m64n128k16.f32.bf16.bf16, on weights
+// prepared once in bf16. The rounding to bf16 is to nearest even
+// (__floats2bfloat162_rn), as torch's and XLA's casts. The bf16 form has a
+// kernel of its own, built for the card's balance at bf16: see "The bf16
+// kernel" (namespace bf16, below). What follows up to there is the f32
+// form's.
 //
 // Operands. wgmma's TF32 form has no transposed operand: both must have the
 // reduction index contiguous. The activations are the A operand: a thread
@@ -64,14 +65,12 @@
 // (x8 = x rounded up to 8, the padding zero), once a weight set: 2 x 7.3 MB
 // for a student chain (0.1 GB over the student's 7), 2 x 0.7 GB over
 // FloWaveNet's 48 chains (the last block 2 x 23 MB a layer). The bf16 form
-// may take B transposed (reduction index strided), but keeps this layout,
-// reduction index contiguous, without the split (wgate, wproj in bf16, half
-// the bytes of one f32 part): the 128-byte-swizzled K-major tile is then the
-// same bytes whatever the element type, so the loader, the descriptor (32
-// bytes a k16 step, as a k8 step of TF32) and the prepared weights' indexing
-// are the f32 form's, and x, c and the gated output are read as they are
-// stored, rows of contiguous channels. A transposed B would need the weights
-// as (k*C + cin, 2G) rows: no fewer bytes, and another loader.
+// keeps this layout, reduction index contiguous, without the split (wgate,
+// wproj in bf16, half the bytes of one f32 part): the 128-byte-swizzled
+// K-major tile is then the same bytes whatever the element type, so the
+// descriptor (32 bytes a k16 step, as a k8 step of TF32) and the prepared
+// weights' indexing are the f32 form's, and x, c and the gated output are
+// read as they are stored, rows of contiguous channels.
 //
 // One main loop (gemm_kernel). A block of two warpgroups owns a 128-row x
 // 128-column output tile; each warpgroup owns 64 of the rows and both read
@@ -138,9 +137,13 @@
 // (tanh and exp); a projection block 24 us, 11.5 its 8 chunks, 8 its
 // epilogue, whose reads of x and skip meet every other block's in the
 // same phase. A whole student chain runs at 170 TFLOP/s of TF32 work.
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -165,22 +168,14 @@ constexpr int kStages = 4;
 constexpr int kPromote = CHAIN_PROMOTE;
 constexpr int kBBytes = kBN * 128;       // one B part: 128 rows of 128 bytes
 
-// The two element forms of the main loop. A chunk is one 128-byte row of
-// the swizzled B tile: 32 floats or 64 bf16. The A tile's rows are padded
-// (36 floats, 72 bf16) to keep the fragment reads off bank conflicts.
+// The f32 form of the main loop. A chunk is one 128-byte row of the
+// swizzled B tile: 32 floats. The A tile's rows are padded (36 floats) to
+// keep the fragment reads off bank conflicts.
 struct F32Form {
   using T = float;
-  static constexpr bool kBf16 = false;
   static constexpr int kBK = 32;         // reduction elements a chunk
   static constexpr int kParts = 2;       // B as hi and lo
   static constexpr int kAStride = kBK + 4;
-};
-struct Bf16Form {
-  using T = __nv_bfloat16;
-  static constexpr bool kBf16 = true;
-  static constexpr int kBK = 64;
-  static constexpr int kParts = 1;
-  static constexpr int kAStride = kBK + 8;
 };
 template <class E>
 struct Ring {
@@ -293,21 +288,23 @@ __device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(keep));
 }
 
-// d (64 x 128, f32) += a (64 x 16, bf16, this thread's register fragment) x
-// b (128 x 16 K-major, bf16, shared memory; tnspB 0); keep = 0 overwrites d
-__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
-                                                      const uint32_t (&a)[4],
-                                                      uint64_t desc, int keep = 1) {
+// d (64 x 128, f32) += a (64 x 16, bf16) x b (128 x 16), both K-major in
+// shared memory (the 128-byte swizzle, descriptors as b_descriptor's);
+// keep = 0 overwrites d instead
+__device__ __forceinline__ void wgmma_m64n128k16_bf16_ss(float (&d)[64],
+                                                         uint64_t a_desc,
+                                                         uint64_t b_desc,
+                                                         int keep) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
+      "setp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
       "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
       "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
       "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63},"
-      "{%64,%65,%66,%67}, %68, p, 1, 1, 0;\n"
+      "%64, %65, p, 1, 1, 0, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -322,11 +319,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(keep));
-}
-
-__device__ __forceinline__ void st_shared_u16(uint32_t addr, unsigned short v) {
-  asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(addr), "h"(v) : "memory");
+      : "l"(a_desc), "l"(b_desc), "r"(keep));
 }
 
 // ---- the main loop ----
@@ -378,9 +371,8 @@ struct GemmArgs {
 };
 
 // Stage `stage` <- chunk (seg s, elements [k0, k0 + kBK)) of A and of B (both
-// parts at f32), as cp.async copies; a copy that is out of range reads zero
-// bytes and zero-fills. A bf16 segment whose rows are not 16-byte aligned (a
-// ragged width) is copied an element at a time by the threads themselves.
+// parts), as cp.async copies; a copy that is out of range reads zero bytes
+// and zero-fills.
 template <class E>
 __device__ __forceinline__ void load_chunk(const GemmArgs& a, const void* bhi,
                                            const void* blo, uint32_t stage,
@@ -420,83 +412,50 @@ __device__ __forceinline__ void load_chunk(const GemmArgs& a, const void* bhi,
     if (seg.vec) {
       const bool ok = row_ok && kp < seg.width;
       cp_async_16(dst, src + (ok ? kp : 0), ok);
-    } else if constexpr (!E::kBf16) {
+    } else {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool ok = row_ok && kp + e < seg.width;
         cp_async_4(dst + 4 * e, src + (ok ? kp + e : 0), ok);
-      }
-    } else {
-      const unsigned short* raw = reinterpret_cast<const unsigned short*>(src);
-#pragma unroll
-      for (int e = 0; e < kPiece; ++e) {
-        const bool ok = row_ok && kp + e < seg.width;
-        st_shared_u16(dst + 2 * e, ok ? __ldg(raw + kp + e) : 0);
       }
     }
   }
 }
 
 // The products of one staged chunk for this warpgroup's 64 rows, committed
-// as one wgmma group. f32: four k8 steps, each A_hi B_lo, A_lo B_hi, A_hi
-// B_hi into acc; bf16: four k16 steps of one product. The fragment
-// registers are this call's own, so that the caller can leave one group in
-// flight.
+// as one wgmma group: four k8 steps, each A_hi B_lo, A_lo B_hi, A_hi B_hi
+// into acc. The fragment registers are this call's own, so that the caller
+// can leave one group in flight.
 template <class E>
 __device__ __forceinline__ void mma_chunk(float (&acc)[64], uint32_t stage,
                                           const unsigned char* a_ptr, bool fresh) {
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int wg = threadIdx.x / 128;
   const int r = wg * 64 + warp * 16 + lane / 4, c = lane % 4;
-  if constexpr (E::kBf16) {
-    // the m64k16 fragment: rows r and r + 8, reduction columns 2c, 2c + 1
-    // and 2c + 8, 2c + 9, two bf16 a register (the lower index low)
-    const unsigned short* a_s = reinterpret_cast<const unsigned short*>(a_ptr);
-    uint32_t fr[E::kBK / 16][4];
+  const float* a_s = reinterpret_cast<const float*>(a_ptr);
+  uint32_t hi[E::kBK / 8][4], lo[E::kBK / 8][4];
 #pragma unroll
-    for (int s = 0; s < E::kBK / 16; ++s) {
-      const int k = 16 * s + 2 * c;
-      fr[s][0] = *reinterpret_cast<const uint32_t*>(a_s + r * E::kAStride + k);
-      fr[s][1] = *reinterpret_cast<const uint32_t*>(a_s + (r + 8) * E::kAStride + k);
-      fr[s][2] = *reinterpret_cast<const uint32_t*>(a_s + r * E::kAStride + k + 8);
-      fr[s][3] = *reinterpret_cast<const uint32_t*>(a_s + (r + 8) * E::kAStride + k + 8);
-    }
-    wgmma_fence();
+  for (int s = 0; s < E::kBK / 8; ++s) {
+    // the m64k8 fragment: rows r and r + 8, reduction columns c and c + 4
+    split_tf32(a_s[r * E::kAStride + 8 * s + c], hi[s][0], lo[s][0]);
+    split_tf32(a_s[(r + 8) * E::kAStride + 8 * s + c], hi[s][1], lo[s][1]);
+    split_tf32(a_s[r * E::kAStride + 8 * s + c + 4], hi[s][2], lo[s][2]);
+    split_tf32(a_s[(r + 8) * E::kAStride + 8 * s + c + 4], hi[s][3], lo[s][3]);
+  }
+  wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < E::kBK / 16; ++s) {
+  for (int s = 0; s < E::kBK / 8; ++s) {
+    const uint64_t d_hi = b_descriptor(stage + 32 * s);
+    const uint64_t d_lo = b_descriptor(stage + kBBytes + 32 * s);
 #ifndef CHAIN_NO_PRODUCTS
-      wgmma_m64n128k16_bf16(acc, fr[s], b_descriptor(stage + 32 * s),
-                            (s > 0 || !fresh) ? 1 : 0);
-#else   // keep the fragment loads alive
-      acc[s] += __uint_as_float(fr[s][0] ^ fr[s][1] ^ fr[s][2] ^ fr[s][3]);
-#endif
-    }
-  } else {
-    const float* a_s = reinterpret_cast<const float*>(a_ptr);
-    uint32_t hi[E::kBK / 8][4], lo[E::kBK / 8][4];
-#pragma unroll
-    for (int s = 0; s < E::kBK / 8; ++s) {
-      // the m64k8 fragment: rows r and r + 8, reduction columns c and c + 4
-      split_tf32(a_s[r * E::kAStride + 8 * s + c], hi[s][0], lo[s][0]);
-      split_tf32(a_s[(r + 8) * E::kAStride + 8 * s + c], hi[s][1], lo[s][1]);
-      split_tf32(a_s[r * E::kAStride + 8 * s + c + 4], hi[s][2], lo[s][2]);
-      split_tf32(a_s[(r + 8) * E::kAStride + 8 * s + c + 4], hi[s][3], lo[s][3]);
-    }
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < E::kBK / 8; ++s) {
-      const uint64_t d_hi = b_descriptor(stage + 32 * s);
-      const uint64_t d_lo = b_descriptor(stage + kBBytes + 32 * s);
-#ifndef CHAIN_NO_PRODUCTS
-      wgmma_m64n128k8(acc, hi[s], d_lo, (s > 0 || !fresh) ? 1 : 0);
-      wgmma_m64n128k8(acc, lo[s], d_hi);
-      wgmma_m64n128k8(acc, hi[s], d_hi);
+    wgmma_m64n128k8(acc, hi[s], d_lo, (s > 0 || !fresh) ? 1 : 0);
+    wgmma_m64n128k8(acc, lo[s], d_hi);
+    wgmma_m64n128k8(acc, hi[s], d_hi);
 #else   // keep the fragment loads and splits alive
-      acc[s] += __uint_as_float(hi[s][0] ^ hi[s][1] ^ hi[s][2] ^ hi[s][3] ^
-                                lo[s][0] ^ lo[s][1] ^ lo[s][2] ^ lo[s][3]) +
-                static_cast<float>(d_hi ^ d_lo);
+    acc[s] += __uint_as_float(hi[s][0] ^ hi[s][1] ^ hi[s][2] ^ hi[s][3] ^
+                              lo[s][0] ^ lo[s][1] ^ lo[s][2] ^ lo[s][3]) +
+              static_cast<float>(d_hi ^ d_lo);
 #endif
-    }
   }
   wgmma_commit();
 }
@@ -535,23 +494,15 @@ struct ChunkCursor {
 };
 
 // A pair of adjacent elements of a (T, width) row-major array of the form's
-// type, as floats / from floats (bf16: rounded to nearest even).
+// type, as floats / from floats.
 template <class E>
 __device__ __forceinline__ float2 load_pair(const void* base, size_t at) {
-  if constexpr (E::kBf16)
-    return __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const __nv_bfloat16*>(base) + at));
-  else
-    return *reinterpret_cast<const float2*>(static_cast<const float*>(base) + at);
+  return *reinterpret_cast<const float2*>(static_cast<const float*>(base) + at);
 }
 
 template <class E>
 __device__ __forceinline__ void store_pair(void* base, size_t at, float x, float y) {
-  if constexpr (E::kBf16)
-    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(base) + at) =
-        __floats2bfloat162_rn(x, y);
-  else
-    *reinterpret_cast<float2*>(static_cast<float*>(base) + at) = make_float2(x, y);
+  *reinterpret_cast<float2*>(static_cast<float*>(base) + at) = make_float2(x, y);
 }
 
 template <int EPI, class E>
@@ -935,8 +886,8 @@ SplitPlan split_plan(int T, int C, int G, int cin, int L, int k, int sms) {
 // 0.22-0.25, 0.19-0.22, 0.19-0.22, 0.17-0.23, 0.20-0.25 against 0.25-0.28,
 // 0.30-0.31, 0.43-0.48, 0.67-0.76, 1.15-1.28), where the conditioning is
 // also the wider part of the reduction. A rule of the shapes and the SM
-// count alone, so results are a function of the inputs. The bf16 form
-// takes the same rule (measured at f32).
+// count alone, so results are a function of the inputs. The bf16 form has
+// its own rule (bf16::takes_split_path).
 bool takes_split_path(int T, int G, int sms, int path) {
   if (path == kPathRows) return false;
   if (path == kPathSplit) return true;
@@ -951,25 +902,17 @@ int device_sms(int* sms) {
   return static_cast<int>(err);
 }
 
-// Floats of scratch a chain needs: the (T, C) buffer x ping-pongs through,
-// the gated output (T, G) and, on the split path, the partial sums of the
-// pre-pass (L, c_splits, T, 2G) and of one layer's tap product (g_splits,
-// T, 2G). The bf16 form lays its buffers out at the same offsets (x and the
-// gated output in half of theirs), so one size serves both: the larger of
-// the two forms' plans.
+// Floats of scratch an f32 chain needs: the (T, C) buffer x ping-pongs
+// through, the gated output (T, G) and, on the split path, the partial sums
+// of the pre-pass (L, c_splits, T, 2G) and of one layer's tap product
+// (g_splits, T, 2G).
 size_t chain_scratch_floats(int T, int C, int G, int cin, int L, int k, int sms,
                             int path) {
   size_t n = static_cast<size_t>(T) * C + static_cast<size_t>(T) * G;
   if (takes_split_path(T, G, sms, path)) {
-    const SplitPlan plans[2] = {split_plan<F32Form>(T, C, G, cin, L, k, sms),
-                                split_plan<Bf16Form>(T, C, G, cin, L, k, sms)};
-    size_t parts = 0;
-    for (const SplitPlan& p : plans) {
-      const size_t need = static_cast<size_t>(L) * p.c_splits * T * 2 * G +
-                          static_cast<size_t>(p.g_splits) * T * 2 * G;
-      if (need > parts) parts = need;
-    }
-    n += parts;
+    const SplitPlan p = split_plan<F32Form>(T, C, G, cin, L, k, sms);
+    n += static_cast<size_t>(L) * p.c_splits * T * 2 * G +
+         static_cast<size_t>(p.g_splits) * T * 2 * G;
   }
   return n;
 }
@@ -1178,20 +1121,977 @@ int prepare_chain_weights(const S* wf, const S* wg, const S* wfc, const S* wgc,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- The bf16 kernel: warp-specialised, on a TMA ring ----
+//
+// What bounds it on an H100. The student's chain at T = 20480 is 75 us of
+// bf16 tensor work (989 TFLOP/s) and cuBLAS takes 0.23-0.28 ms for its bare
+// products; what this kernel pays for is the traffic from L2 and the steps
+// between the products. Measured on the card (the bare product through this
+// loop, chunk = 64 bf16 of reduction over a 128 x 128 tile, 32 KB of A and
+// B): with every SM pulling, the loads alone take 0.6 us a chunk (some
+// 7 TB/s from L2), the products alone with the ring's handshake 0.87 us,
+// of which the tensor work is 0.3 (four more wgmma a warpgroup cost 0.08 us
+// each). So a chunk here is 128 elements (two sub-chunks of 64, 64 KB, a
+// ring of three), which halves the fixed cost a chunk; the accumulator's
+// promotion (kPromote, counted in sub-chunks of 64) is as at f32.
+//
+// The design. One block an SM, 384 threads. Warpgroup 2 is the producer:
+// its thread 0 issues TMA copies into the ring, full and empty mbarriers
+// between it and the consumers (setmaxnreg: 56 registers, the consumers
+// 224). A is a box of 64 elements x 128 rows of x, c_up or the gated
+// output, at a signed row coordinate: rows outside [0, T) come back zero,
+// which is all the zero padding of the taps, causal or centred. B is two
+// 64-row boxes of a 3-D map over (Kg or G8, rows, layer). Warpgroups 0 and
+// 1 own 64 rows each of the 128-row tile and read the same B; both operands
+// come from shared memory (the 128-byte swizzle TMA writes is the one the
+// descriptors name). Rows TMA cannot take (not a 16-byte multiple, or an
+// unaligned base: a rule of the shapes and pointers, decided at the launch)
+// are copied by the producer's 128 threads instead.
+//
+// The work is phases of items, walked by every block (item = block, +=
+// grid), a grid barrier between phases; the producer and the consumers walk
+// the same sequence, so a chunk's stage and parity are a running count.
+//   kGate:  (row tile, 64 filter + 64 gate columns) over the taps and the
+//           conditioning, + the biases, tanh * sigmoid, rounded to bf16
+//           into the gated output (T, G8);
+//   kProj:  (row tile, 128 columns of [wres | wskip]) over the gated output,
+//           the residual (x rounded to bf16) and skip updates.
+// The row-tiled path is one cooperative launch a layer: kGate, a barrier,
+// kProj. The split path (at most one row tile for 32 SMs: FloWaveNet's
+// blocks 5-7, whose conditioning is 2560-10240 wide) is one cooperative
+// launch a chain: kCondPart, the conditioning product of every layer cut
+// over cin into about two items a block, writing partial sums; kReduce,
+// their sums in split order with the gate biases; then per layer kGateCond
+// (the taps + those sums) and kProj. Every output element is written by
+// one thread in a fixed order: no atomics, results are bit-reproducible.
+//
+// The first design kept a row tile's gated output in shared memory and ran
+// gate and projection as one item. Measured: the student's chain 0.85 ms
+// (PR 9's two launches a layer: 0.73): one item a 128-row tile is 160 items
+// at T = 20480, 1.2 waves on 132 SMs, and 40 at T = 5119, and the GLU and
+// residual epilogues, a third of an item, ran with the tensor cores idle.
+// The two phases keep four times the blocks busy; the gated output makes a
+// round trip through L2 (10.5 MB at T = 20480).
+//
+// Two things ptxas needs, else it serialises every wgmma of the kernel
+// (its warning C7518): the role and the warpgroup index from __shfl_sync,
+// so that the wgmma are not taken for divergent code, and a wgmma wait
+// after every product, before the grid barrier's divergent code.
+
+namespace bf16 {
+
+constexpr int kThreads = 384;          // two consumer warpgroups + the producer's
+constexpr int kConsumerThreads = 256;
+constexpr int kK = 64;                 // bf16 a sub-chunk: one 128-byte row
+constexpr int kSub = 2;                // sub-chunks a chunk
+constexpr int kChunk = kSub * kK;      // reduction elements a chunk (a ring stage)
+constexpr int kTile = 128 * 128;       // one 128-row x 128-byte swizzled tile
+constexpr int kStage = 2 * kSub * kTile;  // A and B of a chunk: 64 KB
+constexpr int kMaxStages = 8;
+constexpr int kBarBytes = 2 * kMaxStages * 8;
+constexpr int kSmemMax = 232448;
+// the deepest ring that fits a block: 3 stages of 64 KB
+constexpr int kRingStages = (kSmemMax - kBarBytes - 1024) / kStage < kMaxStages
+                                ? (kSmemMax - kBarBytes - 1024) / kStage
+                                : kMaxStages;
+
+// The phases' work: the gate product of a (row tile, 64 filter + 64 gate
+// columns) tile, over the taps and the conditioning with the biases
+// (kGate) or over the taps with the conditioning's sums (kGateCond), its
+// GLU stored in bf16; the conditioning's partial sums (kCondPart) and
+// their sums (kReduce); the projection of a (row tile, 128 columns) tile
+// with the residual and skip updates (kProj); a bare product (kPlain).
+enum Kind { kGate, kGateCond, kCondPart, kReduce, kProj, kPlain };
+enum Path { kRows, kSplit, kMatmul };
+// The A sources: the conditioning, the chain's input x, the two buffers x
+// ping-pongs through (the scratch one and x_out), the gated output.
+enum SrcId { kSrcC, kSrcX, kSrcXa, kSrcXb, kSrcGated, kNumSrc };
+
+struct Src {
+  const __nv_bfloat16* ptr;
+  int width;  // elements of a row that are read
+  int ld;     // elements from one row to the next
+  int tma;    // 1: copied through the tensor map of the same index
+};
+
+struct Args {
+  CUtensorMap map[kNumSrc];  // (width, rows) of each A source, boxes 64 x 128
+  CUtensorMap wgate;         // (Kg, 2G, L), boxes 64 x 64 x 1; the matmul's b
+  CUtensorMap wproj;         // (G8, C + S, L), boxes 64 x 64 x 1
+  Src src[kNumSrc];
+  const float *bf, *bg, *bres, *bskip;
+  float* skip;
+  float* part;     // split: (L, c_splits, T, 2G) partial sums
+  float* condsum;  // split: (L, T, 2G) their sums and the gate biases
+  float* out;      // matmul: (M, N)
+  int T, C, G, S, cin, L, k, causal;
+  int dil[kMaxLayers];
+  int path, phase0, phase1;  // the launch runs phases [phase0, phase1)
+  int manual;                // some A source is copied by the producer's threads
+  int c_splits, c_chunks;    // split: the conditioning's reduction, cut
+  int n_cols;                // matmul: N
+};
+
+// ---- PTX: mbarriers, TMA, fences ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// An arrival by the threads for which `pred` holds (a predicate inside the
+// instruction, not a branch: the consumers' code stays warp-uniform, so
+// that ptxas does not serialise their wgmma).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar, bool pred = true) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// Spin until the phase of the given parity has completed; the loop is
+// inside the asm for the same reason.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map,
+                                       uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Generic-proxy writes made visible to the async proxy: st.shared to
+// wgmma's reads of shared memory, st.global to TMA's reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// ---- the plan: phases, items, chunks. The producer and the consumers walk
+// the same sequence, so a chunk's stage and parity are a running count. ----
+
+// The scalars the loops read, copied once into registers. Read through the
+// parameter block (whose address the TMA operands take), each would be read
+// again after every barrier operation and every store, which the compiler
+// cannot tell from writes to it.
+struct Dims {
+  int T, C, G, S, cin, L, k, causal, path, manual, tma;  // tma: bit i, source i
+  int c_splits, c_chunks, n_cols;
+  int NG, NP, n_taps, n_cond, n_proj, n_plain, C8, G8;
+};
+
+__device__ __forceinline__ Dims dims_of(const Args& a) {
+  Dims d;
+  d.T = a.T;
+  d.C = a.C;
+  d.G = a.G;
+  d.S = a.S;
+  d.cin = a.cin;
+  d.L = a.L;
+  d.k = a.k;
+  d.causal = a.causal;
+  d.path = a.path;
+  d.manual = a.manual;
+  d.tma = 0;
+#pragma unroll
+  for (int i = 0; i < kNumSrc; ++i) d.tma |= a.src[i].tma << i;
+  d.c_splits = a.c_splits;
+  d.c_chunks = a.c_chunks;
+  d.n_cols = a.n_cols;
+  d.NG = ceil_div(a.G, 64);
+  d.NP = ceil_div(a.C + a.S, 128);
+  d.n_taps = a.k * ceil_div(a.C, kChunk);
+  d.n_cond = ceil_div(a.cin, kChunk);
+  d.n_proj = ceil_div(a.G, kChunk);
+  d.n_plain = ceil_div(a.src[kSrcX].width, kChunk);
+  d.C8 = round_up(a.C, 8);
+  d.G8 = round_up(a.G, 8);
+  return d;
+}
+
+__device__ __forceinline__ void phase_of(const Dims& d, int p, int& kind, int& l) {
+  l = 0;
+  if (d.path == kMatmul) {
+    kind = kPlain;
+  } else if (d.path == kRows) {  // per layer: gate, projection
+    l = p / 2;
+    kind = p % 2 == 0 ? kGate : kProj;
+  } else if (p == 0) {  // the conditioning of every layer, its sums, then per layer
+    kind = kCondPart;
+  } else if (p == 1) {
+    kind = kReduce;
+  } else {
+    l = (p - 2) / 2;
+    kind = p % 2 == 0 ? kGateCond : kProj;
+  }
+}
+
+__device__ __forceinline__ int out_src(const Dims& d, int l) {
+  return (d.L - 1 - l) % 2 == 0 ? kSrcXb : kSrcXa;  // the last layer writes x_out
+}
+
+__device__ __forceinline__ int in_src(const Dims& d, int l) {
+  return l == 0 ? kSrcX : out_src(d, l - 1);
+}
+
+__device__ __forceinline__ int items_of(const Dims& d, int kind) {
+  const int R = ceil_div(d.T, 128);
+  switch (kind) {
+    case kGate:
+    case kGateCond: return R * d.NG;
+    case kCondPart: return R * d.NG * d.L * d.c_splits;
+    case kProj: return R * d.NP;
+    case kPlain: return R * ceil_div(d.n_cols, 128);
+    default: return 0;
+  }
+}
+
+// ---- the producer ----
+
+// Rows [row0, row0 + 128) x elements [col0, col0 + 64) of a source whose
+// rows TMA cannot take, by the producer's 128 threads, a row each, into the
+// 128-byte-swizzled tile at dst; zero outside [0, T) and past the width.
+__device__ __forceinline__ void copy_rows(const Src& s, int T, uint32_t dst,
+                                          int row0, int col0, int tid) {
+  const int t = row0 + tid;
+  const bool row_ok = t >= 0 && t < T;
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(s.ptr) +
+                              (row_ok ? static_cast<size_t>(t) * s.ld : 0);
+#pragma unroll 1
+  for (int p = 0; p < 8; ++p) {
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c0 = col0 + 8 * p + 2 * e;
+      const uint32_t lo = row_ok && c0 < s.width ? __ldg(src + c0) : 0;
+      const uint32_t hi = row_ok && c0 + 1 < s.width ? __ldg(src + c0 + 1) : 0;
+      w[e] = lo | (hi << 16);
+    }
+    const uint32_t at = dst + tid * 128 + ((p ^ (tid & 7)) << 4);
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(at), "r"(w[0]),
+                 "r"(w[1]), "r"(w[2]), "r"(w[3])
+                 : "memory");
+  }
+}
+
+// One chunk into the next stage of the ring, as two sub-chunks of 64
+// elements: A (rows row_a... of source src_a from element col_a; none when
+// src_a < 0) and B's two 64-row boxes (rows b_row0 and b_row1 of layer
+// `layer` of map_b, from element b_col). A sub-chunk past a segment reads
+// zero A, so its products add nothing whatever B holds there.
+__device__ __forceinline__ void load_chunk(const Args& a, const Dims& d, uint32_t& it,
+                                           uint32_t ring, uint32_t bars, int tid,
+                                           int src_a, int row_a, int col_a,
+                                           const CUtensorMap* map_b, int b_col,
+                                           int b_row0, int b_row1, int layer) {
+  const int stage = it % kRingStages;
+  const uint32_t full = bars + 8 * stage;
+  mbar_wait(bars + 8 * (kMaxStages + stage), ((it / kRingStages) & 1) ^ 1);
+  const uint32_t dst = ring + stage * kStage;
+  const bool tma_a = src_a >= 0 && ((d.tma >> src_a) & 1);
+  if (d.manual) {
+    if (src_a >= 0 && !tma_a)
+      for (int q = 0; q < kSub; ++q)
+        copy_rows(a.src[src_a], d.T, dst + q * kTile, row_a, col_a + q * kK, tid);
+    fence_async_shared();
+    named_sync(1, 128);
+  }
+  if (tid == 0) {
+    mbar_expect_tx(full, (tma_a ? kSub * kTile : 0) + kSub * kTile);
+#pragma unroll
+    for (int q = 0; q < kSub; ++q) {
+      if (tma_a) tma_2d(dst + q * kTile, &a.map[src_a], full, col_a + q * kK, row_a);
+      const uint32_t b = dst + (kSub + q) * kTile;
+      tma_3d(b, map_b, full, b_col + q * kK, b_row0, layer);
+      tma_3d(b + kTile / 2, map_b, full, b_col + q * kK, b_row1, layer);
+    }
+  }
+  ++it;
+}
+
+// The gate product of row tile t0 and filter/gate columns [n0, n0 + 64) of
+// layer l: the k taps of source x_src (none when x_src < 0), then the
+// conditioning's chunks [c_first, c_last).
+__device__ __forceinline__ void load_gate(const Args& a, const Dims& d, uint32_t& it,
+                                          uint32_t ring, uint32_t bars, int tid, int t0,
+                                          int n0, int l, int x_src, int c_first,
+                                          int c_last) {
+  if (x_src >= 0) {
+    const int dil = a.dil[l];
+    for (int j = 0; j < d.k; ++j) {
+      const int off = d.causal ? -(d.k - 1 - j) * dil : (j - (d.k - 1) / 2) * dil;
+      for (int k0 = 0; k0 < d.C; k0 += kChunk)
+        load_chunk(a, d, it, ring, bars, tid, x_src, t0 + off, k0, &a.wgate,
+                   j * d.C8 + k0, n0, d.G + n0, l);
+    }
+  }
+  for (int i = c_first; i < c_last; ++i)
+    load_chunk(a, d, it, ring, bars, tid, kSrcC, t0, i * kChunk, &a.wgate,
+               d.k * d.C8 + i * kChunk, n0, d.G + n0, l);
+}
+
+__device__ void produce(const Args& a, uint32_t ring, uint32_t bars, int tid) {
+  namespace cg = cooperative_groups;
+  const Dims d = dims_of(a);
+  const int p0 = a.phase0, p1 = a.phase1;
+  uint32_t it = 0;
+  for (int p = p0; p < p1; ++p) {
+    int kind, l;
+    phase_of(d, p, kind, l);
+    if ((d.manual || tid == 0) && kind != kReduce) {
+      const int items = items_of(d, kind);
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        if (kind == kGate || kind == kGateCond) {
+          load_gate(a, d, it, ring, bars, tid, item / d.NG * 128, item % d.NG * 64, l,
+                    in_src(d, l), 0, kind == kGate ? d.n_cond : 0);
+        } else if (kind == kCondPart) {
+          // item = ((row tile * NG + column tile) * L + layer) * c_splits + split
+          const int s = item % d.c_splits, rest = item / d.c_splits;
+          const int layer = rest % d.L, tile = rest / d.L;
+          const int first = s * d.c_chunks;
+          load_gate(a, d, it, ring, bars, tid, tile / d.NG * 128, tile % d.NG * 64, layer,
+                    -1, first, min(d.n_cond, first + d.c_chunks));
+        } else {  // kProj, kPlain: 128 columns against A from a source
+          const bool proj = kind == kProj;
+          const int np = proj ? d.NP : ceil_div(d.n_cols, 128);
+          const int m = item % np, t0 = item / np * 128;
+          for (int i = 0; i < (proj ? d.n_proj : d.n_plain); ++i)
+            load_chunk(a, d, it, ring, bars, tid, proj ? kSrcGated : kSrcX, t0, i * kChunk,
+                       proj ? &a.wproj : &a.wgate, i * kChunk, m * 128, m * 128 + 64,
+                       proj ? l : 0);
+        }
+      }
+    }
+    if (p + 1 < p1) {
+      cg::this_grid().sync();
+      fence_async_global();
+    }
+  }
+}
+
+// ---- the consumers ----
+
+// One product for this warpgroup's 64 rows: n chunks off the ring. The
+// accumulator is promoted into `sum` every kPromote sub-chunks of 64 (see
+// kPromote: 128 reduction terms by default, as at f32 64 terms of three
+// products); a stage goes back to the producer once the products that read
+// it are done, whatever kPromote.
+__device__ __forceinline__ void product(float (&sum)[64], uint32_t& it, int n,
+                                        uint32_t ring, uint32_t bars, int wg, int lane) {
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = sum[e] = 0.f;
+  bool held = false;  // the previous chunk's stage is not yet released
+  for (int i = 0; i < n; ++i, ++it) {
+    const int stage = it % kRingStages;
+    mbar_wait(bars + 8 * stage, (it / kRingStages) & 1);
+    const uint32_t s_addr = ring + stage * kStage;
+    bool done = false;  // every product of this chunk is complete
+#pragma unroll
+    for (int q = 0; q < kSub; ++q) {
+      const int sc = i * kSub + q;
+      const uint32_t a_addr = s_addr + q * kTile + wg * (kTile / 2);
+      const uint32_t b_addr = s_addr + (kSub + q) * kTile;
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kK / 16; ++s)
+        wgmma_m64n128k16_bf16_ss(acc, b_descriptor(a_addr + 32 * s),
+                                 b_descriptor(b_addr + 32 * s),
+                                 (s > 0 || sc % kPromote != 0) ? 1 : 0);
+      wgmma_commit();
+      if (sc % kPromote == kPromote - 1 || (i == n - 1 && q == kSub - 1)) {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < 64; ++e) sum[e] += acc[e];
+        done = q == kSub - 1;
+      }
+    }
+    if (!done) wgmma_wait<1>();  // the previous chunk's products are done
+    __syncwarp();
+    if (held) mbar_arrive(bars + 8 * (kMaxStages + (it - 1) % kRingStages), lane == 0);
+    if (done) mbar_arrive(bars + 8 * (kMaxStages + it % kRingStages), lane == 0);
+    held = !done;
+  }
+  // Nothing is in flight here (the last chunk waited), but ptxas cannot
+  // prove it, and would serialise every wgmma of the kernel for the grid
+  // barrier's divergent code that follows some products.
+  wgmma_wait<0>();
+}
+
+// tanh(f) * sigmoid(g) as the f32 kernels take it. (An exp2-based form in
+// a third of the instructions, a few f32 ulps off, moved 1-2% of x off the
+// exact chain at a few hundred rows, where the plain chain moves none.)
+__device__ __forceinline__ float glu(float f, float g) {
+  return tanhf(f) * sigmoidf_(g);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The biases of the 16 column pairs [n0 + 8 j + 2 c, +1] of a projection
+// tile: bres below C, bskip from C on; zero past C + S.
+__device__ __forceinline__ void project_biases(const Dims& d, const float* bres,
+                                               const float* bskip, int n0, int c,
+                                               float2 (&b)[16]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * c;
+    b[j] = make_float2(0.f, 0.f);
+    if (col < d.C)
+      b[j] = *reinterpret_cast<const float2*>(bres + col);
+    else if (col < d.C + d.S)
+      b[j] = *reinterpret_cast<const float2*>(bskip + col - d.C);
+  }
+}
+
+// The residual and skip updates from the projection's columns [n0, n0 +
+// 128), rows r and r + 8 of this thread: columns < C update x (rounded to
+// bf16), the rest skip (`first`: skip is written, not added to). Every read
+// goes out before the first store, from L2 (another block of the launch may
+// have written the line).
+__device__ __forceinline__ void project_epilogue(const Dims& d, const float (&sum)[64],
+                                                 const float2 (&b)[16],
+                                                 const __nv_bfloat16* x_in,
+                                                 __nv_bfloat16* x_out, float* skip,
+                                                 bool first, int n0, int r, int c) {
+  float2 old[32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * c;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = r + 8 * h;
+      old[2 * j + h] = make_float2(0.f, 0.f);
+      if (col >= d.C + d.S || t >= d.T) continue;
+      if (col < d.C) {
+        const unsigned v = __ldcg(reinterpret_cast<const unsigned*>(
+            x_in + static_cast<size_t>(t) * d.C + col));
+        old[2 * j + h] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+      } else if (!first) {
+        old[2 * j + h] = __ldcg(reinterpret_cast<const float2*>(
+            skip + static_cast<size_t>(t) * d.S + col - d.C));
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * c;
+    if (col >= d.C + d.S) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int t = r + 8 * h;
+      if (t >= d.T) continue;
+      const float2 o = old[2 * j + h];
+      const float vx = sum[4 * j + 2 * h] + b[j].x, vy = sum[4 * j + 2 * h + 1] + b[j].y;
+      if (col < d.C)
+        *reinterpret_cast<uint32_t*>(x_out + static_cast<size_t>(t) * d.C + col) =
+            pack_bf16((o.x + vx) * kSqrtHalf, (o.y + vy) * kSqrtHalf);
+      else
+        *reinterpret_cast<float2*>(skip + static_cast<size_t>(t) * d.S + col - d.C) =
+            make_float2(o.x + vx, o.y + vy);
+    }
+  }
+}
+
+__device__ void consume(const Args& a, uint32_t ring, uint32_t bars, int tid) {
+  namespace cg = cooperative_groups;
+  const Dims d = dims_of(a);
+  // the warpgroup from a value the compiler knows is warp-uniform: it sets
+  // the wgmma descriptors' rows
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int rr = wg * 64 + warp * 16 + lane / 4, c = lane % 4;  // tile row, column pair
+  const float *const bf_all = a.bf, *const bg_all = a.bg;
+  const float *const bres_all = a.bres, *const bskip_all = a.bskip;
+  float* const skip = a.skip;
+  float* const part_all = a.part;
+  float* const condsum_all = a.condsum;
+  float* const out = a.out;
+  __nv_bfloat16* const gated_g = const_cast<__nv_bfloat16*>(a.src[kSrcGated].ptr);
+  auto x_of = [&](int id) { return const_cast<__nv_bfloat16*>(a.src[id].ptr); };
+  float sum[64];
+  const int p0 = a.phase0, p1 = a.phase1;
+  uint32_t it = 0;
+  for (int p = p0; p < p1; ++p) {
+    int kind, l;
+    phase_of(d, p, kind, l);
+    const float* bf = bf_all + static_cast<size_t>(l) * d.G;
+    const float* bg = bg_all + static_cast<size_t>(l) * d.G;
+    const float* bres = bres_all + static_cast<size_t>(l) * d.C;
+    const float* bskip = bskip_all + static_cast<size_t>(l) * d.S;
+    if (kind == kReduce) {
+      // condsum[l, t, :] = the gate biases + the partial sums in split order
+      const size_t per_layer = static_cast<size_t>(d.T) * 2 * d.G;
+      const size_t n4 = d.L * per_layer / 4;
+      const size_t step = static_cast<size_t>(gridDim.x) * kConsumerThreads;
+      for (size_t e0 = static_cast<size_t>(blockIdx.x) * kConsumerThreads; e0 < n4;
+           e0 += step) {  // a trip count the same for every thread
+        const size_t e = e0 + tid;
+        if (e >= n4) continue;
+        const size_t at = 4 * e;
+        const int layer = static_cast<int>(at / per_layer);
+        const size_t rem = at - layer * per_layer;
+        const int col = static_cast<int>(rem % (2 * d.G));
+        float4 v =
+            col < d.G ? *reinterpret_cast<const float4*>(bf_all + layer * d.G + col)
+                      : *reinterpret_cast<const float4*>(bg_all + layer * d.G + col - d.G);
+        const float* src = part_all + static_cast<size_t>(layer) * d.c_splits * per_layer + rem;
+        for (int s = 0; s < d.c_splits; ++s) {
+          const float4 w = __ldcg(reinterpret_cast<const float4*>(src + s * per_layer));
+          v.x += w.x;
+          v.y += w.y;
+          v.z += w.z;
+          v.w += w.w;
+        }
+        *reinterpret_cast<float4*>(condsum_all + at) = v;
+      }
+    } else {
+      const int items = items_of(d, kind);
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        if (kind == kCondPart) {
+          const int s = item % d.c_splits, rest = item / d.c_splits;
+          const int layer = rest % d.L, tile = rest / d.L;
+          const int n = tile % d.NG, t0 = tile / d.NG * 128;
+          const int first = s * d.c_chunks;
+          product(sum, it, min(d.n_cond, first + d.c_chunks) - first, ring, bars, wg, lane);
+          float* part = part_all + (static_cast<size_t>(layer) * d.c_splits + s) * d.T * 2 * d.G;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = n * 64 + 8 * j + 2 * c;
+            if (col >= d.G) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int t = t0 + rr + 8 * h;
+              if (t >= d.T) continue;
+              float* row = part + static_cast<size_t>(t) * 2 * d.G + col;
+              *reinterpret_cast<float2*>(row) =
+                  make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]);
+              *reinterpret_cast<float2*>(row + d.G) =
+                  make_float2(sum[32 + 4 * j + 2 * h], sum[32 + 4 * j + 2 * h + 1]);
+            }
+          }
+        } else if (kind == kGate || kind == kGateCond) {
+          // the GLU of 64 columns into the gated output: the gate biases
+          // (kGate) or the conditioning's sums, which hold them (kGateCond)
+          const int n = item % d.NG, t0 = item / d.NG * 128;
+          float2 f[16], g[16];  // in flight while the product runs
+          const float* cs = condsum_all + static_cast<size_t>(l) * d.T * 2 * d.G;
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int col = n * 64 + 8 * j + 2 * c, t = t0 + rr + 8 * h;
+              f[2 * j + h] = g[2 * j + h] = make_float2(0.f, 0.f);
+              if (col >= d.G || t >= d.T) continue;
+              if (kind == kGate) {
+                f[2 * j + h] = *reinterpret_cast<const float2*>(bf + col);
+                g[2 * j + h] = *reinterpret_cast<const float2*>(bg + col);
+              } else {
+                const float* row = cs + static_cast<size_t>(t) * 2 * d.G + col;
+                f[2 * j + h] = __ldcg(reinterpret_cast<const float2*>(row));
+                g[2 * j + h] = __ldcg(reinterpret_cast<const float2*>(row + d.G));
+              }
+            }
+          product(sum, it, d.n_taps + (kind == kGate ? d.n_cond : 0), ring, bars, wg, lane);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int col = n * 64 + 8 * j + 2 * c, t = t0 + rr + 8 * h;
+              if (col >= d.G || t >= d.T) continue;
+              const float2 ff = f[2 * j + h], gg = g[2 * j + h];
+              *reinterpret_cast<uint32_t*>(gated_g + static_cast<size_t>(t) * d.G8 + col) =
+                  pack_bf16(glu(sum[4 * j + 2 * h] + ff.x, sum[32 + 4 * j + 2 * h] + gg.x),
+                            glu(sum[4 * j + 2 * h + 1] + ff.y,
+                                sum[32 + 4 * j + 2 * h + 1] + gg.y));
+            }
+        } else if (kind == kProj) {
+          const int m = item % d.NP, t0 = item / d.NP * 128;
+          float2 b[16];
+          project_biases(d, bres, bskip, m * 128, c, b);
+          product(sum, it, d.n_proj, ring, bars, wg, lane);
+          project_epilogue(d, sum, b, x_of(in_src(d, l)), x_of(out_src(d, l)), skip, l == 0,
+                           m * 128, t0 + rr, c);
+        } else {  // kPlain
+          const int np = ceil_div(d.n_cols, 128);
+          const int m = item % np, t0 = item / np * 128;
+          product(sum, it, d.n_plain, ring, bars, wg, lane);
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const int col = m * 128 + 8 * j + 2 * c;
+            if (col >= d.n_cols) continue;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int t = t0 + rr + 8 * h;
+              if (t >= d.T) continue;
+              float* o = out + static_cast<size_t>(t) * d.n_cols + col;
+              o[0] = sum[4 * j + 2 * h];
+              if (col + 1 < d.n_cols) o[1] = sum[4 * j + 2 * h + 1];
+            }
+          }
+        }
+      }
+    }
+    if (p + 1 < p1) {
+      fence_async_global();
+      cg::this_grid().sync();
+    }
+  }
+}
+
+// One block an SM: warpgroups 0 and 1 multiply and run the epilogues,
+// warpgroup 2 fills the ring (its thread 0 alone where every A source goes
+// by TMA).
+__global__ void __launch_bounds__(kThreads, 1) chain_kernel(const __grid_constant__ Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t ring = (raw + 1023) & ~1023u;
+  const uint32_t bars = ring + kRingStages * kStage;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      mbar_init(bars + 8 * s, 1);                 // full: the producer, + the bytes
+      mbar_init(bars + 8 * (kMaxStages + s), 8);  // empty: each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Programmatic dependent launch (the row-tiled path): the next layer's
+  // launch may be scheduled while this one drains, and no thread touches
+  // global memory before the launch before it is complete and visible.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  // the role from a value the compiler knows is warp-uniform, so that the
+  // consumers' wgmma is not taken for divergent code (and serialised)
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    produce(a, ring, bars, threadIdx.x - kConsumerThreads);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    consume(a, ring, bars, threadIdx.x);
+  }
+}
+
+// ---- host side ----
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// The driver's tensor-map encoder, fetched through the runtime (no link
+// against libcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Encoded maps, by their arguments: a chain call's host time was mostly
+// its seven encodes, and the caching allocator hands back the same
+// pointers call after call.
+struct MapKey {
+  const void* ptr;
+  int width, rows, layers, ld, box_rows;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && width == o.width && rows == o.rows && layers == o.layers &&
+           ld == o.ld && box_rows == o.box_rows;
+  }
+};
+constexpr int kMapCache = 64;
+MapKey g_map_keys[kMapCache];
+CUtensorMap g_maps[kMapCache];
+int g_map_next = 0;
+std::mutex g_map_mutex;
+
+// A (width, rows[, layers]) bf16 array, `ld` elements from row to row, in
+// boxes of 64 elements x box_rows rows [x 1 layer], 128-byte swizzled; what
+// a box holds past the array reads zero. False if it cannot be encoded.
+bool encode(CUtensorMap* map, const void* ptr, int width, int rows, int layers, int ld,
+            int box_rows) {
+  const MapKey key = {ptr, width, rows, layers, ld, box_rows};
+  std::lock_guard<std::mutex> lock(g_map_mutex);
+  for (int i = 0; i < kMapCache; ++i)
+    if (g_map_keys[i] == key) {
+      *map = g_maps[i];
+      return true;
+    }
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(layers)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(ld) * 2 * rows};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  if (fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, layers > 0 ? 3 : 2,
+         const_cast<void*>(ptr), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  g_map_keys[g_map_next] = key;
+  g_maps[g_map_next] = *map;
+  g_map_next = (g_map_next + 1) % kMapCache;
+  return true;
+}
+
+// An A source: through TMA where its rows are 16-byte multiples on a
+// 16-byte aligned base (a rule of the shapes and pointers), else copied by
+// the producer's threads.
+bool set_source(Args& a, int id, const void* ptr, int width, int ld, int rows) {
+  a.src[id] = Src{static_cast<const __nv_bfloat16*>(ptr), width, ld, 0};
+  if ((ld * 2) % 16 != 0 || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) {
+    a.manual = 1;
+    return true;
+  }
+  a.src[id].tma = 1;
+  return encode(&a.map[id], ptr, width, rows, 0, ld, 128);
+}
+
+// How the split path cuts the conditioning's reduction: about two items a
+// block over the (row tile, gate column tile, layer) tiles.
+void split_plan(int T, int G, int cin, int L, int sms, int* splits, int* chunks) {
+  const int tiles = ceil_div(T, 128) * ceil_div(G, 64) * L;
+  const int n = ceil_div(cin, kChunk);
+  int want = ceil_div(2 * sms, tiles);
+  if (want > n) want = n;
+  *chunks = ceil_div(n, want);
+  *splits = ceil_div(n, *chunks);
+}
+
+// The bf16 chain takes the split path at a few row tiles: at most one for
+// 32 SMs (T <= 512 on 132 SMs). A rule of the shapes and the SM count alone.
+bool takes_split_path(int T, int sms, int path) {
+  if (path == kPathRows) return false;
+  if (path == kPathSplit) return true;
+  return 32 * ceil_div(T, 128) <= sms;
+}
+
+// Byte offsets in the scratch: x's other buffer (T, C), the gated output
+// (T, G8) and, on the split path, the partial sums and their sums.
+struct Scratch {
+  size_t xa, gated, part, condsum, bytes;
+};
+
+Scratch scratch_layout(int T, int C, int G, int cin, int L, int sms, bool split) {
+  auto up = [](size_t n) { return (n + 255) / 256 * 256; };
+  Scratch s = {};
+  s.bytes = up(static_cast<size_t>(T) * C * 2);
+  s.gated = s.bytes;
+  s.bytes += up(static_cast<size_t>(T) * round_up(G, 8) * 2);
+  if (split) {
+    int splits, chunks;
+    split_plan(T, G, cin, L, sms, &splits, &chunks);
+    s.part = s.bytes;
+    s.bytes += up(static_cast<size_t>(L) * splits * T * 2 * G * 4);
+    s.condsum = s.bytes;
+    s.bytes += up(static_cast<size_t>(L) * T * 2 * G * 4);
+  }
+  return s;
+}
+
+int smem_bytes() { return kRingStages * kStage + kBarBytes + 1024; }
+
+// The shared-memory opt-in and the blocks an SM holds (*per_sm, may be
+// null), per device: asked for once each, before the first launch.
+cudaError_t allow_smem(int* per_sm = nullptr) {
+  static int blocks[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int n = dev >= 0 && dev < kMaxDevices ? blocks[dev] : 0;
+  if (n == 0) {
+    err = cudaFuncSetAttribute(chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemMax);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, chain_kernel, kThreads,
+                                                          smem_bytes());
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorInvalidValue;
+    if (dev >= 0 && dev < kMaxDevices) blocks[dev] = n;
+  }
+  if (per_sm != nullptr) *per_sm = n;
+  return cudaSuccess;
+}
+
+cudaError_t launch(const Args& a, int blocks, bool cooperative, cudaStream_t s) {
+  const cudaError_t err = allow_smem();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem_bytes();
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  if (cooperative) {
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+  } else {
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+  }
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, chain_kernel, a);
+}
+
+// A whole bf16 chain on `s`, as cooperative launches of one block an SM:
+// one a layer on the row-tiled path (its gate phase, a grid barrier, its
+// projection phase), one for the chain on the split path.
+int launch_chain(const ChainArgs& c, const int* dil, bool causal, cudaStream_t s) {
+  if (c.k < 1 || c.k > kMaxTaps || c.L < 1 || c.L > kMaxLayers || c.T < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const int dev_err = device_sms(&sms);
+  if (dev_err != 0) return dev_err;
+  const bool split = takes_split_path(c.T, sms, c.path);
+  Args a = {};
+  a.T = c.T;
+  a.C = c.C;
+  a.G = c.G;
+  a.S = c.S;
+  a.cin = c.cin;
+  a.L = c.L;
+  a.k = c.k;
+  a.causal = causal ? 1 : 0;
+  for (int l = 0; l < c.L; ++l) a.dil[l] = dil[l];
+  a.bf = c.bf;
+  a.bg = c.bg;
+  a.bres = c.bres;
+  a.bskip = c.bskip;
+  a.skip = c.skip;
+  a.path = split ? kSplit : kRows;
+  const Scratch sc = scratch_layout(c.T, c.C, c.G, c.cin, c.L, sms, split);
+  unsigned char* base = reinterpret_cast<unsigned char*>(c.scratch);
+  const int G8 = round_up(c.G, 8), Kg = c.k * round_up(c.C, 8) + round_up(c.cin, 8);
+  bool ok = set_source(a, kSrcC, c.c, c.cin, c.cin, c.T) &&
+            set_source(a, kSrcX, c.x, c.C, c.C, c.T) &&
+            set_source(a, kSrcXa, base + sc.xa, c.C, c.C, c.T) &&
+            set_source(a, kSrcXb, c.x_out, c.C, c.C, c.T) &&
+            encode(&a.wgate, c.wgate_hi, Kg, 2 * c.G, c.L, Kg, 64) &&
+            encode(&a.wproj, c.wproj_hi, G8, c.C + c.S, c.L, G8, 64) &&
+            set_source(a, kSrcGated, base + sc.gated, c.G, G8, c.T);
+  if (split) {
+    split_plan(c.T, c.G, c.cin, c.L, sms, &a.c_splits, &a.c_chunks);
+    a.part = reinterpret_cast<float*>(base + sc.part);
+    a.condsum = reinterpret_cast<float*>(base + sc.condsum);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  int per_sm = 0;
+  const cudaError_t err = allow_smem(&per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (split) {
+    a.phase0 = 0;
+    a.phase1 = 2 + 2 * c.L;
+    return static_cast<int>(launch(a, sms * per_sm, true, s));
+  }
+  for (int l = 0; l < c.L; ++l) {
+    a.phase0 = 2 * l;
+    a.phase1 = 2 * l + 2;
+    const cudaError_t e = launch(a, sms * per_sm, true, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
+}
+
+// out (M, N) f32 = a (M, K) @ b^T, b (N, K8): the main loop alone.
+int launch_matmul(const void* a_ptr, const void* b, int M, int N, int K, float* out,
+                  cudaStream_t s) {
+  if (M < 1 || N < 1 || K < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int sms = 0;
+  const int dev_err = device_sms(&sms);
+  if (dev_err != 0) return dev_err;
+  Args a = {};
+  a.path = kMatmul;
+  a.T = M;
+  a.n_cols = N;
+  a.out = out;
+  a.phase0 = 0;
+  a.phase1 = 1;
+  if (!(set_source(a, kSrcX, a_ptr, K, K, M) &&
+        encode(&a.wgate, b, round_up(K, 8), N, 1, round_up(K, 8), 64)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int items = ceil_div(M, 128) * ceil_div(N, 128);
+  return static_cast<int>(launch(a, items < sms ? items : sms, false, s));
+}
+
+}  // namespace bf16
+
 }  // namespace
 
 // Floats of scratch a chain of these shapes needs on the current device, in
-// either form (into *floats), and whether it takes the split path (into
-// *split); `path` 0 lets the shapes decide, 1 forces the row-tiled path, 2
-// the split path. Returns 0 or a cudaError_t.
+// the f32 form or (bf16 != 0) the bf16 one (into *floats), and whether it
+// takes the split path (into *split); `path` 0 lets the shapes decide, 1
+// forces the row-tiled path, 2 the split path. Returns 0 or a cudaError_t.
 extern "C" int fused_chain_scratch_floats(int T, int C, int G, int cin, int L,
-                                          int k, int path, size_t* floats,
-                                          int* split) {
+                                          int k, int path, int bf16,
+                                          size_t* floats, int* split) {
   int sms = 0;
   const int err = device_sms(&sms);
   if (err != 0) return err;
-  *floats = chain_scratch_floats(T, C, G, cin, L, k, sms, path);
-  *split = takes_split_path(T, G, sms, path) ? 1 : 0;
+  if (bf16) {
+    const bool s = bf16::takes_split_path(T, sms, path);
+    *floats = (bf16::scratch_layout(T, C, G, cin, L, sms, s).bytes + 3) / 4;
+    *split = s ? 1 : 0;
+  } else {
+    *floats = chain_scratch_floats(T, C, G, cin, L, k, sms, path);
+    *split = takes_split_path(T, G, sms, path) ? 1 : 0;
+  }
   return 0;
 }
 
@@ -1243,8 +2143,7 @@ extern "C" int fused_chain_matmul_f32(const float* a, const float* b_hi,
 // alone. Returns 0 or a cudaError_t.
 extern "C" int fused_chain_matmul_bf16(const void* a, const void* b, int M,
                                        int N, int K, float* out, void* stream) {
-  return launch_matmul<Bf16Form>(a, b, nullptr, M, N, K, out,
-                                 static_cast<cudaStream_t>(stream));
+  return bf16::launch_matmul(a, b, M, N, K, out, static_cast<cudaStream_t>(stream));
 }
 
 #ifdef CHAIN_STAMPS
@@ -1301,19 +2200,37 @@ extern "C" int fused_chain_nc_f32(CHAIN_PARAMS, const int* dilations,
                                    static_cast<cudaStream_t>(stream));
 }
 
+namespace {
+
+// The causal bf16 chain, dilation k**l at layer l.
+int launch_causal_bf16(const ChainArgs& c, cudaStream_t s) {
+  if (c.L < 1 || c.L > kMaxLayers || c.k < 1 || c.k > kMaxTaps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int dil[kMaxLayers];
+  int64_t d = 1;
+  for (int l = 0; l < c.L; ++l) {
+    if ((c.k - 1) * d > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+    dil[l] = static_cast<int>(d);
+    d *= c.k;
+  }
+  return bf16::launch_chain(c, dil, true, s);
+}
+
+}  // namespace
+
 extern "C" int fused_chain_tiled_bf16(CHAIN_PARAMS_BF16, void* x_out,
                                       float* skip, float* scratch, void* stream) {
-  return launch_causal<Bf16Form>(CHAIN_ARGS_BF16, static_cast<cudaStream_t>(stream));
+  return launch_causal_bf16(CHAIN_ARGS_BF16, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_chain_bf16(CHAIN_PARAMS_BF16, void* x_out, float* skip,
                                 float* scratch, void* stream) {
-  return launch_causal<Bf16Form>(CHAIN_ARGS_BF16, static_cast<cudaStream_t>(stream));
+  return launch_causal_bf16(CHAIN_ARGS_BF16, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_chain_nc_bf16(CHAIN_PARAMS_BF16, const int* dilations,
                                    void* x_out, float* skip, float* scratch,
                                    void* stream) {
-  return launch_noncausal<Bf16Form>(CHAIN_ARGS_BF16, dilations,
-                                    static_cast<cudaStream_t>(stream));
+  return bf16::launch_chain(CHAIN_ARGS_BF16, dilations, false,
+                            static_cast<cudaStream_t>(stream));
 }

@@ -372,9 +372,9 @@ wavenet_step_cuda.launches = 0
 
 def _bind_fused_resblock(lib: ctypes.CDLL) -> None:
     i32, ptr = ctypes.c_int, ctypes.c_void_p
-    # T, C, G, cin, L, k, path, *floats, *split
+    # T, C, G, cin, L, k, path, bf16, *floats, *split
     lib.fused_chain_scratch_floats.argtypes = (
-        [i32] * 7 + [ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(i32)])
+        [i32] * 8 + [ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(i32)])
     lib.fused_chain_scratch_floats.restype = i32
     # wf, wg, wfc, wgc, wres, wskip, C, G, S, cin, L, k, wgate_hi, wgate_lo,
     # wproj_hi, wproj_lo, stream
@@ -518,7 +518,8 @@ class PreparedFusedChain:
             n_floats, split = ctypes.c_size_t(), ctypes.c_int()
             err = self._lib.fused_chain_scratch_floats(
                 T, d["C"], d["G"], d["cin"], d["L"], d["k"], path_id,
-                ctypes.byref(n_floats), ctypes.byref(split))
+                int(self.dtype == torch.bfloat16), ctypes.byref(n_floats),
+                ctypes.byref(split))
             if err != 0:
                 raise RuntimeError(f"{name}: CUDA error {err} sizing the "
                                    "scratch")
@@ -564,7 +565,6 @@ class PreparedFusedChain:
             n_floats, split = self._plan(name, T, path_id)
             x_out = torch.empty((T, d["C"]), dtype=dtype, device=dev)
             skip = torch.empty((T, d["S"]), dtype=torch.float32, device=dev)
-            # at bf16 the scratch's buffers are laid out as at f32, half used
             scratch = torch.empty((n_floats,), dtype=torch.float32, device=dev)
             weights = ([self.wgate.data_ptr(), self.wproj.data_ptr()] if bf16
                        else [self.wgate[0].data_ptr(), self.wgate[1].data_ptr(),
