@@ -215,6 +215,20 @@
    port's VocoderTrainer writes from seeded trees (8 mels, max_batch 8, no
    fused chain: 3 launches, finite waves, the wav files).
 
+Parallel phase (last): the multi-device modules (vqvae_speech_tpu_torch/
+   parallel, train/dcp_checkpoint.py) in a NCCL process group of this
+   process alone, opened on 127.0.0.1 and closed at the end (the machine
+   has one GPU; the multi-rank results are the CPU tests' gloo worlds):
+   the flagship jitter12 step at batch 64 (gradient and EMA quantizer) and
+   the vctk_wavenet step, data-parallel against single-device from the
+   same state and draws, bit-equal under deterministic cuDNN, one K1 launch
+   a step; one teacher step at 8 x 6400 the same way; the tensor-parallel
+   decode at the vctk_wavenet width, f32 and int8, on 2-frame requests
+   against the bucketed server (streams equal up to near-ties); the sharded
+   search at N=1536, K=44 against K1; the sequence-parallel teacher core
+   at paper width and T=6400 against the plain core; a DCP round trip of
+   the flagship train state into CUDA tensors. Each item prints its ms.
+
 Exits non-zero on any failure, and without a CUDA device. The last two lines
 of output are a JSON object of per-kernel results (the five f32 entry
 points and the three bf16 ones; the VQ kernel's entry also gives its
@@ -226,8 +240,8 @@ Imports nothing of JAX.
 
 runs only the named phases (kernel, slice, pth_import, train, experiment,
 evaluate, wavenet_train, step_kernel, synthesis, continuous, chain_kernel,
-vocoder, vocoder_train, teacher_generate, vocoder_cli, demos), for work on
-one kernel or slice; such a run prints neither of the two JSON lines. The
+vocoder, vocoder_train, teacher_generate, vocoder_cli, demos, parallel),
+for work on one kernel or slice; such a run prints neither of the two JSON lines. The
 evaluate or demos phase run without the experiment phase first trains
 jitter12 for one epoch through the CLI. A run fails if it imported JAX, the JAX package,
 scikit-learn or matplotlib.
@@ -4296,10 +4310,536 @@ def demos_phase(gpu, work):
     return sum(launches.values()), d2
 
 
+# the parallel phase: the multi-device modules in a world of ONE rank on
+# NCCL (the card's machine has one GPU; NCCL refuses two ranks on one
+# device), each collective on its real path over a group of one; the
+# multi-rank results are the CPU tests' (tests/test_torch_parallel*.py,
+# gloo worlds of 2 and 4)
+PARALLEL_DP_STEPS = 5
+PARALLEL_WAVENET_STEPS = 2
+PARALLEL_TEACHER_STEPS = 2      # the first of each run is its warm-up
+PARALLEL_TP_FRAMES = 2          # the decodes' requests: 2 frames each
+PARALLEL_TP_REQUESTS = 4
+PARALLEL_SP = (2, 6400)         # the teacher core's batch and samples
+PARALLEL_SP_TOL = 1e-5          # of the core's largest magnitude
+
+
+def _parallel_world():
+    """A NCCL process group of this process alone on cuda:0, and its (1, 1)
+    mesh."""
+    import datetime
+    import socket
+
+    import torch.distributed as dist
+    from vqvae_speech_tpu_torch.parallel.mesh import (
+        initialize_multihost,
+        make_mesh,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda:0",
+                         timeout=datetime.timedelta(seconds=60))
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+    return make_mesh(device="cuda")
+
+
+def _timed_steps(step, state, batch, n):
+    """(metrics of n steps, ms a step of the last n - 1 by the host clock
+    ending in a sync: the first step is the warm-up)."""
+    import torch
+
+    state, first = step(state, batch)
+    metrics = [first]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n - 1):
+        state, m = step(state, batch)
+        metrics.append(m)
+    torch.cuda.synchronize()
+    return metrics, (time.perf_counter() - t0) / (n - 1) * 1e3
+
+
+# the parallel phase's flagship step: jitter12 at batch 64, gradient VQ
+PARALLEL_FLAGSHIP = dict(FLAGSHIP_CONFIG, use_jitter=True,
+                         learning_rate=TRAIN_LEARNING_RATE)
+
+
+def _conv_setup(cfg, mesh):
+    """(the state's tensors, state, step) of the ConvVQVAE step on cuda
+    from numpy_params(seed=SEED), with ``mesh``."""
+    from vqvae_speech_tpu_torch.convert import load_jax_params, numpy_params
+    from vqvae_speech_tpu_torch.models import ConvVQVAE
+    from vqvae_speech_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    model = load_jax_params(ConvVQVAE.from_config(cfg),
+                            *numpy_params(cfg, seed=SEED))
+    opt = make_optimizer(cfg["learning_rate"])
+    return (lambda: list(model.parameters()) + list(model.buffers()),
+            create_train_state(model, opt, device="cuda", seed=SEED),
+            make_train_step(cfg, opt, mesh=mesh))
+
+
+def _wavenet_setup(cfg, mesh):
+    from vqvae_speech_tpu_torch.convert import (
+        load_wavenet_vqvae_params,
+        numpy_wavenet_vqvae_params,
+    )
+    from vqvae_speech_tpu_torch.models import WaveNetVQVAE
+    from vqvae_speech_tpu_torch.train import (
+        create_wavenet_train_state,
+        make_optimizer,
+        make_wavenet_train_step,
+    )
+
+    params, state, _ = numpy_wavenet_vqvae_params(cfg, cfg["num_speakers"],
+                                                  SEED)
+    model = load_wavenet_vqvae_params(
+        WaveNetVQVAE(cfg, cfg["num_speakers"]), params, state)
+    opt = make_optimizer(cfg["learning_rate"])
+    return (lambda: list(model.parameters()) + list(model.buffers()),
+            create_wavenet_train_state(model, opt, device="cuda", seed=SEED),
+            make_wavenet_train_step(cfg, model.decoder.cfg, opt, mesh=mesh))
+
+
+def _teacher_setup(lr, mesh):
+    from vqvae_speech_tpu_torch.train import vocoder
+
+    opt = vocoder.make_vocoder_optimizer(lr, clip_norm=10.0)
+    state = vocoder.create_vocoder_state(_vocoder_tree("teacher"), opt,
+                                         device="cuda", seed=SEED)
+    return (lambda: vocoder.tree_leaves(state.params), state,
+            vocoder.make_teacher_train_step(_teacher_cfg(), opt, mesh=mesh))
+
+
+def _parallel_train(mesh, gpu):
+    """The flagship (gradient and EMA quantizer), the vctk_wavenet and the
+    teacher steps, data-parallel against single-device from the same state
+    and draws: bit-equal losses and state (deterministic cuDNN), K1 once a
+    step of the first two. Returns K1's launches."""
+    import torch
+    from vqvae_speech_tpu_torch.ops import _kernels
+
+    B, T, lr = VOCODER_TRAIN["teacher"]
+    cases = (("flagship gradient VQ", lambda m: _conv_setup(
+                  PARALLEL_FLAGSHIP, m), train_batch("cuda"),
+              PARALLEL_DP_STEPS, 1),
+             ("flagship EMA VQ", lambda m: _conv_setup(
+                  dict(PARALLEL_FLAGSHIP, decay=0.99), m),
+              train_batch("cuda"), PARALLEL_DP_STEPS, 1),
+             ("vctk_wavenet", lambda m: _wavenet_setup(
+                  WAVENET_TRAIN_CONFIG, m), wavenet_train_batch("cuda"),
+              PARALLEL_WAVENET_STEPS, 1),
+             (f"teacher {B} x {T}", lambda m: _teacher_setup(lr, m),
+              vocoder_train_batch(B, T, "cuda"), PARALLEL_TEACHER_STEPS, 0))
+    launches = 0
+    kept = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, setup, batch, n, searches in cases:
+            runs = []
+            for m in (mesh, None):
+                tensors, state, step = setup(m)
+                _kernels.vq_search_cuda.launches = 0
+                metrics, ms = _timed_steps(step, state, batch, n)
+                got = _kernels.vq_search_cuda.launches
+                launches += got
+                if got != searches * n:
+                    raise AssertionError(f"parallel [{name}]: {got} "
+                                         f"vq_search launches in {n} steps")
+                losses = torch.stack([mm["loss"] if isinstance(mm, dict)
+                                      else mm for mm in metrics])
+                runs.append((losses, [t.detach().clone()
+                                      for t in tensors()], ms))
+                del tensors, state, step
+            (l_dp, s_dp, ms_dp), (l_one, s_one, ms_one) = runs
+            if not bool(torch.isfinite(l_dp).all()):
+                raise AssertionError(f"parallel [{name}]: non-finite loss")
+            if not (torch.equal(l_dp, l_one) and all(
+                    torch.equal(a, b) for a, b in zip(s_dp, s_one))):
+                raise AssertionError(
+                    f"parallel [{name}]: the data-parallel steps differ from "
+                    f"the single-device steps (loss {l_dp.tolist()} against "
+                    f"{l_one.tolist()})")
+            print(f"parallel [{name}]: {n} data-parallel steps (mesh of one "
+                  f"NCCL rank) bit-equal to {n} single-device steps from the "
+                  f"same state and draws (losses, parameters and buffers), "
+                  f"{searches} vq_search launch a step; losses "
+                  f"{[round(v, 5) for v in l_dp.tolist()]}; {ms_dp:.3f} ms "
+                  f"a step data-parallel, {ms_one:.3f} ms single-device "
+                  f"(host clock over the steps after the first, "
+                  f"deterministic cuDNN) [{gpu}]")
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = kept
+    return launches
+
+
+def _teacher_cfg():
+    from vqvae_speech_tpu_torch.models.clarinet import GaussianWaveNetConfig
+
+    return GaussianWaveNetConfig()
+
+
+def _parallel_collectives(mesh, gpu):
+    """ms a call of the collectives the decode and the halo take, over the
+    world of one rank: an all-reduce of the decode's (4, 768) residual
+    partial and an all-gather of a halo (2, 486, 128)."""
+    import torch
+    import torch.distributed as dist
+
+    group = mesh.get_group("model")
+    partial = torch.zeros((PARALLEL_TP_REQUESTS, 768), device="cuda")
+    tail = torch.zeros((PARALLEL_SP[0], 486, 128), device="cuda")
+    parts = [torch.empty_like(tail)]
+    reduce_ms = _per_launch_ms(lambda: dist.all_reduce(partial, group=group))
+    gather_ms = _per_launch_ms(lambda: dist.all_gather(parts, tail,
+                                                       group=group))
+    print(f"parallel [collectives]: NCCL over one rank, {reduce_ms:.4f} ms "
+          f"an all-reduce of (4, 768) f32, {gather_ms:.4f} ms an all-gather "
+          f"of (2, 486, 128) f32 (CUDA events over 100 back-to-back calls) "
+          f"[{gpu}]")
+
+
+def _parallel_decode(mesh, gpu):
+    """prepare_tp_decode at the vctk_wavenet width, f32 and int8, over the
+    model axis of one rank (its all-reduces on NCCL), against the bucketed
+    server on the same 2-frame requests: streams equal up to near-ties of
+    the decode's own logits."""
+    import torch
+    from vqvae_speech_tpu_torch.parallel.tp_decode import prepare_tp_decode
+    from vqvae_speech_tpu_torch.serve import BucketedSynthesisServer
+
+    params, wcfg, model = synthesis_model()
+    tree = params["decoder"]["wavenet"]
+    waves, speakers = synthesis_requests()
+    lcs = []
+    for w in waves[:PARALLEL_TP_REQUESTS]:
+        lc, _ = model.local_conditioning(wavenet_features(w, "cuda"))
+        lcs.append(lc[0, :PARALLEL_TP_FRAMES])
+    spk = speakers[:PARALLEL_TP_REQUESTS]
+    c = torch.stack(lcs)
+    g = torch.tensor(spk, device="cuda")
+    for quant in (None, "int8"):
+        server = BucketedSynthesisServer(
+            tree, wcfg, frame_buckets=(PARALLEL_TP_FRAMES,),
+            max_batch=PARALLEL_TP_REQUESTS, weight_quant=quant,
+            device="cuda")
+        served = server.synthesize(lcs, speaker_ids=spk)
+        generate = prepare_tp_decode(server.model, wcfg, mesh,
+                                     weight_quant=quant)
+        T = PARALLEL_TP_FRAMES * server.stats["upsample_factor"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, emitted = generate(T, c=c, g=g)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / T * 1e3
+        emitted, outs = emitted.cpu().numpy(), outs.cpu().numpy()
+        flips = []
+        for i, r in enumerate(served):
+            at, gap = _first_flip(emitted[i], r.wave, outs[i],
+                                  lambda top: NEAR_TIE_LOGITS)
+            flips.append(None if at is None else (at, round(gap, 6)))
+        print(f"parallel [tensor-parallel decode, {quant or 'f32'}]: "
+              f"{PARALLEL_TP_REQUESTS} requests of {PARALLEL_TP_FRAMES} "
+              f"frames, {T} steps at batch {PARALLEL_TP_REQUESTS}, "
+              f"{wcfg.layers + 1} all-reduces a step over the model axis; "
+              f"streams against the bucketed server's "
+              f"({'K2' if quant is None else 'per-layer int8'}): first "
+              f"parting step and top-two gap a request {flips} (None: "
+              f"equal; a parting only at a near-tie, limit "
+              f"{NEAR_TIE_LOGITS}); {ms:.3f} ms a step [{gpu}]")
+
+
+def _parallel_search(mesh, gpu):
+    """The sharded search at N=1536, K=44, D=64 over the model axis of one
+    rank (its all-gathers on NCCL) against K1: indices up to near-ties."""
+    import torch
+    from vqvae_speech_tpu_torch.ops import vq_search
+    from vqvae_speech_tpu_torch.parallel.sharded_vq import (
+        place_sharded_codebook,
+        sharded_vq_search,
+    )
+
+    rng = np.random.default_rng(SEED)
+    N, K = TIMED_SHAPE
+    flat = torch.from_numpy(rng.standard_normal((N, 64))
+                            .astype(np.float32)).cuda()
+    cb = torch.from_numpy(rng.standard_normal((K, 64))
+                          .astype(np.float32)).cuda()
+    shard = place_sharded_codebook(cb, mesh)
+    idx, mins = sharded_vq_search(flat, shard, mesh)
+    want = vq_search(flat, cb)
+    n_diff = _near_ties(flat, cb, idx, want.indices, NEAR_TIE_SAME_INPUT)
+    ms = _median_ms(lambda: sharded_vq_search(flat, shard, mesh))
+    k1_ms = _median_ms(lambda: vq_search(flat, cb))
+    print(f"parallel [sharded search]: N={N} K={K} D=64 over the model axis "
+          f"of one rank against K1: near-tie rows {n_diff}, minima finite "
+          f"{bool(torch.isfinite(mins).all())}; {ms:.4f} ms against K1's "
+          f"{k1_ms:.4f} ms (CUDA events) [{gpu}]")
+
+
+def _parallel_sequence(mesh, gpu):
+    """The sequence-parallel teacher core at paper width against
+    gaussian_wavenet_apply's core on the same inputs."""
+    import torch
+    from vqvae_speech_tpu_torch import convert
+    from vqvae_speech_tpu_torch.models.clarinet import (
+        gaussian_wavenet_core,
+        gaussian_wavenet_upsample,
+    )
+    from vqvae_speech_tpu_torch.parallel.sp_vocoder import (
+        sp_gaussian_wavenet_core,
+    )
+
+    B, T = PARALLEL_SP
+    cfg = _teacher_cfg()
+    params = convert.load_gaussian_wavenet_params(_vocoder_tree("teacher"),
+                                                  cfg, "cuda")
+    batch = vocoder_train_batch(B, T, "cuda")
+    with torch.no_grad():
+        c_up = gaussian_wavenet_upsample(params, batch["c"], cfg)[:, :T]
+        want = gaussian_wavenet_core(params, cfg, batch["x"], c_up)
+        got = sp_gaussian_wavenet_core(params, cfg, batch["x"], c_up, mesh)
+        ms = _median_ms(lambda: sp_gaussian_wavenet_core(
+            params, cfg, batch["x"], c_up, mesh), iters=10, warmup=2)
+        plain_ms = _median_ms(lambda: gaussian_wavenet_core(
+            params, cfg, batch["x"], c_up), iters=10, warmup=2)
+    err = (got - want).abs().max().item()
+    scale = max(want.abs().max().item(), 1.0)
+    if not err <= PARALLEL_SP_TOL * scale:
+        raise AssertionError(f"parallel [sequence-parallel core]: {err:.3e} "
+                             f"from the plain core (limit {PARALLEL_SP_TOL} "
+                             f"x {scale:.3f})")
+    print(f"parallel [sequence-parallel core]: teacher at paper width, "
+          f"{B} x {T}, {cfg.total_layers + 1} halo all-gathers; within "
+          f"{err:.3e} of the plain core (limit {PARALLEL_SP_TOL} x "
+          f"{scale:.3f}); {ms:.2f} ms against {plain_ms:.2f} ms (CUDA "
+          f"events) [{gpu}]")
+
+
+def _parallel_checkpoint(gpu):
+    """A DCP round trip of the flagship train state: written from the
+    host, restored into CUDA tensors, bit-equal."""
+    import tempfile
+
+    import torch
+    from vqvae_speech_tpu_torch.convert import (
+        export_jax_opt_state,
+        export_jax_params,
+        load_jax_params,
+        numpy_params,
+    )
+    from vqvae_speech_tpu_torch.models import ConvVQVAE
+    from vqvae_speech_tpu_torch.train import make_optimizer
+    from vqvae_speech_tpu_torch.train.dcp_checkpoint import (
+        load_checkpoint_dcp,
+        save_checkpoint_dcp,
+    )
+
+    cfg = dict(FLAGSHIP_CONFIG, use_jitter=True, decay=0.99)
+    model = load_jax_params(ConvVQVAE.from_config(cfg),
+                            *numpy_params(cfg, seed=SEED))
+    opt = make_optimizer(TRAIN_LEARNING_RATE).init(model.parameters())
+    for moments in (opt.mu, opt.nu, opt.nu_max):
+        for m in moments:
+            m.uniform_()
+    opt.count = 5
+    params, state = export_jax_params(model)
+    payload = {"params": params, "model_state": state,
+               "opt_state": export_jax_opt_state(model, opt)}
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [t for k in sorted(tree) for t in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [t for v in tree for t in leaves(v)]
+        return [tree]
+
+    def target(tree):
+        if isinstance(tree, dict):
+            return {k: target(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [target(v) for v in tree]
+        return torch.zeros(np.shape(tree), device="cuda",
+                           dtype=torch.from_numpy(np.asarray(tree)).dtype)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dcp_")
+    try:
+        t0 = time.perf_counter()
+        path = save_checkpoint_dcp(work, "jitter12", 0, **payload)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(path) for f in fs)
+        into = target(payload)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = load_checkpoint_dcp(work, "jitter12", target=into)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work)
+    saved = leaves(payload)
+    got = leaves({k: back[k] for k in payload})
+    if not (len(saved) == len(got) and all(
+            t.is_cuda and np.array_equal(np.asarray(a), t.cpu().numpy())
+            for a, t in zip(saved, got))):
+        raise AssertionError("parallel [checkpoint]: the DCP round trip is "
+                             "not bit-equal")
+    print(f"parallel [checkpoint]: the flagship train state ({len(saved)} "
+          f"tensors, EMA quantizer, amsgrad moments) through "
+          f"torch.distributed.checkpoint: {size} bytes written in "
+          f"{save_s:.3f} s, restored into CUDA tensors in {load_s:.3f} s, "
+          f"bit-equal [{gpu}]")
+
+
+def _record_searches(vq):
+    """Each forward's (codes, searched rows, searched codebook) on the
+    host."""
+    seen = []
+    vq.register_forward_hook(lambda m, i, o: seen.append(
+        (o.indices[:, 0].cpu(), o.flat.float().cpu(),
+         o._codebook.float().cpu())))
+    return seen
+
+
+def gloo_rank_main(rank, port, out):
+    """One rank of the two-rank gloo world on cuda:0 (``--gloo-rank``): the
+    flagship step data-parallel on its half of the train batch."""
+    import datetime
+
+    import torch
+    from vqvae_speech_tpu_torch.ops import _kernels
+    from vqvae_speech_tpu_torch.parallel.mesh import (
+        initialize_multihost,
+        make_mesh,
+        shard_batch,
+        shutdown,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    initialize_multihost(f"127.0.0.1:{port}", 2, rank, device="cpu",
+                         timeout=datetime.timedelta(seconds=60))
+    mesh = make_mesh(device="cuda")
+    tensors, state, step = _conv_setup(PARALLEL_FLAGSHIP, mesh)
+    seen = _record_searches(state.model.vq)
+    batch = shard_batch(train_batch("cuda"), mesh)
+    _kernels.vq_search_cuda.launches = 0
+    metrics, ms = _timed_steps(step, state, batch, PARALLEL_DP_STEPS)
+    torch.save({"losses": torch.stack([m["loss"] for m in metrics]).cpu(),
+                "codes": [c for c, _, _ in seen], "ms": ms,
+                "launches": _kernels.vq_search_cuda.launches,
+                "backend": torch.distributed.get_backend(),
+                "state": [t.detach().cpu() for t in tensors()]},
+               out)
+    shutdown()
+
+
+def _parallel_two_ranks(gpu):
+    """The flagship step data-parallel over TWO gloo ranks on cuda:0 (gloo
+    stages the CUDA tensors through the host; NCCL takes one rank a
+    device), against the single-device step on the global batch: codes
+    equal up to near-ties of the single-device search, losses within
+    TRAIN_LOSS_RTOL, the two ranks' states bit-equal. Returns K1's
+    launches in the ranks."""
+    import socket
+    import tempfile
+
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(work, f"rank{r}.pt") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gloo-rank", str(r),
+         "--gloo-port", str(port), "--gloo-out", outs[r]])
+        for r in range(2)]
+    try:
+        _, state, step = _conv_setup(PARALLEL_FLAGSHIP, None)
+        seen = _record_searches(state.model.vq)
+        metrics, ms_one = _timed_steps(step, state, train_batch("cuda"),
+                                       PARALLEL_DP_STEPS)
+        losses = torch.stack([m["loss"] for m in metrics]).cpu()
+        codes = [tuple(x) for x in seen]
+        del state, step
+        deadline = time.monotonic() + 300
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+        if any(p.returncode for p in procs):
+            raise AssertionError(f"parallel [two gloo ranks]: rank exit "
+                                 f"codes {[p.returncode for p in procs]}")
+        ranks = [torch.load(f) for f in outs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(work)
+    n_diff, rel = 0, 0.0
+    for r, got in enumerate(ranks):
+        if got["backend"] != "gloo" or got["launches"] != PARALLEL_DP_STEPS:
+            raise AssertionError(f"parallel [two gloo ranks]: rank {r} ran "
+                                 f"{got['backend']} with {got['launches']} "
+                                 f"vq_search launches")
+        for (want, flat, cb), have in zip(codes, got["codes"]):
+            n_diff += _near_ties(flat, cb, have, want, NEAR_TIE_GOLDEN)
+        rel = max(rel, ((got["losses"] - losses).abs()
+                        / losses.abs()).max().item())
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"parallel [two gloo ranks]: rank {r}'s "
+                                 f"losses {got['losses'].tolist()} against "
+                                 f"{losses.tolist()}")
+    if not all(torch.equal(a, b) for a, b in zip(ranks[0]["state"],
+                                                   ranks[1]["state"])):
+        raise AssertionError("parallel [two gloo ranks]: the ranks' states "
+                             "differ")
+    print(f"parallel [two gloo ranks on one card]: the flagship gradient-VQ "
+          f"step at batch {TRAIN_BATCH} ({TRAIN_BATCH // 2} a rank, the "
+          f"global N={TRAIN_BATCH * 24} rows searched on each), "
+          f"{PARALLEL_DP_STEPS} steps: one vq_search launch a step a rank; "
+          f"codes against the single-device step's: {n_diff} rows differ, "
+          f"each a near-tie; losses within {rel:.2e} (limit "
+          f"{TRAIN_LOSS_RTOL}); the ranks' states bit-equal; "
+          f"{ranks[0]['ms']:.3f} ms a step on rank 0 (gloo stages the "
+          f"collectives through the host) against {ms_one:.3f} ms "
+          f"single-device (the three processes share the card) [{gpu}]")
+    return sum(got["launches"] for got in ranks)
+
+
+def parallel_phase(gpu):
+    """The multi-device modules on the card in a NCCL world of one rank;
+    returns K1's launches (the data-parallel and single-device steps)."""
+    from vqvae_speech_tpu_torch.parallel.mesh import shutdown
+
+    mesh = _parallel_world()
+    try:
+        launches = _parallel_train(mesh, gpu)
+        _parallel_collectives(mesh, gpu)
+        _parallel_decode(mesh, gpu)
+        _parallel_search(mesh, gpu)
+        _parallel_sequence(mesh, gpu)
+        _parallel_checkpoint(gpu)
+    finally:
+        shutdown()
+    print("parallel: NCCL world of one rank closed")
+    launches += _parallel_two_ranks(gpu)
+    print(f"parallel: {launches} vq_search launches in the train steps")
+    return launches
+
+
 PHASES = ("kernel", "slice", "pth_import", "train", "experiment", "evaluate",
           "wavenet_train", "step_kernel", "synthesis", "continuous",
           "chain_kernel", "vocoder", "vocoder_train", "teacher_generate",
-          "vocoder_cli", "demos")
+          "vocoder_cli", "demos", "parallel")
 # what a run may not import: the card's machine has none of them, and the
 # port needs none
 FORBIDDEN_IMPORTS = ("jax", "vqvae_speech_tpu", "sklearn", "matplotlib")
@@ -4328,7 +4868,14 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default=",".join(PHASES),
                         help="comma-separated subset of " + ", ".join(PHASES))
-    only = parser.parse_args().phases.split(",")
+    # one rank of the parallel phase's two-rank gloo world (internal)
+    for flag in ("--gloo-rank", "--gloo-port", "--gloo-out"):
+        parser.add_argument(flag, help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.gloo_rank is not None:
+        return gloo_rank_main(int(args.gloo_rank), int(args.gloo_port),
+                              args.gloo_out)
+    only = args.phases.split(",")
     if not set(only) <= set(PHASES):
         raise SystemExit(f"chip_smoke: unknown phase in {only}")
     if not torch.cuda.is_available():
@@ -4389,7 +4936,8 @@ def main():
                     ("vocoder", vocoder_phase, (gpu,)),
                     ("vocoder_train", vocoder_train_phase, (gpu,)),
                     ("teacher_generate", teacher_generate_phase, (gpu,)),
-                    ("vocoder_cli", vocoder_cli_phase, (gpu,))):
+                    ("vocoder_cli", vocoder_cli_phase, (gpu,)),
+                    ("parallel", parallel_phase, (gpu,))):
                 if name in only:
                     phase(fn, *args)
             _check_imports()
@@ -4421,6 +4969,7 @@ def main():
     (teacher_launches, teacher_err, teacher_ms, teacher_plain_ms,
      teacher_bound) = phase(teacher_generate_phase, gpu)
     cli_launches = phase(vocoder_cli_phase, gpu)
+    parallel_vq_launches = phase(parallel_phase, gpu)
     _check_imports()
     _print_retaken()
 
@@ -4446,7 +4995,7 @@ def main():
              encode_vq_launches + pth_vq_launches + train_vq_launches
              + experiment_vq_launches + evaluate_vq_launches
              + wavenet_vq_launches + synth_vq_launches + cont_vq_launches
-             + demos_vq_launches,
+             + demos_vq_launches + parallel_vq_launches,
              dict(max_abs_err=vq_err, ms=vq_ms, plain_ms=vq_plain_ms,
                   bound_ms=vq_bound[0], bound_by=vq_bound[1]),
              # ms is by CUDA events, which at this size time the host's

@@ -116,17 +116,27 @@ def test_numpy_params_has_the_jax_tree(variant):
 
 
 def test_unported_options_raise():
-    """Jitter, speaker conditioning and the train step's ``compute_dtype``
-    are ported (a dtype name the JAX package would not take raises); what
-    still raises is the step's ``mesh``, and a conditioned decoder called
-    without speaker ids."""
+    """Jitter, speaker conditioning, the train step's ``compute_dtype`` and
+    its ``mesh`` are ported (a dtype name the JAX package would not take
+    raises, as does a mesh that is not a (data, model) DeviceMesh); a
+    conditioned decoder called without speaker ids raises. The quantizer
+    searches its own rows outside a ``gathering`` block and with
+    ``gathering(None)``."""
     from vqvae_speech_tpu_torch.train import make_optimizer, make_train_step
 
     make_train_step(dict(CFG, compute_dtype="bfloat16"), make_optimizer(1e-3))
     with pytest.raises(ValueError, match="compute_dtype"):
         make_train_step(dict(CFG, compute_dtype="bf16"), make_optimizer(1e-3))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(CFG, make_optimizer(1e-3), mesh=object())
+    model = ConvVQVAE.from_config(CFG).eval()
+    z = torch.randn(2, CFG["embedding_dim"], 12,
+                    generator=torch.Generator().manual_seed(0))
+    with model.vq.gathering(None):
+        inside = model.vq(z)
+    assert model.vq.mesh is None
+    assert torch.equal(inside.indices, model.vq(z).indices)
+    assert inside.quantized.shape == (2, 12, CFG["embedding_dim"])
     model = ConvVQVAE.from_config(dict(CFG, use_speaker_conditioning=True,
                                        num_speakers=3))
     with pytest.raises(ValueError):

@@ -50,7 +50,9 @@ def test_every_module_imports_without_jax_or_yaml(tmp_path):
                      "utils.errors", "utils.workspace", "utils.profiling",
                      "examples.vq_2d_clustering", "examples.vq_2d_repulsion",
                      "examples.vq_balanced_2d", "examples.encode_wav",
-                     "examples.serve_vocoder"):
+                     "examples.serve_vocoder", "parallel", "parallel.mesh",
+                     "parallel.sharded_vq", "parallel.tp_decode",
+                     "parallel.sp_vocoder", "train.dcp_checkpoint"):
             assert "vqvae_speech_tpu_torch." + name in names, name
         print(len(names), "modules", bad)
     """, tmp_path)

@@ -80,12 +80,23 @@ def test_generate_batch_is_one_padded_launch():
                                     {"mesh": object()}])
 def test_unported_options_raise(kwargs):
     """bf16 and int8 are served now (below); a dtype or quantization the
-    JAX decode does not take raises ValueError, and the tensor-parallel
-    decode (mesh) is not ported."""
-    _, tree, _, tcfg = vocoder(VOCODER_KW)
-    with pytest.raises(NotImplementedError if "mesh" in kwargs
-                       else ValueError):
+    JAX decode does not take raises ValueError. The tensor-parallel decode
+    is ported (tests/test_torch_parallel.py serves it over 4 ranks): a mesh
+    that is not a (data, model) DeviceMesh raises TypeError, and a mesh
+    whose model axis has one rank serves the mesh-less waves."""
+    from tests.torch_world import world_of_one
+
+    params, tree, _, tcfg = vocoder(VOCODER_KW)
+    with pytest.raises(TypeError if "mesh" in kwargs else ValueError):
         BucketedSynthesisServer(tree, tcfg, device="cpu", **kwargs)
+    if "mesh" in kwargs:
+        requests = conds([3, 5], seed=1)
+        with world_of_one() as mesh:
+            waves = [[r.wave for r in BucketedSynthesisServer(
+                tree, tcfg, frame_buckets=(6,), max_batch=2, mesh=m,
+                device="cpu").synthesize(requests)] for m in (mesh, None)]
+        for a, b in zip(*waves):
+            np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("weight_quant", ["int8", "int8_block"])

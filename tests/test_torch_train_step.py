@@ -359,16 +359,37 @@ def test_step_draws_its_own_masks_from_the_state_generator():
 
 def test_unported_step_options_raise():
     """``compute_dtype: bfloat16`` is ported (tests/test_torch_train_step_bf16.py
-    holds it to JAX's); a dtype name it does not know raises, and ``mesh``
-    still does."""
+    holds it to JAX's); a dtype name it does not know raises. ``mesh`` is
+    ported (tests/test_torch_parallel_train.py holds the step over two
+    ranks to the global batch's): anything but a (data, model) DeviceMesh
+    raises TypeError, and over a world of one rank the data-parallel step
+    is the mesh-less step bit for bit."""
+    from tests.torch_world import world_of_one
+
     optimizer = make_optimizer(2e-4)
     make_train_step(dict(CFG, compute_dtype="bfloat16"), optimizer)
     with pytest.raises(ValueError, match="compute_dtype"):
         make_train_step(dict(CFG, compute_dtype="half"), optimizer)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(CFG, optimizer, mesh=object())
     assert dataclasses.is_dataclass(create_train_state(
         ConvVQVAE.from_config(CFG), optimizer, device="cpu"))
+    from vqvae_speech_tpu_torch.convert import numpy_params
+
+    cfg = dict(CFG, use_jitter=True)
+    runs = []
+    with world_of_one() as mesh:
+        for m in (mesh, None):
+            model = load_jax_params(ConvVQVAE.from_config(cfg),
+                                    *numpy_params(cfg, 0))
+            tstate = create_train_state(model, optimizer, device="cpu")
+            step = make_train_step(cfg, optimizer, mesh=m)
+            metrics = [step(tstate, torch_batch(b))[1]["loss"]
+                       for b in batches(cfg, 2)]
+            runs.append((metrics, [p.detach() for p in model.parameters()]))
+    (loss_dp, params_dp), (loss_one, params_one) = runs
+    assert torch.equal(torch.stack(loss_dp), torch.stack(loss_one))
+    assert all(torch.equal(a, b) for a, b in zip(params_dp, params_one))
 
 
 def test_train_state_names_its_device():

@@ -99,8 +99,14 @@ def test_synthesize(trained, kind):
     np.testing.assert_array_equal(wavfile.read(again)[1], wave)
 
 
-def test_data_parallel_raises(trained):
-    _, data, ckpt = trained
-    with pytest.raises(NotImplementedError, match="item 14"):
-        main(["train-teacher", "--data_root", data, "--checkpoint_dir", ckpt,
-              "--tiny", "--device", "cpu", "--data_parallel"])
+def test_data_parallel_raises(trained, tmp_path):
+    """``--data_parallel`` is ported: outside ``torchrun`` the world has one
+    rank and the flag trains on the one device, as the JAX CLI does on one
+    device (tests/test_torch_parallel_train.py holds the data-parallel
+    steps over two ranks)."""
+    _, data, _ = trained
+    out = str(tmp_path / "dp")
+    assert main(["train-teacher", "--data_root", data, "--checkpoint_dir",
+                 out, "--tiny", "--device", "cpu", "--data_parallel",
+                 "--epochs", "1"]) == 0
+    assert os.path.isfile(os.path.join(out, "teacher_0.pkl"))

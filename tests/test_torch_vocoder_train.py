@@ -293,8 +293,10 @@ def test_schedules_match_jax():
 
 
 def test_mesh_raises():
+    """A mesh that is not a (data, model) DeviceMesh raises TypeError (a
+    real one trains: tests/test_torch_parallel_train.py)."""
     opt = vocoder.make_vocoder_optimizer(LR, 10.0)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         vocoder.make_teacher_train_step(
             clarinet.GaussianWaveNetConfig(**TEACHER), opt, mesh=object())
 

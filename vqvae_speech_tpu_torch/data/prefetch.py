@@ -10,6 +10,10 @@ before it hands the batch out, and marks each tensor as used on that stream
 (``record_stream``), so the caching allocator does not give the memory of a
 batch to another tensor while the consumer's work on it is still queued.
 
+With a mesh (``parallel.make_mesh``), each host batch is first cut to this
+rank's block of its leading axis (``parallel.shard_batch``, the layout of
+the JAX package's ``P("data")``), so only that block is copied.
+
 On the CPU the batch is handed over as tensors (``torch.from_numpy``); there
 is no thread and no stream.
 
@@ -23,6 +27,7 @@ import threading
 
 import torch
 
+from vqvae_speech_tpu_torch.parallel.mesh import check_mesh, shard_batch
 from vqvae_speech_tpu_torch.utils import resolve_device
 
 _END = object()
@@ -32,11 +37,15 @@ def _as_tensors(batch: dict) -> dict:
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def prefetch_to_device(iterator, size: int = 2, *, device):
+def prefetch_to_device(iterator, size: int = 2, *, device, mesh=None):
     """Wrap an iterator of dict batches of numpy arrays; yields dicts of
     tensors on ``device`` ("cuda", or "cpu" when the caller asks for it),
-    with up to ``size`` batches staged ahead on a GPU."""
+    with up to ``size`` batches staged ahead on a GPU; with ``mesh``, this
+    data rank's block of each batch."""
     device = resolve_device(device)
+    check_mesh(mesh)
+    if mesh is not None:
+        iterator = (shard_batch(batch, mesh) for batch in iterator)
     if device.type != "cuda":
         for batch in iterator:
             yield _as_tensors(batch)

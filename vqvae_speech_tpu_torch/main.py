@@ -20,6 +20,14 @@ Modes:
     python -m vqvae_speech_tpu_torch.main --plot_experiments_losses
     python -m vqvae_speech_tpu_torch.main --summary configurations/vctk_features.yaml
 
+Data-parallel training (an experiment with ``use_data_parallel: true``)
+runs one process a GPU under ``torchrun``, which this CLI reads from the
+environment: each rank trains on ``cuda:LOCAL_RANK`` and rank 0 alone logs
+and writes the checkpoints:
+
+    torchrun --nproc_per_node 4 -m vqvae_speech_tpu_torch.main \
+        --experiments_configuration_path spec.json
+
 Paths are the JAX CLI's: ``configurations/vctk_features.yaml``, the
 experiments JSON and ``--dataset_path`` relative to the working directory.
 """
@@ -174,8 +182,19 @@ def main(argv=None):
         ConsoleLogger.success("All evaluating experiments done")
         return 0
 
-    Experiments.load(args.experiments_configuration_path,
-                     device=args.device).train()
+    from vqvae_speech_tpu_torch.parallel.mesh import (
+        initialize_from_environment,
+        is_writer,
+        shutdown,
+    )
+
+    device = initialize_from_environment(device=args.device)
+    ConsoleLogger.enabled = is_writer()
+    try:
+        Experiments.load(args.experiments_configuration_path,
+                         device=device).train()
+    finally:
+        shutdown()
     ConsoleLogger.success("All training experiments done")
     return 0
 

@@ -20,12 +20,24 @@ src/models/vector_quantizer.py and vector_quantizer_ema.py):
   (``ops/vq.py:172``); the quantized rows come back in the latents' dtype,
   and the EMA statistics stay f32.
 
+Data parallelism (``mesh``, which a data-parallel train step sets for its
+forward): the JAX package's data-parallel step is one program over the
+GLOBAL batch, so its (C, T, B) rows mix every rank's batch items. Here the
+(B_local, C, T) latents are all-gathered (differentiably, in data-rank
+order) into the global (B, C, T) before the flatten; the search runs once
+on the global rows on every rank (the CUDA kernel at the global N), the EMA
+buffers take the global counts and dw (the same on every rank, so no
+collective), and the VQ losses and the perplexity are the global tensors'.
+Each rank gets its own block of the straight-through output; ``indices``,
+``counts`` and ``flat`` stay global (they are rows, not batch items).
+
 Input is (B, C, T); the returned VQOutput keeps the JAX package's layouts:
 quantized (B, T, C), encodings and distances (B, T', K), indices (N, 1).
 A forward builds no (N, K) tensor of its own: ``encodings`` and ``distances``
 are computed when first read (eager PyTorch drops no dead code, and a train
 step reads neither).
 """
+import contextlib
 from typing import Optional
 
 import torch
@@ -38,6 +50,7 @@ from vqvae_speech_tpu_torch.ops.vq import (
     vq_distances,
     vq_search,
 )
+from vqvae_speech_tpu_torch.parallel.mesh import all_gather_rows, shard_rows
 
 
 class VQOutput:
@@ -65,6 +78,12 @@ class VQOutput:
         self._codebook_version = codebook._version
         self._batch_time = batch_time
         self._encodings = self._distances = None
+
+    @property
+    def flat(self) -> torch.Tensor:
+        """(N, D) the searched rows, detached (the global rows under data
+        parallelism)."""
+        return self._flat
 
     @property
     def encodings(self) -> torch.Tensor:
@@ -101,6 +120,8 @@ class VectorQuantizer(nn.Module):
         self.decay = decay
         self.epsilon = epsilon
         self.ema = decay > 0.0
+        # the data-parallel mesh of the forward, or None (module docstring)
+        self.mesh = None
         if self.ema:
             self.register_buffer("codebook",
                                  torch.randn(K, D, generator=generator))
@@ -110,6 +131,16 @@ class VectorQuantizer(nn.Module):
             self.codebook = nn.Parameter(
                 torch.empty(K, D).uniform_(-1.0 / K, 1.0 / K,
                                            generator=generator))
+
+    @contextlib.contextmanager
+    def gathering(self, mesh):
+        """Forwards inside the block search the global rows of ``mesh``'s
+        data axis (``mesh=None``: this rank's own, as without the block)."""
+        self.mesh = mesh
+        try:
+            yield self
+        finally:
+            self.mesh = None
 
     def ema_state(self) -> dict:
         """The EMA variant's buffers, as the JAX package's ``state["vq"]``."""
@@ -131,6 +162,8 @@ class VectorQuantizer(nn.Module):
         self.codebook = ema_w / cluster[:, None]
 
     def forward(self, z_bct: torch.Tensor) -> VQOutput:
+        z_local = z_bct
+        z_bct = all_gather_rows(z_bct, self.mesh)
         B, C, T = z_bct.shape
         D = self.codebook.shape[1]
         searched_codebook = self.codebook.detach()
@@ -161,7 +194,9 @@ class VectorQuantizer(nn.Module):
             losses = {"e_latent_loss": e_latent, "q_latent_loss": q_latent,
                       "commitment_loss": commitment, "vq_loss": vq_loss}
 
-        quantized_st = z_bct + (quantized - z_bct).detach()
+        if self.mesh is not None:
+            quantized = shard_rows(quantized, self.mesh)
+        quantized_st = z_local + (quantized - z_local).detach()
 
         avg_probs = res.counts.to(flat.dtype) / flat.shape[0]
         perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))

@@ -73,6 +73,8 @@ from vqvae_speech_tpu_torch.models.wavenet.mixture import (
     logistic_uniform,
 )
 from vqvae_speech_tpu_torch.ops import num_frames, speech_features, vq_search
+from vqvae_speech_tpu_torch.parallel.mesh import axis_size, check_mesh
+from vqvae_speech_tpu_torch.parallel.tp_decode import prepare_tp_decode
 from vqvae_speech_tpu_torch.utils import resolve_device
 
 
@@ -230,8 +232,13 @@ class BucketedSynthesisServer:
     weight_quant : None, "int8" (one scale an output channel) or
         "int8_block" (one a 128-input block and output): the JAX decode's
         weight-only int8 GLU stack, layer by layer.
-    mesh : the tensor-parallel decode; not ported yet, anything but None
-        raises.
+    mesh : a ``parallel.make_mesh`` DeviceMesh: with a ``model`` axis of
+        more than one rank, every launch is the tensor-parallel decode
+        (``parallel.tp_decode``: the layer stack sharded over the axis,
+        prepared once at the first launch), greedy and f32 or int8, the
+        same waves on every rank of the axis; each rank calls
+        ``synthesize`` with the same requests. A model axis of one rank
+        decodes as without a mesh.
     device : where the model runs ("cuda", "cpu"); no default.
     """
 
@@ -243,10 +250,21 @@ class BucketedSynthesisServer:
                  weight_quant: Optional[str] = None,
                  mesh=None,
                  device):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"mesh={mesh!r}: the tensor-parallel decode is not ported "
-                "to PyTorch yet")
+        check_mesh(mesh)
+        self._mesh = mesh if axis_size(mesh, "model") > 1 else None
+        if self._mesh is not None:
+            if compute_dtype not in (None, torch.float32):
+                raise ValueError(
+                    "the tensor-parallel decode is f32 or int8, not "
+                    f"compute_dtype={compute_dtype!r}")
+            if sample:
+                raise ValueError("the tensor-parallel decode serves greedy "
+                                 "streams; sampling is not wired")
+            if weight_quant not in (None, "int8"):
+                raise ValueError("the tensor-parallel decode takes "
+                                 f"weight_quant None or 'int8', not "
+                                 f"{weight_quant!r}")
+        self._tp_generate = None  # prepared at the first launch
         self._fused = compute_dtype != torch.bfloat16 and weight_quant is None
         check_decode_options(compute_dtype, weight_quant, self._fused)
         self._device = resolve_device(device)
@@ -265,11 +283,18 @@ class BucketedSynthesisServer:
         """One padded launch: c (B, bucket, cin) and g (B,) speaker ids (or
         None) on the server's device -> (outs (B, T, out) logits, emitted
         (B, T) int32), T = bucket * upsample_factor, both on the device."""
+        T = c.shape[1] * self._upsample_factor
+        if self._mesh is not None:
+            if self._tp_generate is None:
+                self._tp_generate = prepare_tp_decode(
+                    self.model, self._cfg, self._mesh,
+                    weight_quant=self._weight_quant)
+            return self._tp_generate(T, c=c, g=g)
         gen = None
         if self._sample:
             gen = torch.Generator(device=self._device).manual_seed(seed)
         return wavenet_incremental_generate(
-            self.model, self._cfg, c.shape[1] * self._upsample_factor, c=c,
+            self.model, self._cfg, T, c=c,
             g=g, sample=self._sample, generator=gen,
             use_fused_stack=self._fused, compute_dtype=self._compute_dtype,
             weight_quant=self._weight_quant)

@@ -29,11 +29,18 @@ matplotlib).
 ``convert.numpy_wavenet_vqvae_params`` and resumes from the newest
 checkpoint itself, as the JAX package's does.
 
-Not ported: data parallelism (``use_data_parallel``, ROADMAP item 14)
-raises here.
+``use_data_parallel`` trains data-parallel over every rank of the process
+group (``parallel.MeshConfiguration``: a data axis of world_size //
+num_model_shards ranks), one process a device as ``torchrun`` starts them
+(``main.py``); in a world of one rank (no process group) it trains on the
+one device, as the JAX package does when its data axis has size 1. Every
+rank builds the same experiments; rank 0 alone freezes the configuration
+and writes the checkpoints.
 """
 import json
 import os
+
+import torch.distributed as dist
 
 from vqvae_speech_tpu_torch.convert import numpy_params
 from vqvae_speech_tpu_torch.data import (
@@ -41,6 +48,7 @@ from vqvae_speech_tpu_torch.data import (
     FeatureStore,
     load_normalizer,
 )
+from vqvae_speech_tpu_torch.parallel.mesh import MeshConfiguration, is_writer
 from vqvae_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_epoch,
     load_checkpoint,
@@ -72,12 +80,19 @@ class Experiment:
 
         frozen_path = frozen_configuration_path(experiments_path, name)
         self.resumed = os.path.isfile(frozen_path)
+        if dist.is_initialized():
+            # every rank has looked before rank 0 writes it
+            dist.barrier()
         if self.resumed:
             self.configuration = load_configuration(frozen_path)
         else:
             self.configuration = merge_experiment_configuration(
                 global_configuration, experiment_configuration)
-            freeze_configuration(self.configuration, experiments_path, name)
+            if is_writer():
+                freeze_configuration(self.configuration, experiments_path,
+                                     name)
+        self.mesh_configuration = MeshConfiguration.load_from_configuration(
+            self.configuration, device=device)
 
     # ---------------- pipeline build/load ----------------
 
@@ -92,17 +107,22 @@ class Experiment:
         return FeatureLoader(store, "train", cfg["batch_size"],
                              normalizer=normalizer, seed=self.seed)
 
-    def _refuse_unported(self):
-        cfg = self.configuration
-        if cfg.get("use_data_parallel"):
-            raise NotImplementedError(
-                "use_data_parallel: data-parallel training over a mesh is not "
-                "ported (ROADMAP item 14); the port trains on one device")
+    def _mesh(self):
+        """The data-parallel mesh, or None on one device."""
+        mc = self.mesh_configuration
+        if mc.use_data_parallel:
+            return mc.mesh
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError(
+                f"experiment '{self.name}' has use_data_parallel off but the "
+                f"process group has {dist.get_world_size()} ranks: set it, "
+                "or run one process")
+        return None
 
     def build_trainer(self, training_loader=None, *, device=None):
         """The trainer of this run, fresh or resumed; ``device`` defaults to
         the experiment's."""
-        self._refuse_unported()
+        mesh = self._mesh()
         cfg = self.configuration
         device = self.device if device is None else device
         decoder_type = cfg.get("decoder_type", "deconvolutional")
@@ -114,6 +134,12 @@ class Experiment:
         if decoder_type == "wavenet":
             # an extension beyond the reference, whose PipelineFactory
             # raises for any non-deconvolutional decoder
+            if mesh is not None:
+                # the JAX package's Experiment gives the WaveNet trainer no
+                # mesh either: it trains on one device
+                raise ValueError(
+                    f"experiment '{self.name}': the WaveNet trainer trains on "
+                    "one device; run one process")
             return WaveNetTrainer(
                 cfg, training_loader, self.experiments_path, self.name,
                 num_speakers=cfg.get("num_speakers", 128), seed=self.seed,
@@ -135,7 +161,7 @@ class Experiment:
 
         return ConvolutionalTrainer(
             cfg, params, model_state, training_loader,
-            self.experiments_path, self.name, seed=self.seed,
+            self.experiments_path, self.name, seed=self.seed, mesh=mesh,
             start_epoch=start_epoch, opt_state=opt_state, device=device)
 
     def train(self, training_loader=None):

@@ -22,7 +22,33 @@ backward on a bf16 cast of the floating parameters and of
 ``input_features`` (``nn.cast.cast_call``, so autograd through the cast delivers f32 gradients to the f32 masters, as
 JAX's does); the amsgrad state, the losses, the metrics and the EMA state
 stay f32, and the codebook search runs in f32 on the rounded latents
-(``models/vq.py``). Not ported: ``mesh`` (data parallelism), which raises.
+(``models/vq.py``).
+
+Data parallelism (``mesh``, a ``parallel.make_mesh`` DeviceMesh): every rank
+holds the whole state and its block of the global batch, and the step is
+the single-device step on the global batch, as the JAX package's one SPMD
+program is:
+
+* the quantizer searches the GLOBAL (C, T, B) rows (``models/vq.py``:
+  a differentiable all-gather of the latents, the search once on every
+  rank), so the codes, the EMA statistics and the VQ losses are the global
+  batch's;
+* each rank's loss is its LOCAL reconstruction mean plus the replicated VQ
+  loss, and ONE all-reduce averages the gradient list before the update.
+  The average of the local means' gradients is the gradient of the global
+  mean (the shards are equal). The VQ loss's gradient reaches each rank's
+  latents through the gather's backward, which sums the R identical
+  gradients of the R ranks' copies of that loss: R times the global
+  gradient, which the average divides by R again. So the averaged
+  gradient is the global batch's, exactly in arithmetic.
+* the draws are the global batch's: the jitter's (T,) masks and the
+  revival permutation come from the same generator, seeded alike on every
+  rank, so every rank draws what the single-device step draws;
+* the metrics are global: the reconstruction loss is the mean of the local
+  means, the VQ terms are global already.
+
+The ranks' states stay equal: each applies the same averaged gradient to
+the same parameters.
 """
 import dataclasses
 import os
@@ -44,6 +70,15 @@ from vqvae_speech_tpu_torch.data.prefetch import prefetch_to_device
 from vqvae_speech_tpu_torch.models.conv_vqvae import ConvVQVAE
 from vqvae_speech_tpu_torch.nn.cast import cast_call
 from vqvae_speech_tpu_torch.ops.vq import reference_flatten
+from vqvae_speech_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    all_reduce_mean,
+    barrier,
+    check_mesh,
+    global_mean,
+    is_writer,
+    replicate,
+)
 from vqvae_speech_tpu_torch.train.checkpoint import save_checkpoint
 from vqvae_speech_tpu_torch.train.revival import apply_revival, revival_settings
 from vqvae_speech_tpu_torch.utils import resolve_device
@@ -171,17 +206,22 @@ def _check_batch_device(batch, device) -> None:
                 f"{device}; move the batch to the model's device")
 
 
-def _refuse_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported (ROADMAP item "
-            "14); the step runs on one device")
+def _gradients(loss, params, mesh):
+    """d loss / d params (zeros where the loss does not reach a parameter,
+    as jax.grad gives them), averaged over the data axis of ``mesh``."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    return all_reduce_mean(grads, mesh)
 
 
 def make_train_step(config: dict, optimizer: Amsgrad, mesh=None):
     """Returns ``step(state, batch, *, jitter_masks=None, revival_perm=None)
     -> (state, metrics)``.
 
+    With ``mesh`` the step is data-parallel (module docstring): ``batch`` is
+    this rank's block of the global batch (``parallel.shard_batch``), the
+    state is replicated, and a fed ``revival_perm`` is the global one.
     ``batch`` holds ``input_features`` and ``output_features`` (B, T, C) and,
     for a speaker-conditioned model, ``speaker_id`` (B,), on the model's
     device: a batch tensor on another device raises, it is not moved. The
@@ -194,7 +234,7 @@ def make_train_step(config: dict, optimizer: Amsgrad, mesh=None):
     ``compute_dtype`` in the configuration the forward and backward run in
     that dtype (see the module docstring); the metrics are f32 either way.
     """
-    _refuse_unported(mesh)
+    check_mesh(mesh)
     compute_dtype = compute_dtype_of(config)
     revival, rev_decay, rev_threshold = revival_settings(config)
 
@@ -203,20 +243,22 @@ def make_train_step(config: dict, optimizer: Amsgrad, mesh=None):
         model = state.model
         params = list(model.parameters())
         _check_batch_device(batch, params[0].device)
-        loss, recon, out = _loss(model, batch, jitter_masks, state.rng,
-                                 compute_dtype)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        with model.vq.gathering(mesh):
+            loss, recon, out = _loss(model, batch, jitter_masks, state.rng,
+                                     compute_dtype)
+        grads = _gradients(loss, params, mesh)
         optimizer.update(params, grads, state.opt_state)
         metrics = {k: v.detach().float() for k, v in out.losses.items()}
+        if mesh is not None:
+            recon = global_mean(recon, mesh)
+            loss = out.vq_loss.float() + recon
         metrics["reconstruction_loss"] = recon.detach()
         metrics["loss"] = loss.detach()
         metrics["perplexity"] = out.perplexity.detach().float()
         if revival:
             flat = reference_flatten(
-                out.pre_vq_latents.float().transpose(1, 2),
-                config["embedding_dim"])
+                all_gather_rows(out.pre_vq_latents, mesh).float()
+                .transpose(1, 2), config["embedding_dim"])
             metrics["revived_codes"] = apply_revival(
                 model, out.counts.detach().float(), flat, rev_decay,
                 rev_threshold, perm=revival_perm, generator=state.rng)
@@ -225,7 +267,7 @@ def make_train_step(config: dict, optimizer: Amsgrad, mesh=None):
     return step
 
 
-def make_grad_stats_fn(config: dict):
+def make_grad_stats_fn(config: dict, mesh=None):
     """Returns ``fn(state, batch, *, jitter_masks=None) -> (means, maxs)``:
     |grad| mean and max of every parameter leaf (for the gradient-flow plots;
     reference src/evaluation/gradient_stats.py:38-52), as two trees with the
@@ -233,7 +275,8 @@ def make_grad_stats_fn(config: dict):
     optimizer; an EMA model's buffers do take the forward's update, so pass a
     model whose state may move or restore it afterwards. The statistics are
     taken in f32 whatever the configuration's ``compute_dtype``, as the JAX
-    package takes them."""
+    package takes them. With ``mesh`` they are the global batch's, from
+    this rank's block, as the data-parallel step's gradients are."""
 
     def fn(state: TrainState, batch, *, jitter_masks=None):
         model = state.model
@@ -242,10 +285,9 @@ def make_grad_stats_fn(config: dict):
         _check_batch_device(batch, params[0].device)
         # the jitter draws come from a copy: the state's generator stays put
         rng = torch.Generator().set_state(state.rng.get_state())
-        loss, _, _ = _loss(model, batch, jitter_masks, rng)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        with model.vq.gathering(mesh):
+            loss, _, _ = _loss(model, batch, jitter_masks, rng)
+        grads = _gradients(loss, params, mesh)
         means = nest_by_path((leaf.path, g.abs().mean())
                              for leaf, g in zip(leaves, grads))
         maxs = nest_by_path((leaf.path, g.abs().max())
@@ -286,7 +328,13 @@ class ConvolutionalTrainer:
     it) is where it trains; on a GPU it turns TF32 off for cuDNN and
     matmuls, so the model trains in the configuration's f32. The loop keeps
     each step's metrics on the device and copies them to the host once an
-    epoch, before the epoch's log line and checkpoint."""
+    epoch, before the epoch's log line and checkpoint.
+
+    With ``mesh`` it trains data-parallel: the state is broadcast from data
+    rank 0, each rank's loader yields the same global batches (the same
+    seed) and ``prefetch_to_device`` places the rank's block; rank 0 alone
+    writes the checkpoints and statistics files, and every rank waits for
+    it."""
 
     def __init__(self, config: dict, params, model_state, training_loader,
                  experiments_path: str, experiment_name: str,
@@ -298,6 +346,8 @@ class ConvolutionalTrainer:
         self._experiment_name = experiment_name
         self._start_epoch = start_epoch
         self._iterations_to_record = iterations_to_record
+        check_mesh(mesh)
+        self._mesh = mesh
         self._device = resolve_device(device)
         if self._device.type == "cuda":
             # the configuration's f32 (compute_dtype null): PyTorch's default
@@ -307,13 +357,15 @@ class ConvolutionalTrainer:
 
         optimizer = make_optimizer(config["learning_rate"])
         self._step = make_train_step(config, optimizer, mesh)
-        self._grad_stats = make_grad_stats_fn(config)
+        self._grad_stats = make_grad_stats_fn(config, mesh)
         model = load_jax_params(ConvVQVAE.from_config(config), params,
                                 model_state)
         self._state = create_train_state(model, optimizer,
                                          device=self._device, seed=seed)
         if opt_state is not None:
             load_jax_opt_state(model, opt_state, self._state.opt_state)
+        replicate([model, self._state.opt_state.mu, self._state.opt_state.nu,
+                   self._state.opt_state.nu_max], mesh)
 
     @property
     def state(self) -> TrainState:
@@ -330,7 +382,7 @@ class ConvolutionalTrainer:
             step_rec = max(int(n_iter / self._iterations_to_record) - 1, 1)
             record_iters = set(range(0, n_iter, step_rec))
             batches = prefetch_to_device(iter(self._loader),
-                                         device=self._device)
+                                         device=self._device, mesh=self._mesh)
             device_metrics = []
             for iteration, batch in enumerate(batches):
                 if (cfg.get("record_gradient_stats")
@@ -380,18 +432,29 @@ class ConvolutionalTrainer:
         return losses_list, perplexity_list
 
     def save(self, epoch, losses_list=None, perplexity_list=None):
+        """The epoch's checkpoint, written by rank 0 (the other ranks wait
+        for it and return None)."""
         model = self._state.model
-        params, model_state = export_jax_params(model)
-        return save_checkpoint(
-            self._experiments_path, self._experiment_name, epoch, params,
-            model_state, export_jax_opt_state(model, self._state.opt_state),
-            train_res_recon_error=losses_list,
-            train_res_perplexity=perplexity_list)
+        path = None
+        if is_writer():
+            params, model_state = export_jax_params(model)
+            path = save_checkpoint(
+                self._experiments_path, self._experiment_name, epoch, params,
+                model_state, export_jax_opt_state(model, self._state.opt_state),
+                train_res_recon_error=losses_list,
+                train_res_perplexity=perplexity_list)
+        barrier(self._mesh)
+        return path
 
     # ---------------- recording hooks ----------------
 
     def _record_codebook_stats(self, batch, epoch, iteration):
         model = self._state.model
+        # the global batch's codes (every rank gathers it; rank 0 writes)
+        batch = {k: all_gather_rows(batch[k], self._mesh)
+                 for k in ("input_features", "speaker_id")}
+        if not is_writer():
+            return
         model.eval()
         with torch.no_grad():
             out = model.encode(batch["input_features"])
@@ -420,6 +483,8 @@ class ConvolutionalTrainer:
         means, maxs = self._grad_stats(self._state, batch)
         for name, tensor in kept.items():
             setattr(vq, name, tensor)
+        if not is_writer():
+            return
         entry = {"model": _named_grad_entries(means, maxs)}
         for part in ("encoder", "vq", "decoder"):
             if means.get(part):

@@ -31,8 +31,18 @@ f32 masters as f32), the inputs cast, and the losses, the optimizer and the
 EMA stay f32. Draws: the student's z is fed (``z=``) or drawn on the
 device from a generator seeded by ``np.random.SeedSequence`` of the state's
 JAX key (uint32[2]) and the step; the student's test loss draws its z from a
-fixed-seed generator (JAX: ``PRNGKey(0)``). Not ported: ``mesh`` (data
-parallelism), which raises.
+fixed-seed generator (JAX: ``PRNGKey(0)``).
+
+Data parallelism (``mesh``, a ``parallel.make_mesh`` DeviceMesh): the state
+is replicated and each rank's batch is its block of the global batch. The
+vocoders have no quantizer and every loss is a mean over equal shards, so
+the average of the ranks' gradients, taken in ONE all-reduce before the
+global-norm clip (the clip's norm is the global gradient's), is the global
+batch's gradient, and the update, the clip and the EMA are the
+single-device step's. The student's z is drawn for the global batch from
+the same generator on every rank and sliced (a fed z is global too); the
+frozen teacher is broadcast from data rank 0. The returned losses are the
+global means.
 """
 import dataclasses
 import os
@@ -67,7 +77,17 @@ from vqvae_speech_tpu_torch.train.checkpoint import (
     dump_pickle,
     load_checkpoint,
 )
-from vqvae_speech_tpu_torch.train.trainer import _refuse_unported
+from vqvae_speech_tpu_torch.parallel.mesh import (
+    all_reduce_mean,
+    barrier,
+    check_mesh,
+    global_mean,
+    global_rows,
+    is_writer,
+    replicate,
+    shard_batch,
+    shard_rows,
+)
 from vqvae_speech_tpu_torch.utils.logger import ConsoleLogger
 
 LR_HALVING_STEPS = (200_000, 400_000, 600_000)  # reference train.py:75-86
@@ -258,13 +278,14 @@ def _cast_dtype(compute_dtype):
     return compute_dtype if compute_dtype == torch.bfloat16 else None
 
 
-def _apply_update(state, loss, optimizer, ema_decay):
+def _apply_update(state, loss, optimizer, ema_decay, mesh=None):
     leaves = tree_leaves(state.params)
     # a leaf the loss does not reach (the last resblock's residual conv)
     # gets a zero gradient, as jax.grad gives it
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
+    grads = all_reduce_mean(grads, mesh)
     optimizer.update(state.params, grads, state.opt_state)
     if ema_decay is not None:
         _ema_update(state.ema_params, state.params, ema_decay)
@@ -278,8 +299,9 @@ def make_teacher_train_step(cfg, optimizer: VocoderOptimizer,
     Gaussian NLL of the next sample, backward, the update and the EMA.
     ``batch`` holds ``x`` (B, T, 1) and ``c`` (B, Tc, cin) on the state's
     device; the state is updated in place; ``loss`` is a 0-d f32 tensor on
-    the device."""
-    _refuse_unported(mesh)
+    the device. With ``mesh`` (module docstring) ``batch`` is this rank's
+    block and ``loss`` the global mean."""
+    check_mesh(mesh)
     cast = _cast_dtype(compute_dtype)
 
     def loss_fn(params, batch):
@@ -296,8 +318,8 @@ def make_teacher_train_step(cfg, optimizer: VocoderOptimizer,
     def step(state: VocoderTrainState, batch):
         _check_batch(state, batch)
         loss = loss_fn(state.params, batch)
-        _apply_update(state, loss, optimizer, ema_decay)
-        return state, loss.detach()
+        _apply_update(state, loss, optimizer, ema_decay, mesh)
+        return state, global_mean(loss.detach(), mesh)
 
     return step
 
@@ -321,12 +343,13 @@ def _distillation_loss(s_params, student_cfg, t_resolved, teacher_cfg, x, c,
     return total + frame, {"kl": kl, "reg": reg, "frame": frame}
 
 
-def _frozen_teacher(teacher_params, teacher_cfg, device, cast):
+def _frozen_teacher(teacher_params, teacher_cfg, device, cast, mesh=None):
     """The teacher's tree resolved once, without gradients (the student's
-    gradient still flows through its activations)."""
+    gradient still flows through its activations); with ``mesh``, data rank
+    0's tree."""
     with torch.no_grad():
-        return resolve_gaussian_wavenet(tensor_tree(teacher_params, device),
-                                        teacher_cfg, cast)
+        tree = replicate(tensor_tree(teacher_params, device), mesh)
+        return resolve_gaussian_wavenet(tree, teacher_cfg, cast)
 
 
 def make_student_train_step(teacher_cfg, student_cfg, teacher_params,
@@ -339,24 +362,31 @@ def make_student_train_step(teacher_cfg, student_cfg, teacher_params,
     The frozen teacher (a JAX-layout tree, numpy or tensors: the teacher
     checkpoint's EMA params) is resolved once on ``device``. z (B, T, 1)
     is fed, or drawn in f32 on the device from ``step_generator(state.rng,
-    state.step)``; at bf16 it is cast after the draw."""
-    _refuse_unported(mesh)
+    state.step)``; at bf16 it is cast after the draw. With ``mesh`` (module
+    docstring) z is drawn, or fed, for the global batch and sliced, and the
+    losses are global means."""
+    check_mesh(mesh)
     cast = _cast_dtype(compute_dtype)
-    t_resolved = _frozen_teacher(teacher_params, teacher_cfg, device, cast)
+    t_resolved = _frozen_teacher(teacher_params, teacher_cfg, device, cast,
+                                 mesh)
 
     def step(state: VocoderTrainState, batch, z=None):
         _check_batch(state, batch)
         x = batch["x"]
         if z is None:
-            z = torch.randn(x.shape, device=x.device,
+            z = torch.randn((global_rows(x.shape[0], mesh),) + x.shape[1:],
+                            device=x.device,
                             generator=step_generator(state.rng, state.step,
                                                      x.device))
+        if mesh is not None:
+            z = shard_rows(z, mesh)
         loss, aux = _distillation_loss(
             state.params, student_cfg, t_resolved, teacher_cfg, x,
             batch["c"], z, kl_type, stft_filter, stft_hop, cast)
-        _apply_update(state, loss, optimizer, ema_decay)
-        return state, (loss.detach(),
-                       {k: v.detach() for k, v in aux.items()})
+        _apply_update(state, loss, optimizer, ema_decay, mesh)
+        return state, (global_mean(loss.detach(), mesh),
+                       {k: global_mean(v.detach(), mesh)
+                        for k, v in aux.items()})
 
     return step
 
@@ -365,8 +395,9 @@ def make_flow_train_step(cfg, optimizer: VocoderOptimizer, mesh=None,
                          compute_dtype=None):
     """FloWaveNet MLE step: ``step(state, batch) -> (state, (loss, aux))``,
     loss = -(log_p + logdet), aux ``log_p`` and ``logdet``; no EMA (the
-    reference evaluates and serves the raw flow)."""
-    _refuse_unported(mesh)
+    reference evaluates and serves the raw flow). With ``mesh`` (module
+    docstring) the losses are global means."""
+    check_mesh(mesh)
     check_compute_dtype(compute_dtype)
 
     def step(state: VocoderTrainState, batch):
@@ -375,9 +406,10 @@ def make_flow_train_step(cfg, optimizer: VocoderOptimizer, mesh=None,
                                            batch["c"],
                                            compute_dtype=compute_dtype)
         loss = -(log_p + logdet)
-        _apply_update(state, loss, optimizer, None)
-        return state, (loss.detach(), {"log_p": log_p.detach(),
-                                       "logdet": logdet.detach()})
+        _apply_update(state, loss, optimizer, None, mesh)
+        return state, (global_mean(loss.detach(), mesh),
+                       {"log_p": global_mean(log_p.detach(), mesh),
+                        "logdet": global_mean(logdet.detach(), mesh)})
 
     return step
 
@@ -447,11 +479,23 @@ class VocoderTrainer:
     gate is the train epoch's mean loss. The loaders yield host batches
     (``data.ljspeech.LJSpeechLoader``); each is moved to the state's
     device. On a GPU the trainer turns TF32 off for cuDNN and matmuls: the
-    f32 model trains in f32."""
+    f32 model trains in f32.
+
+    With ``mesh`` (a data-parallel ``step_fn`` made with the same mesh) the
+    state is broadcast from data rank 0, each rank's loader yields the same
+    global batches and the trainer hands the step this rank's block; the
+    test loss is the whole test batch's on every rank; rank 0 alone writes
+    the checkpoints, the loss files and the samples, and every rank waits
+    for it."""
 
     def __init__(self, step_fn, state: VocoderTrainState, loader,
                  checkpoint_dir: str, name: str, eval_loader=None,
-                 eval_loss_fn=None, eval_on_ema: bool = True, on_best=None):
+                 eval_loss_fn=None, eval_on_ema: bool = True, on_best=None,
+                 mesh=None):
+        check_mesh(mesh)
+        self._mesh = mesh
+        replicate([state.params, state.ema_params, state.opt_state.mu,
+                   state.opt_state.nu], mesh)
         self._step_fn = step_fn
         self.state = state
         self._loader = loader
@@ -488,7 +532,8 @@ class VocoderTrainer:
         total, count = 0.0, 0
         for batch in self._loader:
             self.state, out = self._step_fn(
-                self.state, _device_batch(batch, self.state.device))
+                self.state, _device_batch(shard_batch(batch, self._mesh),
+                                          self.state.device))
             loss = out[0] if isinstance(out, tuple) else out
             total += float(loss)
             count += 1
@@ -504,23 +549,25 @@ class VocoderTrainer:
                 f"test {gate:.4f}")
         self.train_losses.append(avg)
         self.eval_losses.append(gate)
-        np.save(os.path.join(self._dir, f"{self._name}_train.npy"),
-                np.asarray(self.train_losses))
-        np.save(os.path.join(self._dir, f"{self._name}.npy"),
-                np.asarray(self.eval_losses))
         # the gate is compared BEFORE the epoch's save, so the epoch
         # checkpoint records this epoch's best_loss (a resume from it must
         # not let a later, worse epoch overwrite {name}_best.pkl)
         new_best = gate < self.best_loss
         if new_best:
             self.best_loss = gate
-        self.save(epoch, avg)
-        if new_best:
-            self.save(epoch, gate, best=True)
-            if self._on_best is not None:
-                # reference: synthesize a sample whenever a new best is
-                # saved (flow train.py:290-295)
-                self._on_best(self.state, epoch)
+        if is_writer():
+            np.save(os.path.join(self._dir, f"{self._name}_train.npy"),
+                    np.asarray(self.train_losses))
+            np.save(os.path.join(self._dir, f"{self._name}.npy"),
+                    np.asarray(self.eval_losses))
+            self.save(epoch, avg)
+            if new_best:
+                self.save(epoch, gate, best=True)
+                if self._on_best is not None:
+                    # reference: synthesize a sample whenever a new best is
+                    # saved (flow train.py:290-295)
+                    self._on_best(self.state, epoch)
+        barrier(self._mesh)
         return avg
 
     def save(self, epoch, loss, best=False):

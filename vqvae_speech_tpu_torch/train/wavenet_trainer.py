@@ -25,6 +25,14 @@ dropout masks, L of (B, T, C), and the AR-input masks). Tests feed the JAX
 package's draws instead (``jitter_masks``, ``dropout_masks``, ``ar_keep``,
 ``revival_perm``).
 
+With ``mesh`` the step is data-parallel as ``train/trainer.py``'s is (its
+module docstring gives the argument): the quantizer searches the global
+rows, the gradient list is averaged in one all-reduce, the metrics are
+global. The draws are the global batch's: the AR-input keep mask (B,
+length) and the dropout masks (B, length, C) are drawn for the global B from
+``dropout_rng``, in the single-device step's order, and each rank keeps its
+block; fed ``ar_keep`` and ``dropout_masks`` are global too.
+
 ``WaveNetTrainer`` is the epoch loop with the JAX trainer's contract:
 auto-resume from the newest checkpoint, ``checkpoint_every`` (the last epoch
 always saves), ``{name}_history.json`` and ``prune_checkpoints``.
@@ -54,6 +62,13 @@ from vqvae_speech_tpu_torch.data.prefetch import prefetch_to_device
 from vqvae_speech_tpu_torch.models.wavenet_vqvae import WaveNetVQVAE
 from vqvae_speech_tpu_torch.ops.mu_law import mu_law_encode
 from vqvae_speech_tpu_torch.ops.vq import reference_flatten
+from vqvae_speech_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    check_mesh,
+    global_mean,
+    global_rows,
+    shard_rows,
+)
 from vqvae_speech_tpu_torch.train.checkpoint import (
     latest_checkpoint_epoch,
     load_checkpoint,
@@ -65,6 +80,7 @@ from vqvae_speech_tpu_torch.train.trainer import (
     Amsgrad,
     AmsgradState,
     ConvolutionalTrainer,
+    _gradients,
     compute_dtype_of,
     make_optimizer,
 )
@@ -97,7 +113,8 @@ def create_wavenet_train_state(model: WaveNetVQVAE, optimizer: Amsgrad, *,
 
 
 def make_wavenet_train_step(config: dict, wavenet_cfg, optimizer: Amsgrad,
-                            compute_dtype: Optional[torch.dtype] = None):
+                            compute_dtype: Optional[torch.dtype] = None,
+                            mesh=None):
     """Returns ``step(state, batch, *, ar_keep=None, jitter_masks=None,
     dropout_masks=None, revival_perm=None) -> (state, metrics)``.
 
@@ -109,7 +126,9 @@ def make_wavenet_train_step(config: dict, wavenet_cfg, optimizer: Amsgrad,
     input samples kept; ``jitter_masks`` (replace, direction);
     ``dropout_masks``, one (B, length, residual_channels) bool a layer;
     ``revival_perm``. ``wavenet_cfg`` keeps the JAX function's signature:
-    the model carries its own configuration."""
+    the model carries its own configuration. With ``mesh`` (module
+    docstring) ``batch`` is this rank's block and the fed draws are global."""
+    check_mesh(mesh)
     quantize = config["quantize"]
     if compute_dtype is None:
         compute_dtype = compute_dtype_of(config)
@@ -134,25 +153,38 @@ def make_wavenet_train_step(config: dict, wavenet_cfg, optimizer: Amsgrad,
                  == torch.arange(quantize, device=device)).float()
         if ar_drop:
             if ar_keep is None:
-                ar_keep = torch.rand(q[:, :-1].shape,
-                                     generator=state.dropout_rng,
+                shape = (global_rows(q.shape[0], mesh), q.shape[1] - 1)
+                ar_keep = torch.rand(shape, generator=state.dropout_rng,
                                      device=state.dropout_rng.device
                                      ) < 1.0 - ar_drop
+            if mesh is not None:
+                ar_keep = shard_rows(ar_keep, mesh)
             x_dec = x_dec * ar_keep.to(device)[..., None].float()
         target = q[:, 1:].long()
-        out = model(batch["input_features"], x_dec, batch["speaker_id"],
-                    jitter_masks=jitter_masks, jitter_generator=state.rng,
-                    dropout_masks=dropout_masks,
-                    dropout_generator=state.dropout_rng,
-                    decoder_compute_dtype=compute_dtype)
+        wavenet = model.decoder.wavenet
+        if (mesh is not None and dropout_masks is None and model.training
+                and wavenet.cfg.dropout > 0):
+            dropout_masks = wavenet.dropout_masks(
+                (global_rows(q.shape[0], mesh), q.shape[1] - 1,
+                 wavenet.cfg.residual_channels), state.dropout_rng,
+                state.dropout_rng.device)
+        if mesh is not None and dropout_masks is not None:
+            dropout_masks = [shard_rows(m, mesh) for m in dropout_masks]
+        with model.vq.gathering(mesh):
+            out = model(batch["input_features"], x_dec, batch["speaker_id"],
+                        jitter_masks=jitter_masks, jitter_generator=state.rng,
+                        dropout_masks=dropout_masks,
+                        dropout_generator=state.dropout_rng,
+                        decoder_compute_dtype=compute_dtype)
         logp = F.log_softmax(out.reconstructed_x, dim=-1)
         ce = -torch.mean(torch.take_along_dim(logp, target[..., None], -1))
         loss = ce + out.vq_loss
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
+        grads = _gradients(loss, params, mesh)
         optimizer.update(params, grads, state.opt_state)
         metrics = {k: v.detach().float() for k, v in out.losses.items()}
+        if mesh is not None:
+            ce = global_mean(ce, mesh)
+            loss = ce + out.vq_loss
         metrics["reconstruction_loss"] = ce.detach()
         metrics["loss"] = loss.detach()
         metrics["perplexity"] = out.perplexity.detach().float()
@@ -161,8 +193,8 @@ def make_wavenet_train_step(config: dict, wavenet_cfg, optimizer: Amsgrad,
             counts = F.one_hot(out.encoding_indices.reshape(-1).long(),
                                K).sum(0).float()
             flat = reference_flatten(
-                out.pre_vq_latents.float().transpose(1, 2),
-                config["embedding_dim"])
+                all_gather_rows(out.pre_vq_latents, mesh).float()
+                .transpose(1, 2), config["embedding_dim"])
             metrics["revived_codes"] = apply_revival(
                 model, counts, flat, rev_decay, rev_threshold,
                 perm=revival_perm, generator=state.rng)

@@ -19,7 +19,13 @@ synthesizes autoregressively, one decode-step kernel launch a sample on the
 card (``gaussian_wavenet_generate``); the student and the flow run at batch
 1 through the fused resblock chains (``use_fused``: the chain kernels on the
 card, their plain twins on the CPU), as the fused servers do.
-``--data_parallel`` raises (ROADMAP item 14).
+``--data_parallel`` trains data-parallel over one process a GPU under
+``torchrun`` (read from the environment; each rank on ``cuda:LOCAL_RANK``,
+every rank's loader yielding the same global batches, rank 0 alone writing),
+and on the one device without it, as the JAX CLI does on one device:
+
+    torchrun --nproc_per_node 4 -m vqvae_speech_tpu_torch.vocoder_main \
+        train-teacher --data_root data --data_parallel
 """
 import argparse
 import os
@@ -59,7 +65,8 @@ def build_parser():
                         help="mixed precision: bf16 forward/backward, "
                              "f32 masters and losses")
         tp.add_argument("--data_parallel", action="store_true",
-                        help="not ported (ROADMAP item 14): raises")
+                        help="shard each batch over the ranks torchrun "
+                             "starts (one a GPU)")
         tp.add_argument("--tiny", action="store_true",
                         help="tiny model preset (tests/smoke)")
         tp.add_argument("--device", default="cuda",
@@ -132,18 +139,20 @@ def _noise(shape, temp, seed, device):
 
 def _train(args, device):
     import torch
+    import torch.distributed as dist
 
     from vqvae_speech_tpu_torch import convert
     from vqvae_speech_tpu_torch.data.ljspeech import (
         LJSpeechDataset,
         LJSpeechLoader,
     )
+    from vqvae_speech_tpu_torch.parallel.mesh import make_mesh
     from vqvae_speech_tpu_torch.train import vocoder
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel is not ported (ROADMAP item 14); the trainer "
-            "runs on one device")
+    mesh = None
+    if (args.data_parallel and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        mesh = make_mesh(device=device)
     ds = LJSpeechDataset(args.data_root, train=True)
     loader = LJSpeechLoader(ds, args.batch_size, seed=args.seed)
     # the reference gates 'best' on the TEST loss (clarinet train.py:273-283)
@@ -158,7 +167,7 @@ def _train(args, device):
         params = convert.numpy_gaussian_wavenet_params(cfg, args.seed)
         opt = vocoder.make_vocoder_optimizer(args.learning_rate,
                                              clip_norm=10.0)
-        step = vocoder.make_teacher_train_step(cfg, opt,
+        step = vocoder.make_teacher_train_step(cfg, opt, mesh=mesh,
                                                compute_dtype=compute_dtype)
         eval_loss = vocoder.make_teacher_eval_loss(cfg)
     elif args.command == "train-student":
@@ -170,7 +179,7 @@ def _train(args, device):
                                              clip_norm=10.0)
         step = vocoder.make_student_train_step(
             teacher_cfg, cfg, t_params, opt, kl_type=args.KL_type,
-            compute_dtype=compute_dtype, device=device)
+            mesh=mesh, compute_dtype=compute_dtype, device=device)
         eval_loss = vocoder.make_student_eval_loss(
             teacher_cfg, cfg, t_params, kl_type=args.KL_type, device=device)
     else:
@@ -180,6 +189,8 @@ def _train(args, device):
         )
 
         cfg = flow_cfg_for(args)
+        # the data-dependent init on the first GLOBAL batch (every rank's
+        # loader yields it); the trainer broadcasts rank 0's result
         first = next(iter(loader))
         params = actnorm_initialize(
             convert.tensor_tree(convert.numpy_flowavenet_init(cfg, args.seed),
@@ -189,7 +200,7 @@ def _train(args, device):
         opt = vocoder.make_vocoder_optimizer(args.learning_rate,
                                              clip_norm=1.0,
                                              halve_every=200_000)
-        step = vocoder.make_flow_train_step(cfg, opt,
+        step = vocoder.make_flow_train_step(cfg, opt, mesh=mesh,
                                             compute_dtype=compute_dtype)
         eval_loss, eval_on_ema = vocoder.make_flow_eval_loss(cfg), False
 
@@ -215,7 +226,7 @@ def _train(args, device):
     trainer = vocoder.VocoderTrainer(
         step, state, loader, args.checkpoint_dir, args.model_name,
         eval_loader=eval_loader, eval_loss_fn=eval_loss,
-        eval_on_ema=eval_on_ema, on_best=on_best)
+        eval_on_ema=eval_on_ema, on_best=on_best, mesh=mesh)
     start = (vocoder.restore_vocoder_trainer(trainer, args.resume)
              if args.resume else 0)
     for epoch in range(start, args.epochs):
@@ -292,7 +303,13 @@ def main(argv=None):
 
     import torch
 
+    from vqvae_speech_tpu_torch.parallel.mesh import (
+        initialize_from_environment,
+        is_writer,
+        shutdown,
+    )
     from vqvae_speech_tpu_torch.utils import resolve_device
+    from vqvae_speech_tpu_torch.utils.logger import ConsoleLogger
 
     device = resolve_device(args.device)
     if device.type == "cuda":
@@ -300,9 +317,14 @@ def main(argv=None):
         # let cuDNN run f32 convolutions in TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    if args.command.startswith("train-"):
+    if not args.command.startswith("train-"):
+        return _synthesize(args, device)
+    device = initialize_from_environment(device=device)
+    ConsoleLogger.enabled = is_writer()
+    try:
         return _train(args, device)
-    return _synthesize(args, device)
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":
