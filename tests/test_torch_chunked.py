@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_continuous_serve import jax_draws
+from test_torch_continuous_serve import assert_stats_match, jax_draws
 from vqvae_speech_tpu.models.wavenet import chunked as jax_chunked
 from vqvae_speech_tpu.models.wavenet.incremental import (
     wavenet_incremental_generate as jax_generate,
@@ -140,7 +140,7 @@ def test_scalar_input_greedy_chunks_match_jax():
         assert g.wave.dtype == np.float32 and g.wave.shape == w.wave.shape
         np.testing.assert_allclose(g.wave, w.wave, rtol=0, atol=1e-6)
     assert max(np.abs(g.wave).max() for g in got) > 0
-    assert server.stats == jax_server.stats
+    assert_stats_match(server, jax_server)
 
 
 def test_scalar_input_sampled_chunks_follow_jax_draws():

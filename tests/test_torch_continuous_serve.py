@@ -4,8 +4,9 @@ layers, k=2, C=G=S=8, upsample x4), with the parameters copied across.
 
 Every contract of the JAX tests, held against JAX's server run on the same
 requests: greedy f32, int8 and int8_block waves EQUAL to JAX's (integer
-bins), ``stats`` equal to JAX's, and sampled streams equal to JAX's when the
-port is fed JAX's own draws (``noises=``, recomputed from its key chain
+bins), ``stats`` holding JAX's keys and values (and the port's raw slot
+counts beside them), and sampled streams equal to JAX's when the port is
+fed JAX's own draws (``noises=``, recomputed from its key chain
 ``fold_in(PRNGKey(seed), id)`` split once a step). Against a standalone
 batch-1 greedy decode (the port's own, and JAX's) the streams are also
 compared; on this fixture they agree in every sample, and the test counts
@@ -78,6 +79,19 @@ def jax_standalone(vocoder, c, **kw):
     return np.asarray(want)[0]
 
 
+def assert_stats_match(server, jax_server):
+    """The port's ``stats`` hold JAX's keys with JAX's values, and beside
+    them the raw slot counts whose rounded quotient is the utilization."""
+    got, want = server.stats, jax_server.stats
+    assert {k: got[k] for k in want} == want
+    assert set(got) - set(want) == {"busy_slot_steps", "slot_steps"}
+    assert got["slot_steps"] == (got["launches"] * got["slots"]
+                                 * got["chunk_size"])
+    if got["slot_steps"]:
+        assert got["slot_utilization"] == round(
+            got["busy_slot_steps"] / got["slot_steps"], 4)
+
+
 def flips_at_near_ties(wave, want, logits):
     """The bins where ``wave`` leaves ``want`` (a stream of the same
     request): raises unless the first is a near-tie of ``logits``; returns
@@ -107,7 +121,7 @@ def test_greedy_matches_jax_and_standalone_across_chunks(vocoder):
         flips += flips_at_near_ties(g.wave, bins, logits)
         np.testing.assert_array_equal(jax_standalone(vocoder, c), w.wave)
     assert flips == 0     # none on this fixture; see flips_at_near_ties
-    assert server.stats == jax_server.stats
+    assert_stats_match(server, jax_server)
     assert server.stats["launches"] >= 3
     assert 0.0 < server.stats["slot_utilization"] <= 1.0
 
@@ -160,7 +174,7 @@ def test_sampled_streams_follow_jax_draws(vocoder):
         got = server.run(requests, noises=noises)
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.wave, w.wave)
-        assert server.stats == jax_server.stats
+        assert_stats_match(server, jax_server)
     a = servers(vocoder, slots=4, chunk_size=8, max_frames=6,
                 sample=True)[1].run(requests)[2].wave
     b = servers(vocoder, slots=2, chunk_size=32, max_frames=6,
@@ -184,7 +198,7 @@ def test_int8_compositions(vocoder, weight_quant):
     np.testing.assert_array_equal(
         got[0].wave, jax_standalone(vocoder, requests[0],
                                     weight_quant=weight_quant))
-    assert server.stats == jax_server.stats
+    assert_stats_match(server, jax_server)
 
 
 def test_rejects_oversized_conditioning_before_enqueuing(vocoder):
@@ -222,7 +236,7 @@ def test_online_submit_step_collect(vocoder):
         np.testing.assert_array_equal(got.wave, standalone(vocoder, c)[0])
         assert server.collect(rid) is None
     st = server.stats
-    assert st == jax_server.stats
+    assert_stats_match(server, jax_server)
     assert st["mean_latency_chunks"] > 0
     for k in ("latency_chunks", "admission_wait_chunks", "decode_chunks"):
         assert st[k] is not None and st[k]["max"] >= st[k]["p50"] >= 0
@@ -252,7 +266,7 @@ def test_speaker_conditioned_streams_match_jax():
     got = server.run(requests, speakers)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.wave, w.wave)
-    assert server.stats == jax_server.stats
+    assert_stats_match(server, jax_server)
 
 
 def test_noise_and_seed_are_checked(vocoder):

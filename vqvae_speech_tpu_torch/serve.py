@@ -76,6 +76,7 @@ from vqvae_speech_tpu_torch.ops import num_frames, speech_features, vq_search
 from vqvae_speech_tpu_torch.parallel.mesh import axis_size, check_mesh
 from vqvae_speech_tpu_torch.parallel.tp_decode import prepare_tp_decode
 from vqvae_speech_tpu_torch.utils import resolve_device
+from vqvae_speech_tpu_torch.utils.profiling import annotate
 
 
 @dataclass
@@ -145,11 +146,15 @@ class BucketedEncodeServer:
     @torch.inference_mode()
     def encode_batch(self, waves: torch.Tensor) -> torch.Tensor:
         """(B, bucket) f32 waves on the server's device -> (B, T_lat) int32
-        codes, each row on batch-1 reference semantics."""
-        z = self.model.latents(self.features(waves))      # (B, D, T')
-        D = self.model.vq.codebook.shape[1]
-        res = vq_search(z.contiguous().view(-1, D), self.model.vq.codebook)
-        return res.indices.view(waves.shape[0], -1)
+        codes, each row on batch-1 reference semantics. Spans:
+        ``encode.batch`` and, inside it, ``encode.features``."""
+        with annotate("encode.batch"):
+            with annotate("encode.features"):
+                feats = self.features(waves)
+            z = self.model.latents(feats)      # (B, D, T')
+            D = self.model.vq.codebook.shape[1]
+            res = vq_search(z.contiguous().view(-1, D), self.model.vq.codebook)
+            return res.indices.view(waves.shape[0], -1)
 
     def padded_batch(self, waves: Sequence[np.ndarray], bucket: int):
         """Zero-pad up to max_batch waves to (max_batch, bucket) on device."""
@@ -539,7 +544,8 @@ class ContinuousSynthesisServer:
     Online API: ``submit()`` enqueues a request and returns its id,
     ``step()`` advances the pool one chunk and returns the ids that completed
     in it, ``collect()`` takes a finished result; ``run()`` is the offline
-    drain built on them. ``stats`` has the JAX server's keys and values.
+    drain built on them. ``stats`` has the JAX server's keys and values,
+    and the raw counts ``busy_slot_steps`` and ``slot_steps``.
 
     params, cfg : a ``wavenet_init``-shaped numpy tree and its WaveNetConfig.
     max_frames : the longest admissible conditioning (frames); fixes the
@@ -635,42 +641,55 @@ class ContinuousSynthesisServer:
         return rid
 
     def _admit(self, slot: int, rid: int) -> None:
-        req = self._requests[rid]
-        cond = req["cond"]
-        n = cond.shape[0] * self._upsample_factor
-        # zero-padded to the slots' capacity: every admission has one shape
-        with torch.inference_mode():
-            c = torch.zeros((self._max_frames, cond.shape[-1]),
-                            dtype=torch.float32, device=self._device)
-            c[:cond.shape[0]] = torch.as_tensor(cond, dtype=torch.float32,
-                                                device=self._device)
-        rows = slot_conditioning(self.model, self._cfg, c, req["speaker_id"],
-                                 self._max_t)
-        noise = None
-        if self._sample:
-            noise = self._noise(n, req["seed"], rid, req["noise"])
-        req["admitted"] = self._launches
-        admit_slot(self._prep, self._state, slot, rows, noise)
-        self._active[slot] = [rid, n, []]
+        with annotate("ar.admit", rid):
+            req = self._requests[rid]
+            cond = req["cond"]
+            n = cond.shape[0] * self._upsample_factor
+            # zero-padded to the slots' capacity: every admission has one
+            # shape
+            with torch.inference_mode():
+                c = torch.zeros((self._max_frames, cond.shape[-1]),
+                                dtype=torch.float32, device=self._device)
+                c[:cond.shape[0]] = torch.as_tensor(
+                    cond, dtype=torch.float32, device=self._device)
+            rows = slot_conditioning(self.model, self._cfg, c,
+                                     req["speaker_id"], self._max_t)
+            noise = None
+            if self._sample:
+                noise = self._noise(n, req["seed"], rid, req["noise"])
+            req["admitted"] = self._launches
+            admit_slot(self._prep, self._state, slot, rows, noise)
+            self._active[slot] = [rid, n, []]
 
     def step(self) -> List[int]:
         """Admit queued requests into free slots, advance every slot one
-        chunk, and return the ids of requests that completed in it."""
+        chunk, and return the ids of requests that completed in it. Spans:
+        ``ar.step`` (id: the launch index) around ``ar.admit`` (id: the
+        request's), one an admission, ``ar.decode_chunk`` (the launch and
+        the copy of its samples to the host) and ``ar.retire``."""
         if not self._queue and not self._active:
             return []
-        if not self._active:
-            # pool drained: rewind the shared clock (a busy pool only
-            # advances it while streams are in flight)
-            self._state["g"] = 0
-            with torch.inference_mode():
-                self._state["start"].zero_()
-        for s in range(self._slots):
-            if s not in self._active and self._queue:
-                self._admit(s, self._queue.popleft())
-        self._state, emitted = decode_chunk(
-            self._prep, self._state, self._cfg, self._chunk,
-            sample=self._sample)
-        emitted = emitted.cpu().numpy()
+        with annotate("ar.step", self._launches):
+            if not self._active:
+                # pool drained: rewind the shared clock (a busy pool only
+                # advances it while streams are in flight)
+                self._state["g"] = 0
+                with torch.inference_mode():
+                    self._state["start"].zero_()
+            for s in range(self._slots):
+                if s not in self._active and self._queue:
+                    self._admit(s, self._queue.popleft())
+            with annotate("ar.decode_chunk"):
+                self._state, emitted = decode_chunk(
+                    self._prep, self._state, self._cfg, self._chunk,
+                    sample=self._sample)
+                emitted = emitted.cpu().numpy()
+            with annotate("ar.retire"):
+                return self._retire(emitted)
+
+    def _retire(self, emitted: np.ndarray) -> List[int]:
+        """Count the launch, hand each slot its chunk of ``emitted`` and free
+        the slots whose requests completed; returns their ids."""
         self._launches += 1
         self._slot_steps += self._slots * self._chunk
         done = []
@@ -724,6 +743,10 @@ class ContinuousSynthesisServer:
         return {"launches": self._launches, "slots": self._slots,
                 "chunk_size": self._chunk,
                 "slot_utilization": round(util, 4),
+                # the raw counts since the start: a window's utilization is
+                # the quotient of two snapshots' differences
+                "busy_slot_steps": self._busy_steps,
+                "slot_steps": self._slot_steps,
                 "mean_latency_chunks": (round(sum(waits) / len(waits), 2)
                                         if waits else 0.0),
                 "latency_chunks": _distribution(self._wait_chunks),

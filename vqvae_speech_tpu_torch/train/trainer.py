@@ -83,7 +83,7 @@ from vqvae_speech_tpu_torch.train.checkpoint import save_checkpoint
 from vqvae_speech_tpu_torch.train.revival import apply_revival, revival_settings
 from vqvae_speech_tpu_torch.utils import resolve_device
 from vqvae_speech_tpu_torch.utils.logger import ConsoleLogger
-from vqvae_speech_tpu_torch.utils.profiling import StepTimer
+from vqvae_speech_tpu_torch.utils.profiling import StepTimer, annotate
 
 # optax.amsgrad's defaults, the only values the trainer uses (its eps_root
 # is 0 and drops out of the formula)
@@ -233,6 +233,8 @@ def make_train_step(config: dict, optimizer: Amsgrad, mesh=None):
     the step's own draws (tests feed the JAX package's). With
     ``compute_dtype`` in the configuration the forward and backward run in
     that dtype (see the module docstring); the metrics are f32 either way.
+    Spans: ``train.step`` (id: the optimizer's step count before it) around
+    ``train.forward``, ``train.backward`` and ``train.optimizer``.
     """
     check_mesh(mesh)
     compute_dtype = compute_dtype_of(config)
@@ -240,29 +242,32 @@ def make_train_step(config: dict, optimizer: Amsgrad, mesh=None):
 
     def step(state: TrainState, batch, *, jitter_masks=None,
              revival_perm=None):
-        model = state.model
-        params = list(model.parameters())
-        _check_batch_device(batch, params[0].device)
-        with model.vq.gathering(mesh):
-            loss, recon, out = _loss(model, batch, jitter_masks, state.rng,
-                                     compute_dtype)
-        grads = _gradients(loss, params, mesh)
-        optimizer.update(params, grads, state.opt_state)
-        metrics = {k: v.detach().float() for k, v in out.losses.items()}
-        if mesh is not None:
-            recon = global_mean(recon, mesh)
-            loss = out.vq_loss.float() + recon
-        metrics["reconstruction_loss"] = recon.detach()
-        metrics["loss"] = loss.detach()
-        metrics["perplexity"] = out.perplexity.detach().float()
-        if revival:
-            flat = reference_flatten(
-                all_gather_rows(out.pre_vq_latents, mesh).float()
-                .transpose(1, 2), config["embedding_dim"])
-            metrics["revived_codes"] = apply_revival(
-                model, out.counts.detach().float(), flat, rev_decay,
-                rev_threshold, perm=revival_perm, generator=state.rng)
-        return state, metrics
+        with annotate("train.step", state.opt_state.count):
+            model = state.model
+            params = list(model.parameters())
+            _check_batch_device(batch, params[0].device)
+            with annotate("train.forward"), model.vq.gathering(mesh):
+                loss, recon, out = _loss(model, batch, jitter_masks, state.rng,
+                                         compute_dtype)
+            with annotate("train.backward"):
+                grads = _gradients(loss, params, mesh)
+            with annotate("train.optimizer"):
+                optimizer.update(params, grads, state.opt_state)
+            metrics = {k: v.detach().float() for k, v in out.losses.items()}
+            if mesh is not None:
+                recon = global_mean(recon, mesh)
+                loss = out.vq_loss.float() + recon
+            metrics["reconstruction_loss"] = recon.detach()
+            metrics["loss"] = loss.detach()
+            metrics["perplexity"] = out.perplexity.detach().float()
+            if revival:
+                flat = reference_flatten(
+                    all_gather_rows(out.pre_vq_latents, mesh).float()
+                    .transpose(1, 2), config["embedding_dim"])
+                metrics["revived_codes"] = apply_revival(
+                    model, out.counts.detach().float(), flat, rev_decay,
+                    rev_threshold, perm=revival_perm, generator=state.rng)
+            return state, metrics
 
     return step
 

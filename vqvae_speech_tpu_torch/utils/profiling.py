@@ -1,10 +1,12 @@
 """Device time and kernel counts of a call, from torch.profiler's CUDA
-activity, guarded against the device events the profiler loses; ``trace``
-and ``annotate``, a Chrome trace of a region and a named span in it; and
-``StepTimer``, the trainer's per-step timing (counterparts of the JAX
-package's ``utils/profiling.py``)."""
+activity, guarded against the device events the profiler loses; the
+program's spans (``annotate``), recorded in memory while ``record_spans`` or
+``trace`` is open; ``trace``, a region's spans, device records and Chrome
+trace; and ``StepTimer``, the trainer's per-step timing (counterparts of the
+JAX package's ``utils/profiling.py``)."""
 import contextlib
 import os
+import threading
 import time
 from collections import deque
 from typing import Callable, List, NamedTuple, Optional, Tuple
@@ -149,43 +151,185 @@ def device_events(fn: Callable[[], object],
         f"other device events, whether they added up) {seen}")
 
 
-class Trace:
-    """What ``trace`` recorded, filled in when its region ends: the Chrome
-    trace's ``path`` and, on a card, the region's device ``events``."""
+class Span(NamedTuple):
+    """One span of the program, as ``annotate`` records it. Its stamps are
+    ``time.time_ns()``, the clock torch.profiler converts its time stamps
+    to, so a span and the host call that launched a kernel compare directly
+    (the kernels' own converted stamps stray from that clock: on an NVIDIA
+    H100 with torch 2.11, from 4 us after their launch calls to 4.3 ms
+    before them)."""
+    name: str
+    start_ns: int
+    end_ns: Optional[int]   # None: still open when the record was taken
+    parent: int             # index of the enclosing span of its thread, or -1
+    id: Optional[int]       # request id, step or launch index, or None
+    thread: int
+
+
+class _Recording:
+    """The spans of one ``record_spans`` region: rows in the order they
+    opened, and a stack of open rows a thread."""
 
     def __init__(self):
-        self.path: Optional[str] = None
-        self.events: List[DeviceEvent] = []
+        self.rows: List[list] = []
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def stack(self) -> List[int]:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+
+_RECORDING: Optional[_Recording] = None
+_OFF = contextlib.nullcontext()
+
+
+class _OpenSpan:
+    __slots__ = ("_rec", "_name", "_id", "_row", "_rf")
+
+    def __init__(self, rec: _Recording, name: str, id: Optional[int]):
+        self._rec, self._name, self._id = rec, name, id
+
+    def __enter__(self):
+        rec = self._rec
+        stack = rec.stack()
+        row = [self._name, 0, None, stack[-1] if stack else -1, self._id,
+               threading.get_ident()]
+        with rec.lock:
+            stack.append(len(rec.rows))
+            rec.rows.append(row)
+        self._row, self._rf = row, None
+        if torch._C._autograd._profiler_enabled():
+            self._rf = torch.profiler.record_function(self._name)
+            self._rf.__enter__()
+        row[1] = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self._row[2] = time.time_ns()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        self._rec.stack().pop()
+        return False
+
+
+def annotate(name: str, id: Optional[int] = None):
+    """The program's span around the enclosed code: ``name``, its start and
+    end, the span open around it on its thread, and ``id`` (a request id,
+    step or launch index, shared by one request's spans).
+
+    Off (no ``record_spans`` or ``trace`` region open, the default) it
+    returns one shared no-op context and records nothing. On, it keeps the
+    span in memory and, while a torch.profiler runs, opens a
+    ``record_function(name)`` too, so that Chrome traces show it."""
+    rec = _RECORDING
+    if rec is None:
+        return _OFF
+    return _OpenSpan(rec, name, id)
 
 
 @contextlib.contextmanager
-def trace(logdir: str):
-    """Write a Chrome trace (``trace_<ns>.json`` under ``logdir``, for
-    chrome://tracing or Perfetto) of the enclosed region; yields a
-    ``Trace``.
+def record_spans():
+    """Turns the program's spans on for the enclosed region; yields a list
+    that holds them (``Span``, in the order they opened) once the region
+    ends. Regions do not nest: opening one inside another raises."""
+    global _RECORDING
+    if _RECORDING is not None:
+        raise RuntimeError("the program's spans are being recorded already")
+    rec = _RECORDING = _Recording()
+    spans: List[Span] = []
+    try:
+        yield spans
+    finally:
+        _RECORDING = None
+        spans.extend(Span(*row) for row in rec.rows)
 
-    In a process with a card the window records CUDA activity and is opened
-    and closed by the sentinel runs of ``device_events``; a region whose
-    lead or tail sentinels the profiler lost raises on exit, since its
-    device records cannot be trusted (a region, unlike a function, cannot be
-    taken again). Without a card it records the host's activity alone."""
+
+class DeviceRecord(NamedTuple):
+    """A kernel, copy or fill the device ran, on the spans' clock, with the
+    host stamp of the runtime or driver call that launched it (None where
+    the profiler gave no such record)."""
+    name: str
+    start_ns: int
+    end_ns: int
+    launch_ns: Optional[int]
+
+
+def _device_records(prof) -> List[DeviceRecord]:
+    """The window's device work, its sentinels left out, each record joined
+    to its launch call by the correlation id the two share. The launch calls
+    are the host records of the CUDA runtime and driver APIs (``cuda...``,
+    ``cu...``); the profiler's own host records (module loading, buffer
+    requests) share the id too and are left out by name; of a runtime call
+    and the driver call inside it, the outer one's stamp is kept."""
+    from torch.autograd import DeviceType
+
+    launches, work = {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name.startswith("cu"):
+                c = e.correlation_id()
+                launches[c] = min(launches.get(c, e.start_ns()), e.start_ns())
+        elif not (_LEAD in name or _TAIL in name or e.is_user_annotation()):
+            work.append((e.correlation_id(), name, e.start_ns(), e.end_ns()))
+    return sorted((DeviceRecord(name, start, end, launches.get(c))
+                   for c, name, start, end in work), key=lambda r: r.start_ns)
+
+
+class Trace:
+    """What ``trace`` recorded, filled in when its region ends: the Chrome
+    trace's ``path`` (None when none was written), the program's ``spans``
+    and, on a card, the region's device ``events`` (summed by name) and
+    ``records`` (one a kernel, copy or fill)."""
+
+    def __init__(self):
+        self.path: Optional[str] = None
+        self.spans: List[Span] = []
+        self.events: List[DeviceEvent] = []
+        self.records: List[DeviceRecord] = []
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str]):
+    """Record the enclosed region: the program's spans and, with a
+    ``logdir``, a Chrome trace (``trace_<ns>.json`` under it, for
+    chrome://tracing or Perfetto); yields a ``Trace``.
+
+    In a process with a card the window records CUDA activity, which brings
+    each launch call's record with it, and is opened and closed by the
+    sentinel runs of ``device_events``; with a ``logdir`` it records the
+    host's operators too, for the file. A region whose lead or tail
+    sentinels the profiler lost raises on exit, since its device records
+    cannot be trusted (a region, unlike a function, cannot be taken again).
+    Without a card it records the host's activity alone."""
     from torch.profiler import ProfilerActivity, profile
 
-    os.makedirs(logdir, exist_ok=True)
     out = Trace()
-    path = os.path.join(logdir, f"trace_{time.time_ns()}.json")
-    if not torch.cuda.is_available():
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
+    path = None
+    if logdir is not None:
+        os.makedirs(logdir, exist_ok=True)
+        path = os.path.join(logdir, f"trace_{time.time_ns()}.json")
+    with record_spans() as out.spans:
+        if not torch.cuda.is_available():
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                yield out
+            if path is not None:
+                prof.export_chrome_trace(path)
+                out.path = path
+            return
+        activities = [ProfilerActivity.CUDA]
+        if path is not None:
+            activities.insert(0, ProfilerActivity.CPU)
+        with _window(LEADS, SPAN, TAIL_SHARE, activities) as got:
             yield out
+    w, prof = got["window"], got["prof"]
+    if path is not None:
         prof.export_chrome_trace(path)
         out.path = path
-        return
-    with _window(LEADS, SPAN, TAIL_SHARE,
-                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as got:
-        yield out
-    w = got["window"]
-    got["prof"].export_chrome_trace(path)
-    out.path, out.events = path, w.events
+    out.events, out.records = w.events, _device_records(prof)
     if not (w.leads_seen and w.tails_seen):
         seen = (w.leads_seen, w.leads, w.tails_seen, w.tails, len(w.events))
         RETAKEN.append(seen + (False,))
@@ -193,11 +337,6 @@ def trace(logdir: str):
             f"torch.profiler lost device events in the traced region ({path}):"
             f" (lead sentinels seen, launched, tail sentinels seen, launched,"
             f" other device events) {seen}")
-
-
-def annotate(name: str):
-    """Named region visible in profiler timelines."""
-    return torch.profiler.record_function(name)
 
 
 class StepTimer:
