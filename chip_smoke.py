@@ -88,7 +88,8 @@
 4. Decode-step kernel phase: holds glu_stack_step against its plain
    PyTorch chain at the vctk_wavenet width (20 layers, k=3, C=G=768,
    S=256) for batch 1, 8 and 32 with and without the legacy skip scaling,
-   for batch 33, 64 and 100 (groups of 32 streams, one launch a group),
+   for batch 33 and 64 (the wide kernel, one launch) and 100 (groups of
+   64 and 36, one launch a group),
    at k=2, and at a narrow width whose tiles and slices are ragged; runs
    each twice and requires bit-equal outputs; times the prepared step (the
    decode loop's form) and the plain chain, reports the kernel's
@@ -119,9 +120,10 @@
    per-layer path): one chunk of 512 steps at 8 slots on the card against
    the same on the CPU (equal up to near-ties), ms a step beside K2's; and a
    scalar-input (mixture) WaveNet at the same width through the kernel,
-   greedy and sampled, for 384 steps. Then 64 slots (two launches of the
-   decode-step kernel a step): 64 one-frame requests in chunks of 256
-   steps, launches = steps x 2, each stream against the 8-slot server's
+   greedy and sampled, for 384 steps. Then 64 slots (one launch of the
+   decode-step kernel's wide form a step): 64 one-frame requests in chunks
+   of 256 steps, launches = wide launches = steps, each stream against the
+   8-slot server's
    (parting only at a near-tie, the step and its top-two gap printed).
 
 6. Chain kernel phase: holds the three fused-chain entry points against
@@ -376,7 +378,8 @@ TEACHER_FORCED_SAMPLES = 256  # request 0's samples in the golden logits
 # gate pairs, 20 + 12 projection columns and 60-row reduction leave every
 # tile and slice ragged, with random weights
 NARROW_STEP = dict(L=5, C=20, G=136, S=12)
-# B = 33, 64 and 100 run as groups of 32 streams, one launch each
+# B = 33 and 64 run the wide kernel, one launch; 100 runs as groups of 64
+# and 36, one wide launch each
 STEP_SHAPES = ((1, 3, True, None), (1, 3, False, None), (8, 3, True, None),
                (8, 3, False, None), (2, 2, True, None), (32, 3, True, None),
                (33, 3, True, None), (64, 3, True, None), (100, 3, True, None),
@@ -2428,8 +2431,8 @@ def synthesis_phase(gpu):
 # continuous-batching AR synthesis: the synthesis phase's model and requests
 CONT_SLOTS, CONT_CHUNK, CONT_MAX_FRAMES = 8, 512, 23
 CONT_STANDALONE = (0, 9)        # requests held against a batch-1 decode
-# more slots than one launch of K2 takes (32): 64 one-frame requests (the
-# ten requests' frames 0..6) in chunks of 256 steps, two launches a step
+# more slots than K2's narrow kernel takes (32): 64 one-frame requests (the
+# ten requests' frames 0..6) in chunks of 256 steps, one wide launch a step
 WIDE_SLOTS, WIDE_CHUNK, WIDE_FRAMES = 64, 256, 7
 # the per-layer decodes, one chunk at 8 slots on the card and on the CPU;
 # 2 conditioning frames a slot (768 samples) hold the chunk's 512 steps
@@ -2749,12 +2752,13 @@ def continuous_phase(gpu):
 
 
 def _wide_pool(server, tree, wcfg, lcs, speakers, gpu):
-    """ContinuousSynthesisServer with WIDE_SLOTS slots, more than one launch
-    of K2 takes: K2 on every step, once for each group of 32 slots. The
-    streams against the 8-slot ``server``'s on the same requests: a stream
-    may part where a group of 32 sums in another order than a group of 8,
-    which must be a near-tie of the teacher-forced logits; the first such
-    step and its top-two gap are printed. Returns K2's launches."""
+    """ContinuousSynthesisServer with WIDE_SLOTS slots, more than K2's narrow
+    kernel takes: K2 on every step, one wide launch a step (counted in
+    ``wide_launches``). The streams against the 8-slot ``server``'s on the
+    same requests: a stream may part where the wide kernel sums in another
+    order than the narrow one, which must be a near-tie of the
+    teacher-forced logits; the first such step and its top-two gap are
+    printed. Returns K2's launches."""
     import torch
     from vqvae_speech_tpu_torch.ops import _kernels
     from vqvae_speech_tpu_torch.serve import ContinuousSynthesisServer
@@ -2767,16 +2771,19 @@ def _wide_pool(server, tree, wcfg, lcs, speakers, gpu):
         max_frames=CONT_MAX_FRAMES, device="cuda")
     per_step = -(-WIDE_SLOTS // _kernels.WAVENET_STEP_GROUP)
     _kernels.wavenet_step_cuda.launches = 0
+    _kernels.wavenet_step_cuda.wide_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = wide.run(conds, spks)
     sec = time.perf_counter() - t0
     launches = _kernels.wavenet_step_cuda.launches
     steps = wide.stats["launches"] * WIDE_CHUNK
-    if launches != steps * per_step:
+    if launches != steps * per_step or (
+            _kernels.wavenet_step_cuda.wide_launches != launches):
         raise AssertionError(f"{WIDE_SLOTS} slots: {launches} decode-step "
-                             f"kernel launches in {steps} steps, not "
-                             f"{per_step} a step")
+                             f"kernel launches in {steps} steps "
+                             f"({_kernels.wavenet_step_cuda.wide_launches} "
+                             f"wide), not {per_step} wide a step")
     narrow = server.run(conds, spks)
     parted = []
     for i, (r, n) in enumerate(zip(results, narrow)):
@@ -2793,7 +2800,7 @@ def _wide_pool(server, tree, wcfg, lcs, speakers, gpu):
     print(f"continuous {WIDE_SLOTS} slots: {len(conds)} one-frame requests "
           f"({len(results[0].wave)} samples each), {wide.stats['launches']} "
           f"chunks of {WIDE_CHUNK} = {steps} steps, {launches} decode-step "
-          f"kernel launches ({per_step} a step, groups of "
+          f"kernel launches ({per_step} wide a step, groups of "
           f"{_kernels.WAVENET_STEP_GROUP}); {sec:.3f} s, "
           f"{sec / steps * 1e3:.4f} ms a step [{gpu}]")
     print(f"continuous {WIDE_SLOTS} slots vs {CONT_SLOTS} slots, greedy: "

@@ -77,12 +77,19 @@ def assert_kernel_matches_plain(args, legacy):
     (6, 2, 2, 16, 32, 8, True),
     (3, 3, 5, 20, 136, 12, True),        # ragged tiles, B not a power of 2
     (2, 1, 3, 64, 64, 64, True),         # k = 1: no history taps
-    (3, 3, 32, 128, 256, 132, False),    # the largest batch a launch
-    (20, 3, 33, 768, 768, 256, True),    # groups of 32 and 1
-    (20, 3, 64, 768, 768, 256, True),    # two full groups
-    (20, 3, 100, 768, 768, 256, True),   # 32, 32, 32 and 4
-    (3, 3, 70, 20, 136, 12, False),      # ragged tiles in groups
+    (3, 3, 32, 128, 256, 132, False),    # the narrow kernel's largest batch
+    (3, 3, 33, 128, 256, 132, False),    # the wide kernel's smallest
+    (20, 3, 33, 768, 768, 256, True),    # one wide launch
+    (20, 3, 64, 768, 768, 256, True),    # one wide launch, full
+    (20, 3, 100, 768, 768, 256, True),   # wide groups of 64 and 36
+    (3, 3, 70, 20, 136, 12, False),      # ragged tiles: groups of 64 and 6
+    (3, 3, 40, 20, 136, 12, True),       # ragged tiles, one wide launch
     (24, 3, 1, 128, 512, 128, False),    # the ClariNet teacher's generate
+    # the wide kernel's batches (65 and 100 as groups of 64 and the rest) at
+    # the vctk_wavenet width and the teacher's
+    *[(L, 3, B, C, G, S, legacy) for L, C, G, S in ((20, 768, 768, 256),
+                                                   (24, 128, 512, 128))
+      for B in (33, 48, 64, 65, 100) for legacy in (True, False)],
 ])
 def test_kernel_matches_plain(cuda, L, k, B, C, G, S, legacy):
     args = stack_inputs(L, k, B, C, G, S, seed=L + k + B, device=cuda)
@@ -92,7 +99,7 @@ def test_kernel_matches_plain(cuda, L, k, B, C, G, S, legacy):
 @pytest.mark.cuda
 @pytest.mark.parametrize("legacy", [True, False])
 @pytest.mark.parametrize("k", [1, 2, 3])
-@pytest.mark.parametrize("B", [1, 2, 3, 8, 17, 32])
+@pytest.mark.parametrize("B", [1, 2, 3, 8, 17, 32, 33, 47])
 @pytest.mark.parametrize("C,G,S", [
     (64, 128, 64),     # whole tiles
     (20, 136, 12),     # narrow and ragged: 68 pairs, slices of uneven rows
@@ -105,8 +112,8 @@ def test_kernel_batches_taps_and_legacy(cuda, C, G, S, B, k, legacy):
 @pytest.mark.cuda
 @pytest.mark.parametrize("L,k,B,C,G,S", [
     (20, 3, 8, 768, 768, 256),    # the server's shape
-    (20, 3, 32, 768, 768, 256),   # the largest batch a launch
-    (20, 3, 64, 768, 768, 256),   # two launches a step
+    (20, 3, 32, 768, 768, 256),   # the narrow kernel's largest batch
+    (20, 3, 64, 768, 768, 256),   # the wide kernel, one launch a step
     (5, 3, 3, 20, 136, 12),       # narrow and ragged
 ])
 def test_kernel_is_bit_equal_over_twenty_runs(cuda, L, k, B, C, G, S):
@@ -180,9 +187,9 @@ def test_kernel_is_deterministic_and_counts_launches(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,launches", [(32, 1), (33, 2), (64, 2), (100, 4)])
-def test_kernel_launches_once_a_group_of_32(cuda, B, launches):
-    """A batch over 32 runs as groups of 32, one launch each, and each
+@pytest.mark.parametrize("B,launches", [(32, 1), (33, 1), (64, 1), (100, 2)])
+def test_kernel_launches_once_a_group_of_64(cuda, B, launches):
+    """A batch over 64 runs as groups of 64, one launch each, and each
     group's streams equal the same streams run as a batch of their own: the
     groups read the batch through its stride, nothing is copied."""
     args = stack_inputs(4, 3, B, 64, 128, 64, seed=B, device=cuda)
@@ -192,8 +199,8 @@ def test_kernel_launches_once_a_group_of_32(cuda, B, launches):
     before = wavenet_step_cuda.launches
     got = [t.clone() for t in step(args["x0"], args["taps"], args["cond"])]
     assert wavenet_step_cuda.launches == before + launches
-    for b0 in range(0, B, 32):
-        rows = slice(b0, min(B, b0 + 32))
+    for b0 in range(0, B, 64):
+        rows = slice(b0, min(B, b0 + 64))
         alone = glu_stack_step(
             args["x0"][rows].contiguous(),
             args["taps"][:, :, rows].contiguous(),
@@ -202,6 +209,44 @@ def test_kernel_launches_once_a_group_of_32(cuda, B, launches):
         assert torch.equal(got[0][rows], alone[0])
         assert torch.equal(got[1][rows], alone[1])
         assert torch.equal(got[2][:, rows], alone[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,launches,wide", [
+    (8, 1, 0), (32, 1, 0), (33, 1, 1), (64, 1, 1), (70, 2, 1), (100, 2, 2)])
+def test_wide_launches_are_counted(cuda, B, launches, wide):
+    """``wavenet_step_cuda.wide_launches`` counts the launches of more than
+    32 streams (the wide kernel's), ``launches`` every launch, and
+    ``describe()`` the streams of the first and the last launch."""
+    args = stack_inputs(3, 3, B, 64, 128, 64, seed=B, device=cuda)
+    step = prepare_glu_stack_step(*(args[n] for n in WEIGHTS), batch=B,
+                                  legacy=True)
+    info = step.describe()
+    assert (info["streams"], info["last_streams"]) == (
+        min(B, 64), B - 64 * (launches - 1))
+    assert step.wide_launches_per_step == wide
+    before = (wavenet_step_cuda.launches, wavenet_step_cuda.wide_launches)
+    for _ in range(3):
+        step(args["x0"], args["taps"], args["cond"])
+    assert wavenet_step_cuda.launches == before[0] + 3 * launches
+    assert wavenet_step_cuda.wide_launches == before[1] + 3 * wide
+
+
+@pytest.mark.cuda
+def test_a_stream_sums_alike_in_any_wide_batch(cuda):
+    """The wide kernel's map and summation order come from the widths
+    alone: stream b of a batch of 64 equals the same stream in a batch of
+    33 or 48, bit for bit, at the vctk_wavenet width."""
+    args = stack_inputs(20, 3, 64, 768, 768, 256, seed=9, device=cuda)
+    full = [t.clone() for t in glu_stack_step(legacy=True, **args)]
+    for B in (33, 48):
+        part = glu_stack_step(
+            args["x0"][:B].contiguous(), args["taps"][:, :, :B].contiguous(),
+            args["cond"][:, :B].contiguous(),
+            *(args[n] for n in WEIGHTS), legacy=True)
+        assert torch.equal(part[0], full[0][:B])
+        assert torch.equal(part[1], full[1][:B])
+        assert torch.equal(part[2], full[2][:, :B])
 
 
 @pytest.mark.cuda
@@ -230,10 +275,12 @@ def _offset_view(t):
 
 
 @pytest.mark.cuda
-def test_kernel_alignment_applies_to_weights_only(cuda):
-    """Only wtap, wskip and wout are read as float4; every other input may
-    be any contiguous view."""
-    args = stack_inputs(3, 3, 2, 16, 32, 8, seed=5, device=cuda)
+@pytest.mark.parametrize("B", [2, 40])   # the narrow kernel, the wide one
+def test_kernel_alignment_applies_to_weights_only(cuda, B):
+    """Only wtap, wskip and wout must be 16-byte aligned; every other input
+    may be any contiguous view (the wide kernel reads an aligned one in
+    16-byte loads and any other four floats at a time)."""
+    args = stack_inputs(3, 3, B, 16, 32, 8, seed=5, device=cuda)
     scalar = ("x0", "taps", "cond", "bias", "bskip", "bout")
     shifted = dict(args, **{n: _offset_view(args[n]) for n in scalar})
     assert all(shifted[n].data_ptr() % 16 for n in scalar)
@@ -337,27 +384,27 @@ def test_decode_chunk_kernel_matches_plain_chain(cuda):
 @pytest.mark.cuda
 def test_continuous_server_takes_what_the_kernel_takes(cuda):
     """At f32 the server's slots are the kernel's batch, and the kernel takes
-    any: 33 slots run it on every step, two launches a step (groups of 32
-    and 1), and the request's greedy wave is bit-equal to the one 32 slots
-    decode (its slot is in a group of 32 either way, so the sums are made in
-    the same order); the int8 decode (layer by layer) launches nothing."""
+    any: 33 slots run it on every step, one wide launch a step, and the
+    request's greedy wave is bit-equal to the one 64 slots decode (the wide
+    kernel sums a stream in the same order in any batch it takes); the int8
+    decode (layer by layer) launches nothing."""
     from vqvae_speech_tpu_torch.convert import numpy_wavenet_params
     from vqvae_speech_tpu_torch.serve import ContinuousSynthesisServer
 
     module, cfg, conds = _chunk_model("cpu", 1)
     tree = numpy_wavenet_params(cfg, 0)
     waves = {}
-    for slots in (33, 32):
+    for slots in (33, 64):
         server = ContinuousSynthesisServer(tree, cfg, slots=slots,
                                            chunk_size=8, max_frames=12,
                                            device="cuda")
-        before = wavenet_step_cuda.launches
+        before = (wavenet_step_cuda.launches, wavenet_step_cuda.wide_launches)
         waves[slots] = server.run(conds)[0].wave
         steps = server.stats["launches"] * 8
-        assert wavenet_step_cuda.launches - before == steps * (
-            2 if slots == 33 else 1)
+        assert wavenet_step_cuda.launches - before[0] == steps
+        assert wavenet_step_cuda.wide_launches - before[1] == steps
     assert waves[33].shape == (192,)
-    np.testing.assert_array_equal(waves[33], waves[32])
+    np.testing.assert_array_equal(waves[33], waves[64])
     server = ContinuousSynthesisServer(tree, cfg, slots=33, chunk_size=8,
                                        max_frames=12, weight_quant="int8",
                                        device="cuda")
@@ -368,24 +415,25 @@ def test_continuous_server_takes_what_the_kernel_takes(cuda):
 
 @pytest.mark.cuda
 def test_bucketed_server_at_max_batch_64_runs_the_kernel(cuda):
-    """A bucketed launch of 64 streams runs K2 on every step, two launches a
-    step (groups of 32); the requests' greedy waves are bit-equal to the
-    same requests at max_batch 32 (their rows are in a group of 32 either
-    way)."""
+    """A bucketed launch of 64 streams runs K2 on every step, one wide
+    launch a step; the requests' greedy waves are bit-equal to the same
+    requests at max_batch 48 (the wide kernel sums a stream in the same
+    order in any batch it takes)."""
     from vqvae_speech_tpu_torch.convert import numpy_wavenet_params
     from vqvae_speech_tpu_torch.serve import BucketedSynthesisServer
 
     _, cfg, conds = _chunk_model("cpu", 3)
     tree = numpy_wavenet_params(cfg, 0)
     waves = {}
-    for max_batch in (64, 32):
+    for max_batch in (64, 48):
         server = BucketedSynthesisServer(tree, cfg, frame_buckets=(12,),
                                          max_batch=max_batch, device="cuda")
-        wavenet_step_cuda.launches = 0
+        wavenet_step_cuda.launches = wavenet_step_cuda.wide_launches = 0
         waves[max_batch] = [r.wave for r in server.synthesize(conds)]
         steps = server.stats["launches"] * 12 * 16
-        assert wavenet_step_cuda.launches == steps * (max_batch // 32)
-    for a, b in zip(waves[64], waves[32]):
+        assert wavenet_step_cuda.launches == steps
+        assert wavenet_step_cuda.wide_launches == steps
+    for a, b in zip(waves[64], waves[48]):
         np.testing.assert_array_equal(a, b)
 
 

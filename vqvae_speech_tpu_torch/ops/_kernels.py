@@ -9,7 +9,8 @@ Each launching wrapper checks device, dtype, contiguity and shapes, allocates
 its outputs with ``torch.empty``, launches on the current CUDA stream, raises
 if the launch reported an error, and counts its launches in a plain integer
 attribute (``vq_search_cuda.launches``, ``wavenet_step_cuda.launches``
-for every launch of the decode step, prepared or not,
+for every launch of the decode step, prepared or not, and
+``wavenet_step_cuda.wide_launches`` for those of more than 32 streams,
 ``fused_block_chain_cuda.launches``, ``fused_block_chain_tiled_cuda.launches``,
 ``fused_block_chain_nc_cuda.launches`` and the bf16 forms'
 ``fused_block_chain_bf16_cuda.launches``,
@@ -190,7 +191,9 @@ def _bind_wavenet_step(lib: ctypes.CDLL) -> None:
 
 # streams a launch of the step kernel computes; a larger batch is launched
 # in groups of this many, each streaming the weights again
-WAVENET_STEP_GROUP = 32
+WAVENET_STEP_GROUP = 64
+# a launch of more streams than this counts in wavenet_step_cuda.wide_launches
+WAVENET_STEP_NARROW = 32
 _STEP_WEIGHTS = ("wtap", "bias", "wskip", "bskip", "wout", "bout")
 
 
@@ -278,7 +281,12 @@ class PreparedWaveNetStep:
                 self.skip.data_ptr(), self.x_all.data_ptr(),
                 self._scratch.data_ptr(), ctypes.byref(handle)), dims)
         self._handle = handle
-        self.launches_per_step = self.describe()["launches"]
+        info = self.describe()
+        self.launches_per_step = info["launches"]
+        # launches of a step that carry more than WAVENET_STEP_NARROW streams
+        self.wide_launches_per_step = (
+            (info["launches"] - 1) * (info["streams"] > WAVENET_STEP_NARROW)
+            + (info["last_streams"] > WAVENET_STEP_NARROW))
 
     @staticmethod
     def _raise(err, dims):
@@ -297,12 +305,14 @@ class PreparedWaveNetStep:
     def describe(self) -> dict:
         """The first group's launch shape: blocks, shared-memory bytes a
         block, the (tiles, slices, rows a slice) of the gate and the
-        projection; and ``launches``, the launches a step."""
-        out = (ctypes.c_int * 9)()
+        projection; ``launches``, the launches a step; ``streams`` and
+        ``last_streams``, the streams the first and the last launch take."""
+        out = (ctypes.c_int * 11)()
         self._lib.wavenet_step_describe(self._handle, out)
         return dict(zip(("blocks", "smem_bytes", "gate_tiles", "gate_slices",
                          "gate_rows", "proj_tiles", "proj_slices",
-                         "proj_rows", "launches"), out))
+                         "proj_rows", "launches", "streams", "last_streams"),
+                        out))
 
     def __call__(self, x0, taps, cond, stamps=None):
         """One step. ``stamps``, an int64 CUDA tensor of (blocks, 2L, 4, 2),
@@ -333,6 +343,7 @@ class PreparedWaveNetStep:
             raise RuntimeError("wavenet_step_cuda: launch failed with CUDA "
                                f"error {err}")
         wavenet_step_cuda.launches += self.launches_per_step
+        wavenet_step_cuda.wide_launches += self.wide_launches_per_step
         return self.x_out, self.skip, self.x_all
 
     def _launch(self, x0, taps, cond, stamps):
@@ -368,6 +379,7 @@ def wavenet_step_cuda(x0, taps, cond, wtap, bias, wskip, bskip, wout, bout,
 
 
 wavenet_step_cuda.launches = 0
+wavenet_step_cuda.wide_launches = 0
 
 
 def _bind_fused_resblock(lib: ctypes.CDLL) -> None:

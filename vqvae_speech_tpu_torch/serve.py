@@ -227,7 +227,7 @@ class BucketedSynthesisServer:
     params, cfg : a ``wavenet_init``-shaped numpy tree and its WaveNetConfig.
     frame_buckets : conditioning lengths (frames) each launch is padded to.
     max_batch : streams per launch (any number: the kernel computes them in
-        groups of 32, one launch a group).
+        groups of 64, one launch a group).
     sample : categorical sampling (a ``torch.Generator`` seeded per launch)
         instead of greedy argmax.
     compute_dtype : None or torch.float32 (f32: the layer stack through the
@@ -552,7 +552,7 @@ class ContinuousSynthesisServer:
         slots' conditioning buffer (slots, max_frames * upsample, L, G).
     compute_dtype, weight_quant : as ``BucketedSynthesisServer``'s. At f32
         every step's layer stack is one call of the decode-step kernel on a
-        GPU (one launch a group of 32 slots); the bf16 and int8 decodes run
+        GPU (one launch a group of 64 slots); the bf16 and int8 decodes run
         layer by layer.
     device : where the model runs ("cuda", "cpu"); no default.
     """
