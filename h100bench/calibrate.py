@@ -7,7 +7,8 @@ For each seed: the cell's set-up and a window of ``--seconds`` (long
 enough to finish the traffic's longest requests and to compare as many as
 a run does), then the check's numbers for the program and, with
 ``--controls``: ``control``, the plain reference put in the program's
-place and computed in TF32, the precision below the configurations' f32;
+place and computed in the precision below the configuration's own (TF32
+for an f32 configuration; the driver's ``check(control=True)``);
 ``half_batch`` and ``unchanged`` (training), the reference on half of each
 batch, or with every update left out. One JSON line a seed.
 """
@@ -49,7 +50,8 @@ def main():
     ap.add_argument("--seeds", required=True)
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--controls", default="control",
-                    help="comma-separated: control (the TF32 reference), "
+                    help="comma-separated: control (the reference a "
+                         "precision below the configuration's), "
                          "half_batch, unchanged (training faults)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--override", default=None,

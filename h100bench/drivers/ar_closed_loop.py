@@ -31,6 +31,9 @@ from h100bench.reference import plain
 
 
 class Cell:
+    # the program's spans are read over 6 chunks (h100bench/program_spans.py)
+    SEGMENT_CALLS = 6
+
     def __init__(self, ctx):
         self.ctx = ctx
         self.cfg, self.t = ctx.cfg, ctx.traffic
@@ -160,6 +163,9 @@ class Cell:
             t_prev, delivered = self._step(t_prev, None)
             if stats is not None:
                 stats["samples"] += delivered
+
+    def drive_segment(self, n):
+        self._traced_steps(n)
 
     def trace(self):
         """A few more steps of the loop under the profiler."""

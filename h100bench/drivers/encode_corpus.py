@@ -31,6 +31,10 @@ from h100bench.reference import plain
 
 
 class Cell:
+    # the program's spans are read over 12 launches
+    # (h100bench/program_spans.py)
+    SEGMENT_CALLS = 12
+
     def __init__(self, ctx):
         self.ctx = ctx
         self.cfg, self.t = ctx.cfg, ctx.traffic
@@ -132,6 +136,11 @@ class Cell:
         self.ctx.note("launches", len(done))
         return {"metrics": {"encode_frames_per_s": frames / wall},
                 "attempted": len(done) * self.t["batch"], "failed": 0}
+
+    def drive_segment(self, n):
+        base = len(self.codes)
+        for g in range(n):
+            self._launch(base + g)
 
     def trace(self):
         if self.dev.type != "cuda":

@@ -34,6 +34,9 @@ def jax_path(name):
 
 
 class Cell:
+    # the program's spans are read over 20 steps (h100bench/program_spans.py)
+    SEGMENT_CALLS = 20
+
     def __init__(self, ctx):
         self.ctx = ctx
         self.cfg, self.t = ctx.cfg, ctx.traffic
@@ -115,6 +118,10 @@ class Cell:
         self.ctx.note("steps", steps)
         return {"metrics": {"train_examples_per_s": examples / wall},
                 "attempted": examples, "failed": 0}
+
+    def drive_segment(self, n):
+        for _ in range(n):
+            self._one()
 
     def trace(self):
         if self.dev.type != "cuda":

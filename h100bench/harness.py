@@ -3,17 +3,37 @@ reference, driver and per-layer readers by name, runs one cell once and
 builds the result line.
 
 Everything that belongs to one thing is a file of its own under this
-folder, found by the name ``BENCHMARK.json`` gives it:
+folder, found by the name ``BENCHMARK.json`` gives it, so that a new
+configuration and its cells come as new files and appended entries of
+``BENCHMARK.json``, with no edit to a file that is here:
 
-* ``configs/<config>.json``: the configuration as it is run;
-* ``reference/<config>.py``: its plain PyTorch reference;
+* ``configs/<config>.json``: the configuration as it is run, with the
+  ``source`` and ``reduced`` of its entry;
+* ``reference/<config>.py``: its plain PyTorch reference (importing
+  nothing of the program), with ``KEYS``, a tuple of the configuration
+  keys it and the cells on it read, which the configuration must hold;
 * ``traffic/<mix>.json``: a traffic mix's parameters; its ``kind`` names
-  the driver, ``drivers/<kind>.py``, which builds the program, drives the
-  window and says what the check compares;
+  the driver, ``drivers/<kind>.py``;
 * ``limits/<workload>.json``: each compared number's limit, with the
   readings it was set from;
+* ``tiny/<workload>.json``: ``{"config": {...}, "traffic": {...}}``, the
+  keys that shrink the cell for the CPU tests (``tests/tiny.py``);
 * ``metrics/<metric>.py``: a per-layer metric's reader, ``read(cell,
   traced)`` -> a number, or None where the cell gives it nothing to read.
+
+A driver's ``Cell(ctx)`` builds the program and says what the check
+compares: ``setup()`` makes the weights and inputs from ``ctx.seed`` and
+warms every shape the window uses; ``window(seconds)`` returns ``{"metrics":
+{<the cell's end-to-end metrics but setup_s>}, "attempted", "failed"}``;
+``trace()`` a ``trace.Traced`` of a few more calls under the profiler (None
+without a card), ``trace_gaps()`` the host's idle gaps of a shorter one;
+``release()`` frees the program's state; ``check(control=False)`` returns
+``{name: number}`` for the limits, and ``check(control=True)`` the same
+with the plain reference in the program's place, computed in the precision
+below the configuration's own (TF32 for an f32 configuration, below bf16,
+such as fp8 or int8, for a bf16 one). Optional, for the readers of the
+program's spans (``program_spans.py``): ``SEGMENT_CALLS``, the number of
+calls a segment makes, and ``drive_segment(n)``, which makes n of them.
 """
 import importlib.util
 import json

@@ -4,14 +4,18 @@ segment of a cell's calls, for the per-layer metrics of ``source``
 
 The segment runs after the harness's own trace, when the first such reader
 asks, and is kept on the cell (``cell.program_spans``), so that every reader
-of a cell reads the same calls: 6 chunks of the AR loop
-(``cell._traced_steps``), 20 train steps (``cell._one``) or 12 encode
-launches (``cell._launch``). It drives them twice:
+of a cell reads the same calls. The driver's ``Cell`` says what they are:
+``SEGMENT_CALLS``, their number, and ``drive_segment(n)``, which makes n of
+them (6 chunks of the AR loop, 20 train steps or 12 encode launches in the
+drivers here). It drives them twice:
 
 (a) spans on (``profiling.record_spans``), no profiler: each span's host
     duration;
 (b) spans on inside ``profiling.trace(None)``: CUDA activity alone, which
-    brings each launch call's record with it, on the spans' clock. Each
+    brings each launch call's record with it, on the spans' clock. A region
+    whose sentinels the profiler lost raises and is driven again, with the
+    next n calls, up to ``TAKES`` times in all (``program_segment_retaken``
+    counts the regions lost). Each
     kernel, copy or fill is charged to the innermost main-thread span whose
     interval holds its launch call (not to the span that runs while the
     device runs it: autograd's device thread launches the backward's
@@ -29,29 +33,16 @@ Device work launched outside every span, or whose launch call has no record,
 is unattributed; its share of the segment's device time is noted beside the
 compared numbers (``program_unattributed_share``), with the idle by span
 (``program_idle_by_span``, ms over the segment), the device ms a call by
-span and the median host ms by span. A program without spans (no
-``record_spans`` in ``utils/profiling``) or a run without a card gives no
-segment, and its readers None.
+span and the median host ms by span. A cell without the two hooks, a
+program without spans (no ``record_spans`` in ``utils/profiling``) or a run
+without a card gives no segment, and its readers None.
 """
 import bisect
 import statistics
 import threading
 
-# the calls of a segment, by the traffic's kind
-CALLS = {"ar_closed_loop": 6, "train_pool": 20, "encode_corpus": 12}
 OUTSIDE = "outside_spans"
-
-
-def _drive(cell, kind, n):
-    if kind == "ar_closed_loop":
-        cell._traced_steps(n)
-    elif kind == "train_pool":
-        for _ in range(n):
-            cell._one()
-    else:
-        base = len(cell.codes)
-        for g in range(n):
-            cell._launch(base + g)
+TAKES = 3
 
 
 class Attribution:
@@ -121,7 +112,8 @@ class Segment:
 
 def segment(cell):
     """The cell's segment, run on the first call and kept on the cell; None
-    without a card or against a program without spans."""
+    for a cell without ``SEGMENT_CALLS`` and ``drive_segment``, without a
+    card or against a program without spans."""
     if not hasattr(cell, "program_spans"):
         cell.program_spans = _run(cell)
     return cell.program_spans
@@ -132,24 +124,37 @@ def _run(cell):
 
     from vqvae_speech_tpu_torch.utils import profiling
 
-    if cell.dev.type != "cuda" or not hasattr(profiling, "record_spans"):
+    n = getattr(cell, "SEGMENT_CALLS", None)
+    drive = getattr(cell, "drive_segment", None)
+    if (n is None or drive is None or cell.dev.type != "cuda"
+            or not hasattr(profiling, "record_spans")):
         return None
-    kind = cell.ctx.traffic["kind"]
-    n = CALLS[kind]
     torch.cuda.synchronize()
     with profiling.record_spans() as spans:
-        _drive(cell, kind, n)
+        drive(n)
     torch.cuda.synchronize()
     host_ms = {}
     for s in spans:
         if s.end_ns is not None:
             host_ms.setdefault(s.name, []).append(
                 1e-6 * (s.end_ns - s.start_ns))
-    with profiling.trace(None) as traced:
-        _drive(cell, kind, n)
+    lost = 0
+    while True:
+        before = len(profiling.RETAKEN)
+        try:
+            with profiling.trace(None) as traced:
+                drive(n)
+            break
+        except RuntimeError:
+            if len(profiling.RETAKEN) == before or lost + 1 == TAKES:
+                raise
+            lost += 1
     att = Attribution(traced.spans, traced.records, threading.get_ident())
     seg = Segment(n, host_ms, att)
     note = cell.ctx.note
+    note("program_segment_retaken", lost)
+    note("program_span_counts", {k: len(v)
+                                 for k, v in sorted(host_ms.items())})
     note("program_idle_by_span", dict(sorted(att.idle_ms.items())))
     note("program_unattributed_share", att.unattributed_share)
     if att.lead_ns is not None:

@@ -21,6 +21,11 @@ import torch.nn.functional as F
 
 from h100bench.reference import plain
 
+# the configuration keys read by this reference and by the cells on it
+KEYS = ("n_layers", "n_loop", "residual_channels", "gate_channels",
+        "skip_out_channels", "filter_size", "local_condition_dim",
+        "global_condition_dim", "quantize", "num_speakers", "num_embeddings",
+        "embedding_dim", "num_hiddens", "learning_rate", "batch_size")
 UPSAMPLE_SCALES = (2, 2, 2, 2, 2, 12)
 DROPOUT = 1 - 0.95
 

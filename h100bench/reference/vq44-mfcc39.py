@@ -14,6 +14,13 @@ import torch.nn.functional as F
 
 from h100bench.reference import plain
 
+# the configuration keys read by this reference and by the cells on it
+KEYS = ("num_hiddens", "embedding_dim", "num_embeddings",
+        "input_features_filters", "augment_input_features",
+        "output_features_filters", "augment_output_features",
+        "residual_channels", "num_residual_layers", "commitment_cost",
+        "sampling_rate", "input_features_dim", "learning_rate", "batch_size")
+
 
 def param_spec(cfg):
     hid, D, K = cfg["num_hiddens"], cfg["embedding_dim"], cfg["num_embeddings"]

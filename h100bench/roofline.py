@@ -2,23 +2,28 @@
 
 The peaks are NVIDIA's published figures for the H100 SXM (dense, no
 sparsity, at the full 700 W): 67 TFLOP/s in f32 outside the tensor cores,
-which is where both configurations run (f32 with TF32 off), and 3.35 TB/s
-of HBM3. A kernel's bound is the larger of its operations over the f32
-peak and its bytes over the memory peak, with every input byte read once
-and every output byte written once. A whole step's FLOPs count the model's
+which is where the f32 configurations run (TF32 off), 495 TFLOP/s in TF32
+and 989 TFLOP/s in bf16 on the tensor cores, and 3.35 TB/s of HBM3. A
+kernel's bound is the larger of its operations over the peak of the unit
+and precision it computes in (f32 unless a reader says otherwise) and its
+bytes over the memory peak, with every input byte read once and every
+output byte written once. A whole step's FLOPs count the model's
 multiply-adds as two operations each.
 """
 import math
 
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_TENSOR_FLOPS = 495e12
+PEAK_BF16_TENSOR_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 F32 = 4
+BF16 = 2
 
 
-def bound_seconds(flops: float, nbytes: float):
+def bound_seconds(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """(seconds, "operations" or "bytes"): the least time the chip could
-    take."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    take, its operations at ``peak`` FLOP/s."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -56,6 +61,26 @@ def k2_counts(layers: int, k: int, C: int, G: int, S: int, B: int):
 
 def k2_bound(layers, k, C, G, S, B) -> float:
     return bound_seconds(*k2_counts(layers, k, C, G, S, B))[0]
+
+
+# ---- K3: a one-pass vocoder's resblock chain ----
+
+def k3_counts(layers: int, k: int, C: int, G: int, S: int, cin: int, T: int,
+              bf16: bool = False):
+    """(flops, bytes) of one chain of L gated layers over T rows: per layer
+    and row the gate's products, the k-tap conv and the conditioning 1x1
+    into 2G channels ((k * C + cin) * 2G), and the GLU's G outputs projected
+    to the residual and the skip (G * (C + S)); x, the upsampled
+    conditioning and the weights read once, x and the skip sum written
+    once. At ``bf16`` x, the conditioning, the weights and the written x
+    are bf16, the biases and the skip f32."""
+    flops = 2 * T * layers * ((k * C + cin) * 2 * G + G * (C + S))
+    weights = layers * (2 * k * C * G + 2 * cin * G + G * (C + S))
+    biases = layers * (2 * G + C + S)
+    if not bf16:
+        return flops, F32 * (T * (C + cin) + weights + biases + T * (C + S))
+    return flops, (BF16 * (T * (C + cin) + weights + T * C)
+                   + F32 * (biases + T * S))
 
 
 # ---- whole steps ----

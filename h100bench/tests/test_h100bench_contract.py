@@ -1,6 +1,6 @@
 """BENCHMARK.json against the benchmark's contract, and every file it
 names found by name."""
-import json
+import ast
 import os
 import re
 
@@ -99,6 +99,12 @@ def test_every_file_of_a_cell_is_found_by_name(cell):
     assert limits["limits"]
     assert harness.reference(w["config"]).__doc__
     assert any(cell in m["workloads"] for m in BENCH["per_layer"])
+    # the cell's sizes for the CPU tests shrink keys the cell has
+    tiny = harness.load_json(os.path.join(harness.HERE, "tiny",
+                                          cell + ".json"))
+    assert set(tiny) == {"config", "traffic"}
+    assert set(tiny["config"]) <= set(cfg)
+    assert set(tiny["traffic"]) <= set(traffic)
 
 
 def test_files_under_paths_are_named_from_names():
@@ -112,7 +118,20 @@ def test_files_under_paths_are_named_from_names():
 
 def test_configuration_files_hold_what_the_program_reads():
     for c in BENCH["configs"]:
-        cfg = json.load(open(os.path.join(harness.ROOT, c["file"])))
-        for key in ("num_hiddens", "embedding_dim", "num_embeddings",
-                    "learning_rate", "batch_size", "residual_channels"):
+        cfg = harness.load_json(os.path.join(harness.ROOT, c["file"]))
+        keys = harness.reference(c["name"]).KEYS
+        assert isinstance(keys, tuple) and keys, c["name"]
+        for key in keys:
             assert key in cfg, (c["name"], key)
+
+
+@pytest.mark.parametrize("config", sorted(c["name"] for c in BENCH["configs"]))
+def test_each_reference_names_every_key_it_reads(config):
+    """Every ``cfg["<key>"]`` in the reference's source is in its KEYS."""
+    ref = harness.reference(config)
+    tree = ast.parse(open(ref.__file__).read())
+    read = {node.slice.value for node in ast.walk(tree)
+            if isinstance(node, ast.Subscript)
+            and isinstance(node.value, ast.Name) and node.value.id == "cfg"
+            and isinstance(node.slice, ast.Constant)}
+    assert read <= set(ref.KEYS), sorted(read - set(ref.KEYS))

@@ -1,7 +1,8 @@
 """On the card: the control (the plain reference in the program's place,
-computed in TF32, the precision below the configurations' f32) comes out
-not correct at each cell's own size, and the program, checked the same
-way in the same process, correct. Skips without a card."""
+computed in the precision below the configuration's own: TF32 for an f32
+configuration) comes out not correct at each cell's own size, and the
+program, checked the same way in the same process, correct. Skips without
+a card."""
 import pytest
 
 from h100bench import harness

@@ -1,7 +1,10 @@
 """``h100bench/program_spans.py`` and the readers of ``source``
 ``program_span``: the attribution on records made by hand; on the tiny cells
-on the CPU, the segment's calls go through the program's spans and every
-reader returns None; against a program without spans, no segment."""
+on the CPU, the segment's calls (the driver's ``drive_segment``) go through
+the program's spans and every reader returns None; against a program
+without spans, or a cell without the segment's hooks, no segment."""
+from types import SimpleNamespace
+
 import pytest
 import torch
 
@@ -93,12 +96,10 @@ def test_segment_calls_open_the_programs_spans_and_readers_give_none(
     from vqvae_speech_tpu_torch.utils.profiling import record_spans
 
     cell = _cell(workload)
-    kind = cell.ctx.traffic["kind"]
     with record_spans() as spans:
-        program_spans._drive(cell, kind, program_spans.CALLS[kind])
+        cell.drive_segment(cell.SEGMENT_CALLS)
     for name in OPENS[workload]:
-        assert sum(s.name == name for s in spans) == \
-            program_spans.CALLS[kind], name
+        assert sum(s.name == name for s in spans) == cell.SEGMENT_CALLS, name
     for name in READERS[workload]:
         assert harness.reader(name).read(cell, None) is None, name
     assert cell.program_spans is None
@@ -114,3 +115,83 @@ def test_no_segment_against_a_program_without_spans(monkeypatch):
     cell = Cell()
     assert program_spans.segment(cell) is None
     assert harness.reader("forward_ms.train").read(cell, None) is None
+
+
+def test_no_segment_for_a_cell_without_the_hooks():
+    """A driver that gives no ``SEGMENT_CALLS`` and ``drive_segment`` gets
+    no segment, on a card as well, and its readers None."""
+
+    class Cell:
+        dev = torch.device("cuda")
+
+    cell = Cell()
+    assert program_spans.segment(cell) is None
+    assert harness.reader("admit_ms.ar").read(cell, None) is None
+
+
+class _Ctx:
+    def __init__(self):
+        self.notes = {}
+
+    def note(self, name, value):
+        self.notes[name] = value
+
+
+class _Counting:
+    """A cell whose segment calls open one span each; its ``dev`` claims a
+    card so that the segment runs on the CPU (its syncs patched out)."""
+    SEGMENT_CALLS = 2
+
+    def __init__(self):
+        self.ctx, self.calls = _Ctx(), 0
+        self.dev = SimpleNamespace(type="cuda")
+
+    def drive_segment(self, n):
+        from vqvae_speech_tpu_torch.utils.profiling import annotate
+        for _ in range(n):
+            with annotate("stub.call"):
+                self.calls += 1
+
+
+def _lose_regions(monkeypatch, lost, error="sentinels"):
+    """``profiling.trace`` loses its first ``lost`` regions as a lost
+    sentinel run does (noted in RETAKEN, then raising), or raises another
+    error."""
+    import contextlib
+
+    from vqvae_speech_tpu_torch.utils import profiling
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(profiling, "RETAKEN", [])
+    orig, taken = profiling.trace, []
+
+    @contextlib.contextmanager
+    def trace(logdir):
+        with orig(logdir) as out:
+            yield out
+        taken.append(1)
+        if len(taken) <= lost:
+            if error == "sentinels":
+                profiling.RETAKEN.append((0, 1, 1, 1, 0, False))
+            raise RuntimeError("lost")
+    monkeypatch.setattr(profiling, "trace", trace)
+
+
+def test_a_region_the_profiler_lost_is_driven_again(monkeypatch):
+    _lose_regions(monkeypatch, 1)
+    cell = _Counting()
+    seg = program_spans.segment(cell)
+    assert seg.calls == 2 and len(seg.host_ms["stub.call"]) == 2
+    assert cell.calls == 2 + 2 * 2
+    assert cell.ctx.notes["program_segment_retaken"] == 1
+    assert cell.ctx.notes["program_span_counts"] == {"stub.call": 2}
+
+
+def test_the_segment_raises_past_its_takes_or_on_another_error(monkeypatch):
+    _lose_regions(monkeypatch, program_spans.TAKES)
+    with pytest.raises(RuntimeError):
+        program_spans.segment(_Counting())
+    _lose_regions(monkeypatch, 1, error="other")
+    cell = _Counting()
+    with pytest.raises(RuntimeError):
+        program_spans.segment(cell)
+    assert cell.calls == 2 + 2

@@ -59,3 +59,24 @@ def test_decode_and_upsampling_counts():
     assert rf.upsample_flops(cfg, 384) == pytest.approx(2 * 3 * 768 * 446)
     assert rf.admission_flops(cfg, 384) == pytest.approx(
         2 * 3 * 768 * 446 + 2 * 20 * 768 * 768 * 384)
+
+
+def test_k3_bf16_bound_of_the_student_chain():
+    """The ClariNet student's chain (L=6, k=3, C=128, G=256, S=128, cin=80)
+    at T=20480: the kernel table's tensor bound at the bf16 peak, and its
+    bytes at bf16."""
+    flops, nbytes = rf.k3_counts(6, 3, 128, 256, 128, 80, 20480, bf16=True)
+    assert flops == 2 * 20480 * 6 * ((3 * 128 + 80) * 512 + 256 * 256)
+    t, kind = rf.bound_seconds(flops, nbytes, rf.PEAK_BF16_TENSOR_FLOPS)
+    assert kind == "operations" and t * 1e3 == pytest.approx(0.0753, abs=5e-5)
+    assert nbytes / rf.PEAK_HBM_BYTES * 1e3 == pytest.approx(0.0083, abs=5e-5)
+
+
+def test_k3_f32_bounds_of_the_student_chain():
+    """The same chain in f32: the f32 bound, and three TF32 products a f32
+    product at the TF32 peak (the error-compensated design's least time)."""
+    flops, nbytes = rf.k3_counts(6, 3, 128, 256, 128, 80, 20480)
+    t, kind = rf.bound_seconds(flops, nbytes)
+    assert kind == "operations" and t * 1e3 == pytest.approx(1.1118, abs=5e-5)
+    t, _ = rf.bound_seconds(3 * flops, nbytes, rf.PEAK_TF32_TENSOR_FLOPS)
+    assert t * 1e3 == pytest.approx(0.4515, abs=5e-5)
